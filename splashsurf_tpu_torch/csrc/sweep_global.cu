@@ -30,18 +30,16 @@
 // the 160M-cell dense gate S * Xp * Yp * Zp comes near 2^31. Shared-memory
 // tiling of the raster window is left to a later change.
 //
-// Built without fast math: the empty-slot sentinel relies on IEEE inf
-// arithmetic (sqrt(inf), 2 - inf, max(-inf, 0)).
+// The sum at each point is splat::level_set_sum (level_set_sum.cuh), shared
+// with kernel K3. Built without fast math: the empty-slot sentinel relies on
+// IEEE inf arithmetic (sqrt(inf), 2 - inf, max(-inf, 0)).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "level_set_sum.cuh"
 
-__device__ __forceinline__ float dev_sqrt(float x) { return sqrtf(x); }
-__device__ __forceinline__ double dev_sqrt(double x) { return sqrt(x); }
-__device__ __forceinline__ float dev_max0(float x) { return fmaxf(x, 0.0f); }
-__device__ __forceinline__ double dev_max0(double x) { return fmax(x, 0.0); }
+namespace {
 
 template <typename T>
 __global__ void __launch_bounds__(256) sweep_global_kernel(
@@ -58,33 +56,10 @@ __global__ void __launch_bounds__(256) sweep_global_kernel(
   const int64_t xy = idx / PZ;
   const int64_t y = xy % PY;
   const int64_t x = xy / PY;
-  const int64_t slot_stride = Xp * Yp * Zp;
-
-  T acc = T(0);
-  for (int s = 0; s < n_slots; ++s) {
-    const int64_t slot_base = (int64_t)s * slot_stride;
-    for (int r = 0; r < n_runs; ++r) {
-      const int4 run = runs[r];  // (o0, o1, o2_lo, o2_hi), shifted by pad
-      const T ox = T(run.x - pad) * cs;
-      const T oy = T(run.y - pad) * cs;
-      const int64_t row =
-          slot_base + ((x + run.x) * Yp + (y + run.y)) * Zp + z;
-      for (int o2 = run.z; o2 < run.w; ++o2) {
-        const int64_t i = row + o2;
-        const T v = fv[i];
-        if (v == T(0)) continue;  // empty slot: contributes exactly 0
-        const T dx = fx[i] + ox;
-        const T dy = fy[i] + oy;
-        const T dz = fz[i] + T(o2 - pad) * cs;
-        const T d2 = dx * dx + dy * dy + dz * dz;
-        const T q = dev_sqrt(d2) * two_over_h;
-        const T a = dev_max0(T(2) - q);
-        const T b = dev_max0(T(1) - q);
-        acc += (a * a * a - T(4) * (b * b * b)) * v;
-      }
-    }
-  }
-  out[idx] = acc * sigma;
+  out[idx] = splat::level_set_sum(fx, fy, fz, fv, runs, n_runs, n_slots,
+                                  Xp * Yp * Zp, Yp, Zp, x, y, z, pad, cs,
+                                  two_over_h) *
+             sigma;
 }
 
 template <typename T>
@@ -97,7 +72,7 @@ int launch(const void* fx, const void* fy, const void* fz, const void* fv,
   if (n_out == 0) return 0;
   const int threads = 256;
   const int64_t blocks = (n_out + threads - 1) / threads;
-  const double sigma = 8.0 / (h * h * h) / (4.0 * 3.14159265358979323846);
+  const double sigma = splat::kernel_sigma(h);
   sweep_global_kernel<T><<<(unsigned int)blocks, threads, 0,
                            (cudaStream_t)stream>>>(
       (const T*)fx, (const T*)fy, (const T*)fz, (const T*)fv,

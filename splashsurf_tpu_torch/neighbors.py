@@ -14,8 +14,13 @@ formulations carry dense fluids, in the reference's order:
 
 Both fill (8, LX+2, LY+2, LZ+2) bin-fraction rasters and run the 27-offset
 bin sweep (kernel K2, ``ops.splat_kernels.density_sweep_cuda``). Sparse
-lattices need the sort-based binned formulation, which is not ported: they
-raise NotImplementedError.
+lattices, which the gate keeps off the dense rasters, take the third:
+
+3. binned: particles sorted by bin fill one (u_cap, K) position table row
+   per occupied bin, and each of the 27 stencil offsets adds a (K, K) pair
+   block per occupied bin (plain PyTorch; the reference has no TPU kernel
+   here). With K = 8 and a few fuller bins, their rank >= 8 particles go
+   through the same exact overflow correction as the raster formulation.
 """
 
 from __future__ import annotations
@@ -346,6 +351,120 @@ def _round_up(n: int, m: int = 8) -> int:
     return ((max(int(n), 1) + m - 1) // m) * m
 
 
+# Largest bin lattice that gets a dense rank table in the binned formulation;
+# larger lattices look neighbour bins up by binary search.
+RANK_TABLE_MAX = 1 << 24
+
+# Bound on the elements of one (K, K, rows) pair block of the binned sweep.
+_PAIR_BLOCK_ELEMS = 1 << 25
+
+
+def compute_particle_densities_binned(
+    positions, grid: BinGrid, cell_list: CellList, compact_support_radius,
+    particle_rest_mass, capacity: int, u_cap: int, overflow: bool = False,
+    candidate_capacity: int = 0,
+):
+    """SPH densities from per-occupied-bin position tables.
+
+    Occupied bins (in ascending bin id) own one row of (u_cap, K) position
+    tables, empty slots holding the far sentinel. Each of the 27 stencil
+    offsets adds, for every occupied bin, the (K, K) block of kernel values
+    between its slots and those of the neighbour bin; empty slots add
+    exactly 0 and the self term W(0) comes in naturally. ``u_cap`` is the
+    occupied-bin count rounded up to a power of two, as in the reference;
+    only the occupied rows are swept, in row blocks that bound the pair
+    block to ``_PAIR_BLOCK_ELEMS``. Neighbour rows come from a dense rank
+    table on lattices up to ``RANK_TABLE_MAX`` bins, else from a binary
+    search over the occupied bin ids.
+
+    ``capacity`` (K) must cover the largest occupancy unless ``overflow``
+    is set: then the rank >= K particles are left out of the tables and
+    corrected exactly (``_overflow_correction``, with ``candidate_capacity``
+    >= the largest occupancy).
+    """
+    dtype = positions.dtype
+    dev = positions.device
+    n = positions.shape[0]
+    K = capacity
+    sb = cell_list.sorted_bins
+    is_start = torch.ones(n, dtype=torch.bool, device=dev)
+    is_start[1:] = sb[1:] != sb[:-1]
+    bin_rank = torch.cumsum(is_start, 0) - 1
+    first = torch.nonzero(is_start).squeeze(1)
+    n_bins = first.shape[0]
+    if n_bins > u_cap:
+        raise ValueError(f"u_cap {u_cap} below the {n_bins} occupied bins")
+    slot = torch.arange(n, device=dev) - first[bin_rank]
+    occ_bins = sb[first]  # ascending
+
+    table_ok = slot < K
+    dest = torch.where(table_ok, bin_rank * K + slot, u_cap * K)
+    far = kernels.far_fill(dtype)
+    tables = [
+        kernels.scatter_table(dest, cell_list.sorted_positions[d], u_cap * K, far, (u_cap, K))
+        for d in range(3)
+    ]
+
+    lattice = grid.lattice
+    _, dy, dz = grid.dims
+    stencil_flat = (_STENCIL[:, 0] * (dy * dz) + _STENCIL[:, 1] * dz + _STENCIL[:, 2]).tolist()
+    if lattice <= RANK_TABLE_MAX:
+        rank_table = torch.full((lattice,), -1, dtype=torch.int64, device=dev)
+        rank_table[occ_bins] = torch.arange(n_bins, device=dev)
+
+    h = compact_support_radius
+    acc = torch.zeros((n_bins, K), dtype=dtype, device=dev)
+    rows = max(1, _PAIR_BLOCK_ELEMS // (K * K))
+    for r0 in range(0, n_bins, rows):
+        r1 = min(r0 + rows, n_bins)
+        own = [t[r0:r1, :, None] for t in tables]  # (rows, K, 1)
+        for delta in stencil_flat:
+            target = occ_bins[r0:r1] + delta
+            inside = (target >= 0) & (target < lattice)
+            if lattice <= RANK_TABLE_MAX:
+                nb = rank_table[target.clamp(0, lattice - 1)]
+                present = inside & (nb >= 0)
+            else:
+                nb = torch.searchsorted(occ_bins, target).clamp_max(n_bins - 1)
+                present = inside & (occ_bins[nb] == target)
+            nb = torch.where(present, nb, 0)
+            d2 = None
+            for d in range(3):
+                diff = own[d] - tables[d][nb][:, None, :]  # (rows, K, K)
+                # inf - inf = nan: empty slots must give W = 0
+                diff = torch.where(torch.isfinite(diff), diff, math.inf)
+                d2 = diff * diff if d2 is None else d2 + diff * diff
+            w = kernels.cubic_kernel(torch.sqrt(d2), h).sum(dim=2)
+            acc[r0:r1] += torch.where(present[:, None], w, 0.0)
+
+    rho_sorted = torch.where(
+        table_ok, acc.reshape(-1)[torch.where(table_ok, bin_rank * K + slot, 0)], 0.0
+    )
+    rho = torch.empty_like(rho_sorted)
+    rho[cell_list.order] = rho_sorted
+    if overflow:
+        rho = _overflow_correction(
+            positions, grid, cell_list, K, candidate_capacity, h, rho
+        )
+    return kernels.rounded(particle_rest_mass, dtype) * rho
+
+
+def binned_plan(n: int, lattice: int, n_bins: int, max_occ: int, over8: int) -> dict:
+    """The binned formulation's capacities, as the reference picks them:
+    K = 8 when no bin holds more ("binned8"); K = 8 with the overflow
+    correction when the rank >= 8 particles are few and the lattice is
+    small enough for its per-bin tables (also "binned8"); otherwise K = the
+    largest occupancy rounded up to 8 ("binned"). ``u_cap`` is the
+    occupied-bin count rounded up to a power of two."""
+    u_cap = 1 << max(int(n_bins) - 1, 1).bit_length()
+    plan = dict(kind="binned8", capacity=8, u_cap=u_cap, overflow=False, ccap=0)
+    if max_occ <= 8:
+        return plan
+    if over8 <= density_over_budget(n) and lattice <= RANK_TABLE_MAX:
+        return dict(plan, overflow=True, ccap=_round_up(max_occ + 8))
+    return dict(plan, kind="binned", capacity=_round_up(max_occ))
+
+
 def density_over_budget(n: int) -> int:
     """Past this many rank >= 8 particles the K=8 paths stop paying off."""
     return max(4096, int(n) // 128)
@@ -382,12 +501,18 @@ def density_gate(n: int, lattice: int, n_bins: int, max_occ: int, over8: int) ->
     )
 
 
+# The formulation the last compute_particle_densities call took ("geoslot",
+# "raster", "binned8" or "binned") and the statistics it was chosen from.
+# Read by tests and chip_smoke.py; never by the pipeline.
+LAST_GATE: dict = {}
+
+
 def compute_particle_densities(
     positions: torch.Tensor, compact_support_radius: float, particle_rest_mass: float
 ) -> torch.Tensor:
     """Per-particle SPH densities (self term included) on the positions'
     device. Plans the bin lattice on the host from a few scalars read back,
-    then runs geoslot, else the raster formulation."""
+    then runs geoslot, else the raster formulation, else the binned one."""
     n = positions.shape[0]
     lo, hi = torch.aminmax(positions, dim=0)
     mn, mx = lo.cpu().numpy(), hi.cpu().numpy()
@@ -403,6 +528,10 @@ def compute_particle_densities(
             max_occ, n_bins, over8 = stats2
 
     gate = density_gate(n, grid.lattice, n_bins, max_occ, over8)
+    LAST_GATE.clear()
+    LAST_GATE.update(
+        n=n, lattice=grid.lattice, n_bins=n_bins, max_occ=max_occ, over8=over8
+    )
     if gate["try_geoslot"]:
         phases = _octant_phase(positions, compact_support_radius / 2.0)
         agrid = _phase_aligned_bingrid(mn, mx, compact_support_radius, phases)
@@ -411,17 +540,20 @@ def compute_particle_densities(
                 positions, agrid, compact_support_radius, particle_rest_mass
             )
             if bool(ok):
+                LAST_GATE["kind"] = "geoslot"
                 return rho
-        # octant collisions: the sorted raster formulation below
+        # octant collisions: the sorted formulations below
     if gate["use_raster"]:
+        LAST_GATE["kind"] = "raster"
         return compute_particle_densities_raster(
             positions, grid, cl, compact_support_radius, particle_rest_mass,
             slots=8, overflow=gate["overflow"],
             candidate_capacity=gate["ccap"],
         )
-    raise NotImplementedError(
-        f"sparse bin lattice ({n_bins} of {grid.lattice} bins occupied, max "
-        f"occupancy {max_occ}): the sort-based binned density formulation "
-        "(splashsurf_tpu/neighbors.py:448) is not ported yet; it is queued "
-        "in ROADMAP.md, queue 1, 'binned density'"
+    plan = binned_plan(n, grid.lattice, n_bins, max_occ, over8)
+    LAST_GATE["kind"] = plan["kind"]
+    return compute_particle_densities_binned(
+        positions, grid, cl, compact_support_radius, particle_rest_mass,
+        capacity=plan["capacity"], u_cap=plan["u_cap"],
+        overflow=plan["overflow"], candidate_capacity=plan["ccap"],
     )

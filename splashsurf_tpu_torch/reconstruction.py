@@ -1,9 +1,10 @@
-"""Surface reconstruction entry point (PyTorch port of the dense route of
+"""Surface reconstruction entry point (PyTorch port of
 ``splashsurf_tpu.reconstruction``; reference API: lib.rs:330-473).
 
 The device is explicit: a tensor input runs on its own device, a numpy
-input needs ``device=``. Only the dense global route is ported; inputs that
-the reference package would send down another route raise
+input needs ``device=``. The dense global route and the subdomain-grid
+route are ported, and the route is chosen as the reference package chooses
+it; inputs that it would send down the slab route raise
 NotImplementedError.
 """
 
@@ -24,6 +25,11 @@ from splashsurf_tpu_torch.uniform_grid import UniformGrid, kernel_extents
 # and the largest it lets that pipeline materialize.
 GLOBAL_DENSE_MAX_CELLS = 160_000_000
 GLOBAL_DENSE_GUARD_CELLS = 128_000_000
+# The reference's slab route: slabs of at most this many cells
+# (ops/slab_sweep.py:450), taken for at most this many slabs on grids of
+# fewer than 2^31 points.
+SLAB_CELLS_BUDGET = 48_000_000
+SLAB_MAX_SLABS = 64
 
 
 @dataclasses.dataclass
@@ -34,6 +40,7 @@ class SurfaceReconstruction:
 
     grid: UniformGrid
     mesh: TriMesh3d
+    subdomain_grid: Optional[UniformGrid] = None
     particle_densities: Optional[torch.Tensor] = None
     particle_inside_aabb: Optional[np.ndarray] = None
 
@@ -88,30 +95,44 @@ def _bucket_grid(grid: UniformGrid) -> UniformGrid:
     return UniformGrid(min=grid.min, cell_size=grid.cell_size, n_cells=dims)
 
 
-def _check_dense_route(parameters: Parameters, grid: UniformGrid) -> None:
-    """Raise unless the reference package would take the dense global route
-    (reconstruction.py:330-347, 406-411) for this grid."""
-    decomposition = parameters.spatial_decomposition
-    if decomposition == SpatialDecomposition.UNIFORM_GRID:
+def slab_width_cells(grid: UniformGrid, max_cells: int) -> int:
+    """The reference's slab width in cells (ops/slab_sweep.py:51): one
+    slab's cells stay within ``max_cells``; at least 8 cells, at most the
+    whole grid."""
+    _, ncy, ncz = grid.n_cells
+    return int(max(8, min(grid.n_cells[0], max_cells // max(1, ncy * ncz))))
+
+
+def choose_route(parameters: Parameters, grid: UniformGrid) -> str:
+    """The route the reference package takes for this grid
+    (reconstruction.py:330-411): "dense" or "subdomain"; raises
+    NotImplementedError where it would take the slab route, and ValueError
+    where the dense route would materialize too large a grid."""
+    route = "dense"
+    if parameters.spatial_decomposition == SpatialDecomposition.UNIFORM_GRID:
         gd = parameters.grid_decomposition
-        if not gd.auto_disable:
-            raise NotImplementedError(
-                "the subdomain route (spatial decomposition without "
-                "auto_disable) is not ported yet; see ROADMAP.md"
-            )
-        small = max(grid.n_cells) <= 1.2 * gd.subdomain_num_cubes_per_dim
-        if not small and grid.total_cells > GLOBAL_DENSE_MAX_CELLS:
-            raise NotImplementedError(
-                f"grid {grid.n_cells} ({grid.total_cells} cells) is past the "
-                f"dense gate of {GLOBAL_DENSE_MAX_CELLS} cells: the slab and "
-                "subdomain routes are not ported yet; see ROADMAP.md"
-            )
-    if grid.total_cells > GLOBAL_DENSE_GUARD_CELLS:
+        route = "subdomain"
+        if gd.auto_disable:
+            if max(grid.n_cells) <= 1.2 * gd.subdomain_num_cubes_per_dim:
+                route = "dense"  # hardly larger than one subdomain
+            elif grid.total_cells <= GLOBAL_DENSE_MAX_CELLS:
+                route = "dense"
+            elif int(np.prod(np.asarray(grid.n_points, np.int64))) < 2**31:
+                n_slabs = -(-grid.n_cells[0] // slab_width_cells(grid, SLAB_CELLS_BUDGET))
+                if n_slabs <= SLAB_MAX_SLABS:
+                    raise NotImplementedError(
+                        f"grid {grid.n_cells} ({grid.total_cells} cells) is past the "
+                        f"dense gate of {GLOBAL_DENSE_MAX_CELLS} cells and fits "
+                        f"{n_slabs} slabs: the reference takes the slab route there, "
+                        "which is not ported yet; see ROADMAP.md"
+                    )
+    if route == "dense" and grid.total_cells > GLOBAL_DENSE_GUARD_CELLS:
         raise ValueError(
             f"global reconstruction would materialize a dense {grid.n_cells} "
             f"grid ({grid.total_cells} cells); use "
             "SpatialDecomposition.UNIFORM_GRID for domains this large"
         )
+    return route
 
 
 def reconstruct_surface(
@@ -124,6 +145,7 @@ def reconstruct_surface(
     numpy arrays.
     """
     from splashsurf_tpu_torch.global_pipeline import reconstruct_surface_global
+    from splashsurf_tpu_torch.subdomains import reconstruct_surface_subdomain_grid
 
     positions = as_device_tensor(
         particle_positions, device, parameters.torch_dtype
@@ -154,7 +176,10 @@ def reconstruct_surface(
             parameters.particle_aabb,
         )
     )
-    _check_dense_route(parameters, grid)
+    if choose_route(parameters, grid) == "subdomain":
+        return reconstruct_surface_subdomain_grid(
+            positions, parameters, grid, particle_inside_aabb=inside_aabb
+        )
     return reconstruct_surface_global(
         positions, parameters, grid, particle_inside_aabb=inside_aabb
     )

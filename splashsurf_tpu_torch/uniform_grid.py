@@ -12,8 +12,12 @@ import math
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from splashsurf_tpu_torch.aabb import Aabb3d
+from splashsurf_tpu_torch.kernels import rounded
+
+_CELL_CLAMP = float(2**40)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,3 +87,19 @@ class UniformGrid:
     def total_cells(self) -> int:
         nx, ny, nz = self.n_cells
         return nx * ny * nz
+
+    def enclosing_cell(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., 3) positions -> (..., 3) int64 indices of the cells that
+        contain them, floor((x - min) / cell_size) in the positions' dtype.
+        Positions outside the grid give indices outside [0, n_cells), as the
+        reference's ghost classification needs (dense_subdomains.rs:667);
+        they are clamped to +-2^40 only so that far sentinels stay integers."""
+        dtype = x.dtype
+        mn = torch.tensor([rounded(m, dtype) for m in self.min], dtype=dtype, device=x.device)
+        q = torch.floor((x - mn) / rounded(self.cell_size, dtype))
+        return q.clamp(-_CELL_CLAMP, _CELL_CLAMP).to(torch.int64)
+
+    def flatten_cell_index(self, ijk: torch.Tensor) -> torch.Tensor:
+        """Flat int64 cell index i*ny*nz + j*nz + k of (..., 3) indices."""
+        _, ny, nz = self.n_cells
+        return (ijk[..., 0] * ny + ijk[..., 1]) * nz + ijk[..., 2]

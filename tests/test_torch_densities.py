@@ -1,8 +1,10 @@
 """Per-particle SPH densities of the PyTorch port against the JAX reference:
 the geoslot formulation on a jittered block, geoslot and the sorted raster
 formulation (with its overflow correction) against the brute-force
-neighbour oracle, and the sparse case that is not ported. The raster
-formulation against the reference is in test_torch_densities_raster.py."""
+neighbour oracle, and a sparse cloud through the binned formulation. The
+raster formulation against the reference is in
+test_torch_densities_raster.py, the binned one in
+test_torch_densities_binned.py."""
 
 import numpy as np
 import pytest
@@ -99,9 +101,13 @@ def test_densities_agree_with_naive_oracle(spacing_rel, seed, path):
     np.testing.assert_allclose(got, _oracle(pts), rtol=1e-12, atol=0)
 
 
-def test_sparse_scene_is_not_ported():
-    """A sparse cloud fails the dense gate: the reference would take the
-    sort-based binned formulation, which the port does not have yet."""
+def test_sparse_scene_takes_the_binned_formulation():
+    """A sparse cloud fails the dense gate and takes the sort-based binned
+    formulation; its densities agree with the brute-force oracle and with
+    the reference."""
     pts = np.random.default_rng(1).uniform(0, 1, (2000, 3))
-    with pytest.raises(NotImplementedError, match="binned density"):
-        tn.compute_particle_densities(torch.as_tensor(pts), SUPPORT, MASS)
+    got = tn.compute_particle_densities(torch.as_tensor(pts), SUPPORT, MASS).numpy()
+    assert tn.LAST_GATE["kind"] == "binned8"
+    np.testing.assert_allclose(got, _oracle(pts), rtol=1e-12, atol=0)
+    want = np.asarray(jn.compute_particle_densities(pts, SUPPORT, MASS))
+    np.testing.assert_allclose(got, want, rtol=1e-10, atol=0)

@@ -2,7 +2,8 @@
 reference on a small synthetic dam break: in f64 the vertex and triangle
 lists equal the reference's, in f32 the counts are equal and vertices lie
 within 1e-4; the mesh is closed. Plus the port's entry-point contract:
-explicit devices, and the routes it does not have yet."""
+explicit devices, the routes it does not have yet, and forced
+decomposition taking the subdomain route."""
 
 import numpy as np
 import pytest
@@ -83,21 +84,32 @@ def test_tensor_input_runs_on_its_device(scene):
 
 
 def test_grid_past_the_dense_gate_is_not_ported():
-    # two particles ~10 m apart at a 1.65 cm cube: ~600^3 = 216M cells
+    # two particles ~10 m apart at a 1.65 cm cube: ~600^3 = 216M cells in 5
+    # slabs, where the reference takes the slab route
     pts = np.asarray([[0.0, 0.0, 0.0], [10.0, 10.0, 10.0]], np.float32)
     params = pt.Parameters.new_relative(RADIUS, 4.0, 1.5)
     with pytest.raises(NotImplementedError, match="dense gate"):
         pt.reconstruct_surface(pts, params, device="cpu")
 
 
-@pytest.mark.parametrize(
-    "kw",
-    [
-        dict(global_neighborhood_list=True),
-        dict(grid_decomposition=pt.GridDecompositionParameters(32, auto_disable=False)),
-    ],
-)
+@pytest.mark.parametrize("kw", [dict(global_neighborhood_list=True)])
 def test_other_routes_are_not_ported(scene, kw):
     params = pt.Parameters.new_relative(RADIUS, 4.0, 1.5, **kw)
     with pytest.raises(NotImplementedError):
         pt.reconstruct_surface(scene, params, device="cpu")
+
+
+def test_forced_decomposition_takes_the_subdomain_route(scene):
+    params = pt.Parameters.new_relative(
+        RADIUS, 4.0, 1.5,
+        grid_decomposition=pt.GridDecompositionParameters(32, auto_disable=False),
+    )
+    rec = pt.reconstruct_surface(scene, params, device="cpu")
+    assert rec.subdomain_grid is not None
+    assert rec.subdomain_grid.cell_size == 32 * rec.grid.cell_size
+    dense = pt.reconstruct_surface(scene, pt.Parameters.new_relative(RADIUS, 4.0, 1.5), device="cpu")
+    assert dense.subdomain_grid is None
+    assert (rec.mesh.num_vertices, rec.mesh.num_triangles) == (
+        dense.mesh.num_vertices, dense.mesh.num_triangles
+    )
+    assert pt.check_mesh_consistency(rec.mesh.vertices, rec.mesh.triangles) is None
