@@ -24,7 +24,17 @@ Phases (each prints progress; any failure raises and exits non-zero):
      subdomain route taken with binned densities, and K3 launched;
   8. the subdomain route on a ~100K canyon from a CPU input against a CUDA
      input, and on the 100K dam break against the dense route on the card:
-     equal counts, vertices within 1e-4.
+     equal counts, vertices within 1e-4;
+  9. kernel K4 (pair sweep of the cell-raster densities) against its plain
+     version on the meta rasters of the 2M dam break, f32, and of a 20K dam
+     break in f64, timed, on occupied query slots;
+ 10. ``reconstruct_sequence`` over 6 frames of the 2M dam break with the
+     cell-raster densities (``SPLASHSURF_TPU_DENSITY_CELLRASTER=1``): every
+     frame without raster overflow takes them (K4 launched once, K2 not at
+     all), each mesh is closed and equals a frame-at-a-time run, and the
+     first frame agrees with the legacy densities (rho rtol 1e-5, equal
+     counts, vertices within 1e-4); per-frame seconds pipelined and frame at
+     a time, and the stage split of both density formulations.
 
 Each kernel's line carries its bound: the larger of the bytes it must move
 (rasters read once, output written once) over 3.35 TB/s and the float
@@ -39,6 +49,8 @@ Without a CUDA device the script exits non-zero before printing any result.
 """
 
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -60,7 +72,10 @@ F32_FLOPS = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 # (sqrt and max count one each): K1/K3 23 (offset adds 4, d2 5, q 2, the
 # two clamped cubes 8, weight and sum 4); K2 22 (differences 3, d2 5, q 2,
 # cubes 8, combine and sum 4)
-FLOPS_PER_TERM = {"sweep_global": 23, "density_sweep": 22, "splat_sweep": 23}
+# and K4 22 (the same loop body as K2)
+FLOPS_PER_TERM = {"sweep_global": 23, "density_sweep": 22, "splat_sweep": 23, "pair_sweep": 22}
+CELLRASTER = "SPLASHSURF_TPU_DENSITY_CELLRASTER"
+N_FRAMES = 6
 
 
 def log(msg):
@@ -69,7 +84,8 @@ def log(msg):
 
 def reset_launches(sk):
     """Set every kernel's launch count to 0, just before a main path runs."""
-    for fn in (sk.sweep_global_cuda, sk.density_sweep_cuda, sk.splat_sweep_cuda):
+    for fn in (sk.sweep_global_cuda, sk.density_sweep_cuda, sk.splat_sweep_cuda,
+               sk.pair_sweep_cuda):
         fn.launches = 0
 
 
@@ -130,6 +146,21 @@ def density_terms(fx):
         for b in range(3):
             for c in range(3):
                 total += float((q * occ[a : a + X - 2, b : b + Y - 2, c : c + Z - 2]).sum())
+    return int(total)
+
+
+def pair_terms(fx, reach, h_over_cs, pad, n_cells):
+    """Occupied (query, source) pairs of the pruned pair fan (K4): for every
+    offset, the occupied slots of each cell times those of the cell at the
+    offset."""
+    from splashsurf_tpu_torch.ops.splat_kernels import pair_cell_offsets
+
+    occ = (fx < 1e14).sum(dim=0).to(torch.float64)  # (Xp, Yp, Zp)
+    q = occ[tuple(slice(pad, pad + n) for n in n_cells)]
+    total = 0.0
+    for o in pair_cell_offsets(reach, h_over_cs):
+        win = occ[tuple(slice(pad + a, pad + a + n) for a, n in zip(o, n_cells))]
+        total += float((q * win).sum())
     return int(total)
 
 
@@ -291,10 +322,11 @@ def phase_cross_subdomain(pt, dev, dam):
     check_same_mesh("subdomain/dense dam break", rs.mesh, rd.mesh, ordered=False, tree=cKDTree)
 
 
-def check_same_mesh(name, a, b, ordered, tree=None):
-    """Equal counts and vertices within 1e-4: position by position when both
-    lists share an order, else by nearest neighbour both ways."""
-    if (a.num_vertices, a.num_triangles) != (b.num_vertices, b.num_triangles):
+def check_same_mesh(name, a, b, ordered, tree=None, same_counts=True):
+    """Equal counts (unless ``same_counts`` is False) and vertices within
+    1e-4: position by position when both lists share an order, else by
+    nearest neighbour both ways."""
+    if same_counts and (a.num_vertices, a.num_triangles) != (b.num_vertices, b.num_triangles):
         raise AssertionError(
             f"{name}: counts differ: {a.num_vertices}/{a.num_triangles} vs "
             f"{b.num_vertices}/{b.num_triangles}"
@@ -307,8 +339,247 @@ def check_same_mesh(name, a, b, ordered, tree=None):
     if vdiff >= 1e-4:
         raise AssertionError(f"{name}: vertices differ by {vdiff}")
     same = ordered and bool((a.triangles == b.triangles).all())
-    log(f"  {name}: {a.num_vertices} vertices, {a.num_triangles} triangles; max vertex "
+    counts = f"{a.num_vertices} vertices, {a.num_triangles} triangles"
+    if (a.num_vertices, a.num_triangles) != (b.num_vertices, b.num_triangles):
+        counts += f" against {b.num_vertices}, {b.num_triangles}"
+    log(f"  {name}: {counts}; max vertex "
         f"diff {vdiff:.3e}" + (f"; triangle lists equal: {same}" if ordered else ""))
+
+
+def phase_k4(pt, dev, pts, grid, hsc, params, kernels):
+    """Phase 9: K4 against its plain version on the meta rasters of the 2M
+    dam break (f32, timed) and of a 20K dam break in f64, on occupied query
+    slots; the kernel writes exactly 0 on the empty ones."""
+    import bench
+    from splashsurf_tpu_torch.ops import global_sweep as gs
+    from splashsurf_tpu_torch.ops import splat_kernels as sk
+
+    h = params.compact_support_radius
+
+    def inputs(p, g):
+        fracs, n_over, _ = gs.rasterize_global(p, None, g, 2, hsc, with_meta=True)
+        args = (g.cell_size, h, math.ceil(h / g.cell_size - 1e-9), h / g.cell_size, hsc + 1,
+                g.n_cells)
+        occ = fracs[0][(slice(None),) + tuple(slice(hsc + 1, hsc + 1 + n) for n in g.n_cells)] < 1e14
+        return fracs, args, occ, n_over
+
+    fracs, args, occ, n_over = inputs(pts, grid)
+    log(f"phase 9: K4 on rasters {tuple(fracs[0].shape)} ({n_over} overflow particles), "
+        f"fan {len(sk.pair_cell_offsets(args[2], args[3]))} offsets, reach {args[2]}")
+    k4 = lambda: sk.pair_sweep_cuda(*fracs, *args)
+    p4 = lambda: sk.pair_sweep_plain(*fracs, *args)
+    out4 = k4()
+    err4 = compare("K4 f32", out4, p4(), F32_TOL, occ)
+    if bool((out4[~occ] != 0).any()):
+        raise AssertionError("K4 wrote a nonzero sum on an empty query slot")
+    ms4, pms4 = cuda_ms(k4, 10), cuda_ms(p4, 3)
+    b4 = bound("pair_sweep", nbytes(*fracs, out4), pair_terms(fracs[0], *args[2:]))
+    log(f"  K4 f32: kernel {ms4:.3f} ms, plain {pms4:.3f} ms, bound {b4[0]:.4f} ms ({b4[1]})")
+    del fracs, out4, occ
+    small = torch.as_tensor(bench.make_dam_break(20_000, RADIUS), device=dev).double()
+    sgrid = pt.grid_for_reconstruction(small, RADIUS, h, params.cube_size)
+    f64, args64, occ64, _ = inputs(small, sgrid)
+    compare("K4 f64", sk.pair_sweep_cuda(*f64, *args64), sk.pair_sweep_plain(*f64, *args64),
+            F64_TOL, occ64)
+    kernels["pair_sweep"] = dict(
+        name="pair_sweep", route="cuda",
+        source="splashsurf_tpu_torch/csrc/pair_sweep.cu",
+        replaces="splashsurf_tpu/ops/splat_pallas.py:354",
+        max_abs_err=err4, ms=ms4, plain_ms=pms4, bound_ms=b4[0], bound_by=b4[1],
+        library_ms=None,
+    )
+
+
+def dense_stage_split(pts, params, grid, hsc, cellraster: bool, reps: int = 3):
+    """Seconds of each stage of one dense frame, the device synchronised at
+    each stage boundary, median over ``reps`` frames: the legacy densities
+    (densities, rasterize, sweep, MC, pull) or the cell-raster ones
+    (rasterize with meta, K4 + fv, sweep, MC, pull)."""
+    from splashsurf_tpu_torch import neighbors as N
+    from splashsurf_tpu_torch.global_pipeline import MeshPull
+    from splashsurf_tpu_torch.ops import global_sweep as gs
+
+    h, m = params.compact_support_radius, params.particle_rest_mass
+    runs = []
+    for _ in range(reps):
+        t = {}
+        torch.cuda.synchronize()
+        t0 = [time.perf_counter()]
+
+        def lap(name):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            t[name] = now - t0[0]
+            t0[0] = now
+
+        if cellraster:
+            fracs, _, meta = gs.rasterize_global(pts, None, grid, 2, hsc, with_meta=True)
+            lap("rasterize")
+            fv, _ = gs.density_weights_from_rasters(
+                *fracs, *meta, m, h, grid, hsc, math.ceil(h / grid.cell_size - 1e-9),
+                h / grid.cell_size,
+            )
+            lap("K4 + fv")
+            none = pts.new_empty(0)
+            ls = gs.sweep_global(fracs + (fv,), (none,) * 4, grid, h, hsc)
+        else:
+            rho = N.compute_particle_densities(pts, h, m)
+            lap("densities")
+            rasters, overflow = gs.rasterize_global(pts, m / rho, grid, 2, hsc)
+            lap("rasterize")
+            ls = gs.sweep_global(rasters, overflow, grid, h, hsc)
+        lap("sweep")
+        verts, tris = gs.mesh_from_level_set(ls, grid, params.iso_surface_threshold)
+        lap("marching cubes")
+        MeshPull(verts, tris).resolve()
+        lap("pull")
+        runs.append(t)
+    return {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+
+
+def rel_err(rho, truth):
+    return float(((rho.double() - truth).abs() / truth).max())
+
+
+def compare_legacy(pt, frame, params, cell):
+    """Frame 0 with the cell-raster densities (``cell``) against the legacy
+    densities (switch "0").
+
+    In f64 the two agree within rho rtol 1e-5 (the reference's own bar
+    between them), with equal counts and vertices within 1e-4. In f32 the
+    dam break's coordinates (up to 6 m, 4.8e-7 m apart) hold pair distances
+    of 0.022 m only to about 2e-5, and the two formulations round their cell
+    and bin corners differently, so there each is held to the f64 densities
+    of the same positions: the cell-raster ones within 1e-5 or twice the
+    legacy ones' error, whichever is larger; and the meshes to vertices
+    within 1e-4 of one another, both ways (a grid point whose level set
+    lies within that rounding of the threshold may flip, changing the
+    counts by a few, not the surface)."""
+    from scipy.spatial import cKDTree
+
+    from splashsurf_tpu_torch import neighbors as N
+
+    os.environ[CELLRASTER] = "0"
+    legacy = pt.reconstruct_surface(frame, params)
+    if N.LAST_GATE.get("kind") == "cellraster":
+        raise AssertionError("the switch at 0 still took the cell-raster densities")
+    kind = N.LAST_GATE["kind"]
+    p64, f64 = params.try_convert("float64"), frame.double()
+    truth = pt.reconstruct_surface(f64, p64)
+    os.environ[CELLRASTER] = "1"
+    cell64 = pt.reconstruct_surface(f64, p64)
+    if N.LAST_GATE.get("kind") != "cellraster":
+        raise AssertionError("the f64 frame did not take the cell-raster densities")
+    torch.testing.assert_close(cell64.particle_densities, truth.particle_densities,
+                               rtol=1e-5, atol=0)
+    log(f"  frame 0 f64, cell-raster / legacy ({kind}) densities: rho max relative "
+        f"difference {rel_err(cell64.particle_densities, truth.particle_densities):.3e}")
+    check_same_mesh("frame 0 f64, cell-raster / legacy", cell64.mesh, truth.mesh, ordered=True)
+    rho64 = truth.particle_densities
+    e_cell = rel_err(cell.particle_densities, rho64)
+    e_leg = rel_err(legacy.particle_densities, rho64)
+    log(f"  frame 0 f32, rho max relative error against the f64 densities: cell-raster "
+        f"{e_cell:.3e}, legacy {e_leg:.3e}; between them "
+        f"{rel_err(cell.particle_densities, legacy.particle_densities.double()):.3e}")
+    if e_cell > max(1e-5, 2 * e_leg):
+        raise AssertionError(f"cell-raster densities off by {e_cell:.3e} (legacy {e_leg:.3e})")
+    check_same_mesh("frame 0 f32, cell-raster / legacy", cell.mesh, legacy.mesh, ordered=False,
+                    tree=cKDTree, same_counts=False)
+
+
+def timed_sequence(gen):
+    """Consume a sequence of results, each resolved to a host mesh when it
+    is yielded: the results and the host seconds between yields (the first
+    from the start)."""
+    out, gaps = [], []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for rec in gen:
+        now = time.perf_counter()
+        gaps.append(now - t)
+        t = now
+        out.append(rec)
+    return out, gaps
+
+
+def phase_sequence(pt, pts, params, kernels, ident):
+    """Phase 10: the sequence entry point with the cell-raster densities on
+    the 2M dam break, the main path of K4."""
+    from splashsurf_tpu_torch import neighbors as N
+    from splashsurf_tpu_torch.ops import global_sweep as gs
+    from splashsurf_tpu_torch.ops import splat_kernels as sk
+    from splashsurf_tpu_torch.reconstruction import _bucket_grid
+
+    h = params.compact_support_radius
+    n = pts.shape[0]
+    frames = [pts + (k + 1) * 1e-4 * RADIUS for k in range(N_FRAMES)]
+    grids = [_bucket_grid(pt.grid_for_reconstruction(f, RADIUS, h, params.cube_size))
+             for f in frames]
+    hsc = pt.kernel_extents(h, grids[0].cell_size).half_supported_cells
+    over = [gs.rasterize_global(f, None, g, 2, hsc, with_meta=True)[1]
+            for f, g in zip(frames, grids)]
+    log(f"phase 10: reconstruct_sequence, {N_FRAMES} frames of {n} particles, "
+        f"{CELLRASTER}=1; raster overflow per frame {over}")
+    saved = {k: os.environ.get(k) for k in (CELLRASTER, "SPLASHSURF_TPU_PIPELINE")}
+    try:
+        os.environ[CELLRASTER] = "1"
+        list(pt.reconstruct_sequence(frames[:2], params))  # warm-up, not counted
+        reset_launches(sk)
+        record = []
+
+        def recording():
+            for f in frames:
+                yield f
+                record.append((N.LAST_GATE.get("kind"), sk.pair_sweep_cuda.launches,
+                               sk.density_sweep_cuda.launches))
+
+        seq, gaps_pipe = timed_sequence(pt.reconstruct_sequence(recording(), params))
+        launches = sk.pair_sweep_cuda.launches
+        took, prev = 0, (0, 0)
+        for i, ((kind, k4, k2), n_over) in enumerate(zip(record, over)):
+            step, prev = (k4 - prev[0], k2 - prev[1]), (k4, k2)
+            if n_over == 0:
+                if kind != "cellraster" or step != (1, 0):
+                    raise AssertionError(
+                        f"frame {i} has no raster overflow but took {kind} with "
+                        f"(K4, K2) launches {step}"
+                    )
+                took += 1
+        if took == 0:
+            raise AssertionError("no frame of the sequence took the cell-raster densities")
+        kernels["pair_sweep"]["launches"] = launches
+        for i, rec in enumerate(seq):
+            bad = pt.check_mesh_consistency(rec.mesh.vertices, rec.mesh.triangles)
+            if bad is not None or rec.mesh.num_triangles == 0:
+                raise AssertionError(f"frame {i}: mesh not closed/manifold or empty: {bad}")
+
+        os.environ["SPLASHSURF_TPU_PIPELINE"] = "0"
+        single, gaps_single = timed_sequence(pt.reconstruct_sequence(frames, params))
+        for i, (a, b) in enumerate(zip(seq, single)):
+            check_same_mesh(f"frame {i}, sequence / frame at a time", a.mesh, b.mesh, ordered=True)
+
+        compare_legacy(pt, frames[0], params, seq[0])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log(f"  {took} of {N_FRAMES} frames took the cell-raster densities; K4 launches {launches}; "
+        f"mesh {seq[0].mesh.num_vertices} vertices, {seq[0].mesh.num_triangles} triangles, closed")
+    for name, gaps in (("pipelined", gaps_pipe), ("frame at a time", gaps_single)):
+        # the sequence dispatches two frames before its first yield and
+        # none before its last (in both modes): the median of the inner
+        # gaps is the steady per-frame time
+        per = statistics.median(gaps[1:-1])
+        log(f"  {name}: seconds between yields {[round(g, 4) for g in gaps]}; mean "
+            f"{sum(gaps) / len(gaps):.4f}, steady median {per:.4f} s per frame = "
+            f"{n / per / 1e6:.3f} Mparticles/s ({ident})")
+    for name, cr in (("cell-raster", True), ("legacy", False)):
+        split = dense_stage_split(frames[0], params, grids[0], hsc, cr)
+        log(f"  stage seconds, {name} densities (median of 3): "
+            + ", ".join(f"{k} {v:.5f}" for k, v in split.items())
+            + f"; sum {sum(split.values()):.5f}")
 
 
 def main() -> int:
@@ -484,9 +755,13 @@ def main() -> int:
     del canyon
     phase_cross_subdomain(pt, dev, cross)
 
+    # --- 9-10. the cell-raster densities and the sequence --------------------
+    phase_k4(pt, dev, pts, grid, hsc, params, kernels)
+    phase_sequence(pt, pts, params, kernels, ident)
+
     print(ident, flush=True)
-    print(json.dumps({"kernels": [kernels[k] for k in ("sweep_global", "density_sweep", "splat_sweep")]}),
-          flush=True)
+    names = ("sweep_global", "density_sweep", "splat_sweep", "pair_sweep")
+    print(json.dumps({"kernels": [kernels[k] for k in names]}), flush=True)
     print(json.dumps({
         "ok": True,
         "device": {

@@ -2,10 +2,14 @@
 
 Surface reconstruction of SPH particle data on an NVIDIA GPU: particle
 positions plus particle radius, kernel support radius and marching cubes
-cell size in, a closed triangle mesh out. The dense global route of the
-reference package is ported; its two TPU kernels are hand-written CUDA for
-Hopper (``csrc/``), each beside a plain PyTorch version that runs on the
-CPU. This package imports neither ``jax`` nor ``splashsurf_tpu``.
+cell size in, a closed triangle mesh out, one frame at a time
+(``reconstruct_surface``) or over a sequence (``reconstruct_sequence``). The
+dense global route (with the legacy or the cell-raster densities) and the
+subdomain-grid route of the reference package are ported; their four TPU
+kernels are hand-written CUDA for Hopper (``csrc/``), each beside a plain
+PyTorch version that runs on the CPU. Inputs run on the card unless the
+caller asks for the CPU. This package imports neither ``jax`` nor
+``splashsurf_tpu``.
 """
 
 from splashsurf_tpu_torch.aabb import Aabb3d
@@ -19,6 +23,7 @@ from splashsurf_tpu_torch.params import (
 from splashsurf_tpu_torch.reconstruction import (
     SurfaceReconstruction,
     grid_for_reconstruction,
+    reconstruct_sequence,
     reconstruct_surface,
 )
 from splashsurf_tpu_torch.uniform_grid import UniformGrid, kernel_extents
@@ -35,5 +40,6 @@ __all__ = [
     "grid_for_reconstruction",
     "kernel_extents",
     "marching_cubes",
+    "reconstruct_sequence",
     "reconstruct_surface",
 ]

@@ -93,7 +93,8 @@ def marching_cubes(
 ):
     """Dense scalar field (nx, ny, nz) -> ``TriMesh3d`` with host arrays.
 
-    A tensor runs on its own device; a numpy array needs ``device``.
+    A tensor runs on its own device; a numpy array on ``device``, by
+    default CUDA (RuntimeError where CUDA is absent).
     Equivalent of ``pysplashsurf.marching_cubes`` on a raw 3-D array
     (pysplashsurf/src/marching_cubes.rs:106-178).
     """

@@ -5,7 +5,10 @@ the full background grid (PyTorch port of the dense path of
 Pipeline:
   1. ``rasterize_global`` - particles -> per-cell slot rasters of cell
      fractions and weights, plus the overflow list (cells with more
-     particles than slots);
+     particles than slots); on the cell-raster densities, the fraction
+     rasters and per-particle slot meta, from which
+     ``density_weights_from_rasters`` (kernel K4) makes the weights and the
+     densities;
   2. ``sweep_global`` - the level set on every grid point: the stencil sweep
      over the rasters (kernel K1) plus a scatter splat of the overflow;
   3. ``mc_global_cells`` - marching cubes over the active points, building
@@ -26,7 +29,7 @@ from splashsurf_tpu_torch import kernels
 from splashsurf_tpu_torch.density import supported_point_offsets
 from splashsurf_tpu_torch.mc import lut
 from splashsurf_tpu_torch.mc.dense import lut_tensors
-from splashsurf_tpu_torch.ops.splat_kernels import sweep_global_cuda
+from splashsurf_tpu_torch.ops.splat_kernels import pair_sweep_cuda, sweep_global_cuda
 from splashsurf_tpu_torch.uniform_grid import UniformGrid
 
 
@@ -36,7 +39,8 @@ def _cell_of(px: torch.Tensor, mn: float, cs: float, n: int) -> torch.Tensor:
     return torch.floor((px - mn) / cs).clamp(-1, n).to(torch.int64)
 
 
-def rasterize_global(positions, values, grid: UniformGrid, slots: int, hsc: int):
+def rasterize_global(positions, values, grid: UniformGrid, slots: int, hsc: int,
+                     with_meta: bool = False):
     """Rasterize particles into per-cell slot tables over the whole grid.
 
     Returns ``(fx, fy, fz, fv), (opx, opy, opz, oval)``: four (slots, Xp, Yp,
@@ -44,6 +48,13 @@ def rasterize_global(positions, values, grid: UniformGrid, slots: int, hsc: int)
     reach on every side), fracs relative to the cell corner (far sentinel in
     empty slots) and weights (0 in empty slots); then the particles whose
     cell already held ``slots`` occupants, in ascending particle index.
+
+    With ``with_meta`` (the cell-raster densities; ``values`` is not read)
+    returns ``(fx, fy, fz), n_overflow, (rank, ok, cx, cy, cz)`` instead: the
+    three fraction rasters and no value raster, the exact overflow count
+    (one read-back), and per particle its slot rank, whether it holds a slot
+    and its cell, int64 (``rasterize_global(..., with_meta=True)`` of the
+    reference).
 
     Slot ranks follow ascending particle index within each cell: ``slots``
     rounds of a scatter-max of (n - index) per cell pick the next-smallest
@@ -85,16 +96,58 @@ def rasterize_global(positions, values, grid: UniformGrid, slots: int, hsc: int)
 
     shape = (slots, Xp, Yp, Zp)
     far = kernels.far_fill(dtype)
-    rasters = [
+    fracs = tuple(
         kernels.scatter_table(
             dest, px[d] - kernels.grid_coord(cell[d], grid.min[d], cs, dtype),
             total, far, shape,
         )
         for d in range(3)
-    ] + [kernels.scatter_table(dest, values, total, 0.0, shape)]
+    )
     over = valid & (rank >= slots)
+    if with_meta:
+        return fracs, int(over.sum()), (rank, ok, *cell)
+    rasters = fracs + (kernels.scatter_table(dest, values, total, 0.0, shape),)
     overflow = [px[d][over] for d in range(3)] + [values[over]]
-    return tuple(rasters), tuple(overflow)
+    return rasters, tuple(overflow)
+
+
+def density_weights_from_rasters(
+    fx, fy, fz, rank, ok, cx, cy, cz, particle_rest_mass,
+    compact_support_radius, grid: UniformGrid, hsc: int, reach: int,
+    h_over_cs: float,
+):
+    """The value raster for ``sweep_global`` and the per-particle densities
+    from the pair sweep over the fraction rasters (the reference's
+    ``density_weights_from_rasters``). Exact only when no particle
+    overflowed the raster slots: the caller checks the overflow count.
+
+    acc comes from K4 (``pair_sweep_cuda``); fv = m / rho = 1 / (sigma acc)
+    on occupied slots and exactly 0 on empty and pad slots, in a zero (S, Xp,
+    Yp, Zp) raster; rho = m sigma acc is gathered per particle at (rank, cx,
+    cy, cz) where ``ok`` (0 elsewhere), with 64-bit flat indices. Returns
+    (fv, rho)."""
+    dtype = fx.dtype
+    S, Xp, Yp, Zp = fx.shape
+    ncx, ncy, ncz = grid.n_cells
+    pad = hsc + 1
+    t = kernels.np_dtype(dtype).type
+    h = t(compact_support_radius)
+    sigma = t(8.0) / (h * h * h)
+    acc = pair_sweep_cuda(
+        fx, fy, fz, grid.cell_size, compact_support_radius, reach, h_over_cs,
+        pad, grid.n_cells,
+    )
+    inner = (slice(None), slice(pad, pad + ncx), slice(pad, pad + ncy), slice(pad, pad + ncz))
+    # empty slots hold the far sentinel (inf / 1e15; an occupied fraction
+    # lies within one cell). The kernel writes 0 there, the plain version
+    # NaN (f32) or a meaningless finite sum (f64), as the reference does.
+    real = (fx[inner] < 1e14) & torch.isfinite(acc) & (acc > 0)
+    fv = torch.zeros((S, Xp, Yp, Zp), dtype=dtype, device=fx.device)
+    fv[inner] = torch.where(real, 1.0 / (float(sigma) * torch.where(real, acc, 1.0)), 0.0)
+    src = ((rank.clamp(0, S - 1) * ncx + cx) * ncy + cy) * ncz + cz
+    src = torch.where(ok, src, 0)
+    rho = torch.where(ok, float(t(particle_rest_mass) * sigma) * acc.reshape(-1)[src], 0.0)
+    return fv, rho
 
 
 def _scatter_splat_points(opx, opy, opz, oval, grid: UniformGrid, h, hsc, out_flat):
@@ -265,6 +318,12 @@ def reconstruct_global_dense(
     rasters, overflow = rasterize_global(positions, values, grid, slots, hsc)
     ls = sweep_global(rasters, overflow, grid, compact_support_radius, hsc)
     del rasters
+    return mesh_from_level_set(ls, grid, iso)
+
+
+def mesh_from_level_set(ls: torch.Tensor, grid: UniformGrid, iso):
+    """``mc_global_cells`` plus the empty-mesh guard: (vertices, triangles)
+    on the device."""
     verts, tris = mc_global_cells(ls, grid, iso)
     if tris.shape[0] == 0:
         check_empty_field(0, float(ls.max()), float(iso))

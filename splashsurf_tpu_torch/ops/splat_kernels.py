@@ -13,14 +13,19 @@ Port of ``splashsurf_tpu/ops/splat_pallas.py``:
   ``splat_sweep_pallas``; its plain version ``splat_sweep_plain`` is the
   scan formulation of ``subdomains.chunk_levelset_raster``. K1 and K3 share
   their per-point sum (``csrc/level_set_sum.cuh``).
+- ``pair_sweep_cuda`` (K4, ``csrc/pair_sweep.cu``) replaces
+  ``pair_sweep_pallas``; its plain version ``pair_sweep_plain`` is
+  ``global_sweep._pair_sweep_xla``, over the reference's fan
+  ``pair_cell_offsets``.
 
 A wrapper given CPU tensors runs the plain version. Given CUDA tensors it
 launches its kernel on the current stream or raises; it never falls back.
 Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 
 The kernels evaluate q = sqrt(d2) * (2/h) and scale once at the end; the
-plain versions go through ``kernels.cubic_kernel`` (q = (r + r) / h, scaled
-per term), so the two agree to rounding, not bit for bit.
+plain versions of K1-K3 go through ``kernels.cubic_kernel`` (q = (r + r) / h,
+scaled per term), so the two agree to rounding, not bit for bit. K4's plain
+version uses the kernel's form, as its reference does.
 
 The library is built with ``nvcc`` for ``sm_90a`` into ``_build/`` at first
 use, one compiler process per source, all started together, and rebuilt
@@ -45,7 +50,9 @@ from splashsurf_tpu_torch.density import gather_cell_offsets
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _SOURCES = tuple(
-    _CSRC / name for name in ("sweep_global.cu", "density_sweep.cu", "splat_sweep.cu")
+    _CSRC / name for name in (
+        "sweep_global.cu", "density_sweep.cu", "splat_sweep.cu", "pair_sweep.cu",
+    )
 )
 _HEADERS = (_CSRC / "level_set_sum.cuh",)
 _BUILD_DIR = _PKG / "_build"
@@ -135,6 +142,10 @@ def load_kernels() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, p, i, i, i64, i64, i64, i, d, d, p, p]
         fn.restype = i
+    for name in ("pair_sweep_f32", "pair_sweep_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, p, i, i, i64, i64, i64, i64, i64, i64, i, d, d, p, p]
+        fn.restype = i
     return lib
 
 
@@ -168,11 +179,10 @@ def _suffix(dtype) -> str:
 # ---------------------------------------------------------------------------
 
 
-def offset_runs(hsc: int, pad: int | None = None) -> np.ndarray:
-    """The pruned cell-offset fan of ``gather_cell_offsets(hsc)``, shifted
-    by ``pad`` (default hsc + 1), as runs (o0, o1, o2_lo, o2_hi): for fixed
-    (o0, o1) the kept o2 form one contiguous range [o2_lo, o2_hi)."""
-    offs = gather_cell_offsets(hsc) + (hsc + 1 if pad is None else pad)
+def _runs(offs: np.ndarray) -> np.ndarray:
+    """A fan of (o0, o1, o2) offsets in meshgrid order as runs (o0, o1,
+    o2_lo, o2_hi), one per (o0, o1) in ascending order: the kept o2 must form
+    one contiguous range [o2_lo, o2_hi)."""
     runs = []
     for o0, o1 in sorted({(int(a), int(b)) for a, b, _ in offs}):
         o2 = np.sort(offs[(offs[:, 0] == o0) & (offs[:, 1] == o1), 2])
@@ -180,6 +190,12 @@ def offset_runs(hsc: int, pad: int | None = None) -> np.ndarray:
             raise AssertionError(f"offset fan not contiguous at {(o0, o1)}")
         runs.append((o0, o1, int(o2[0]), int(o2[-1]) + 1))
     return np.asarray(runs, np.int32)
+
+
+def offset_runs(hsc: int, pad: int | None = None) -> np.ndarray:
+    """The pruned cell-offset fan of ``gather_cell_offsets(hsc)``, shifted
+    by ``pad`` (default hsc + 1), as runs (see ``_runs``)."""
+    return _runs(gather_cell_offsets(hsc) + (hsc + 1 if pad is None else pad))
 
 
 @functools.lru_cache(maxsize=16)
@@ -371,3 +387,101 @@ def splat_sweep_cuda(rx, ry, rz, rv, cell_size, compact_support_radius, hsc, mar
 
 
 splat_sweep_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: pair sweep over the level-set cell rasters (cell-raster densities)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=8)
+def pair_cell_offsets(reach: int, h_over_cs: float):
+    """Cell-to-cell offsets that can contain particle pairs within the
+    support radius: per-axis minimum distance max(|o|-1, 0) cells, pruned
+    to sum(dmin^2) <= (h/cs)^2 (+ rounding slack). Meshgrid order, as the
+    reference's (splat_pallas.py:342)."""
+    rng = np.arange(-reach, reach + 1, dtype=np.int32)
+    oi, oj, ok = np.meshgrid(rng, rng, rng, indexing="ij")
+    offs = np.stack([oi, oj, ok], axis=-1).reshape(-1, 3)
+    d = np.maximum(np.abs(offs) - 1, 0).astype(np.float64)
+    keep = (d**2).sum(axis=1) <= (h_over_cs * (1.0 + 1e-3)) ** 2
+    return tuple(map(tuple, offs[keep]))
+
+
+@functools.lru_cache(maxsize=16)
+def _pair_runs_on(reach: int, h_over_cs: float, device: torch.device) -> torch.Tensor:
+    offs = np.asarray(pair_cell_offsets(reach, h_over_cs), np.int32)
+    return torch.as_tensor(_runs(offs), device=device)
+
+
+def _check_pair_args(fx, reach, pad, n_cells):
+    S, Xp, Yp, Zp = fx.shape
+    if reach > pad:
+        raise ValueError(f"pair_sweep: reach {reach} beyond the raster pad {pad}")
+    if any(p < n + 2 * pad for p, n in zip((Xp, Yp, Zp), n_cells)):
+        raise ValueError(f"pair_sweep: rasters {tuple(fx.shape)} too small for {n_cells}, pad {pad}")
+
+
+def pair_sweep_plain(fx, fy, fz, cs, h, reach, h_over_cs, pad, n_cells):
+    """Plain PyTorch pair sweep: ``global_sweep._pair_sweep_xla`` of the
+    reference, summed in its order (fan offsets, then source slots). Rasters
+    (S, Xp, Yp, Zp) in; acc (S, ncx, ncy, ncz) of unnormalized spline pair
+    sums out. Empty query slots hold NaN (f32) or a meaningless finite sum
+    (f64), as in the reference; callers read occupied slots only."""
+    _check_pair_args(fx, reach, pad, n_cells)
+    t = kernels.np_dtype(fx.dtype).type
+    two_over_h = float(t(2.0) / t(h))
+    ncx, ncy, ncz = (int(v) for v in n_cells)
+    S = fx.shape[0]
+    sl_q = (slice(None), slice(pad, pad + ncx), slice(pad, pad + ncy), slice(pad, pad + ncz))
+    fq = [f[sl_q] for f in (fx, fy, fz)]
+    acc = torch.zeros((S, ncx, ncy, ncz), dtype=fx.dtype, device=fx.device)
+    for o in pair_cell_offsets(reach, float(h_over_cs)):
+        sl = (slice(None),) + tuple(
+            slice(pad + int(a), pad + int(a) + n) for a, n in zip(o, (ncx, ncy, ncz))
+        )
+        # per-axis offset o * cs, formed in the rasters' precision
+        od = [float(t(a) * t(cs)) for a in o]
+        win = [f[sl] for f in (fx, fy, fz)]
+        for kj in range(S):
+            dx = fq[0] - (win[0][kj] + od[0])
+            dy = fq[1] - (win[1][kj] + od[1])
+            dz = fq[2] - (win[2][kj] + od[2])
+            d2 = dx * dx + dy * dy + dz * dz
+            q = torch.sqrt(d2) * two_over_h
+            a = torch.clamp_min(2.0 - q, 0.0)
+            b = torch.clamp_min(1.0 - q, 0.0)
+            acc += a * a * a - 4.0 * (b * b * b)
+    return acc / (4.0 * np.pi)
+
+
+def pair_sweep_cuda(fx, fy, fz, cs, h, reach, h_over_cs, pad, n_cells):
+    """Per-(slot, cell) unnormalized spline pair sums (S, ncx, ncy, ncz)
+    from the (S, Xp, Yp, Zp) fraction rasters of ``rasterize_global``:
+    kernel K4 on CUDA tensors (0 on empty query slots), the plain version on
+    CPU tensors."""
+    _check_inputs((fx, fy, fz), "pair_sweep")
+    if fx.device.type == "cpu":
+        return pair_sweep_plain(fx, fy, fz, cs, h, reach, h_over_cs, pad, n_cells)
+    if fx.device.type != "cuda":
+        raise ValueError(f"pair_sweep: unsupported device {fx.device}")
+    _check_pair_args(fx, reach, pad, n_cells)
+    S, Xp, Yp, Zp = fx.shape
+    ncx, ncy, ncz = (int(v) for v in n_cells)
+    t = kernels.np_dtype(fx.dtype).type
+    lib = load_kernels()
+    runs = _pair_runs_on(reach, float(h_over_cs), fx.device)
+    out = torch.empty((S, ncx, ncy, ncz), dtype=fx.dtype, device=fx.device)
+    with torch.cuda.device(fx.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch(
+            getattr(lib, "pair_sweep_" + _suffix(fx.dtype)),
+            fx.data_ptr(), fy.data_ptr(), fz.data_ptr(), runs.data_ptr(),
+            runs.shape[0], S, Xp, Yp, Zp, ncx, ncy, ncz, pad,
+            float(cs), float(t(2.0) / t(h)), out.data_ptr(), stream,
+        )
+    pair_sweep_cuda.launches += 1
+    return out
+
+
+pair_sweep_cuda.launches = 0

@@ -1,17 +1,21 @@
 """Surface reconstruction entry point (PyTorch port of
 ``splashsurf_tpu.reconstruction``; reference API: lib.rs:330-473).
 
-The device is explicit: a tensor input runs on its own device, a numpy
-input needs ``device=``. The dense global route and the subdomain-grid
+The entry points run on the card unless the caller asks for the CPU: a
+tensor input runs on its own device; any other input goes to ``device=``,
+by default CUDA, and where CUDA is absent that raises RuntimeError, never
+falling back to the CPU. The dense global route and the subdomain-grid
 route are ported, and the route is chosen as the reference package chooses
 it; inputs that it would send down the slab route raise
-NotImplementedError.
+NotImplementedError. ``reconstruct_sequence`` runs frames in order, each
+frame's mesh copy overlapping the next frame's first stages.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import os
+from typing import Iterable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -36,18 +40,32 @@ SLAB_MAX_SLABS = 64
 class SurfaceReconstruction:
     """Result of a surface reconstruction (lib.rs:246-277): the grid, the
     host mesh, the per-particle densities (a device tensor) and the AABB
-    filter mask, if one was applied."""
+    filter mask, if one was applied.
+
+    With a deferred mesh pull (``reconstruct_surface(..., _defer_pull=True)``,
+    used by ``reconstruct_sequence``) ``mesh`` is None until ``resolve()``
+    finishes the copy; the sequence resolves every frame before it yields
+    it."""
 
     grid: UniformGrid
-    mesh: TriMesh3d
+    mesh: Optional[TriMesh3d]
     subdomain_grid: Optional[UniformGrid] = None
     particle_densities: Optional[torch.Tensor] = None
     particle_inside_aabb: Optional[np.ndarray] = None
+    _pending_mesh: Optional[object] = dataclasses.field(default=None, repr=False, compare=False)
+
+    def resolve(self) -> "SurfaceReconstruction":
+        """Finish a deferred mesh pull (no-op when there is none)."""
+        if self._pending_mesh is not None:
+            pull, self._pending_mesh = self._pending_mesh, None
+            self.mesh = pull.resolve()
+        return self
 
 
 def as_device_tensor(x, device=None, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """A tensor stays on its own device (``device``, if given, must agree);
-    anything else becomes a tensor on ``device``, which is then required."""
+    anything else becomes a tensor on ``device``, by default CUDA, which
+    raises RuntimeError where CUDA is absent."""
     if isinstance(x, torch.Tensor):
         if device is not None:
             want = torch.device(device)
@@ -57,7 +75,12 @@ def as_device_tensor(x, device=None, dtype: Optional[torch.dtype] = None) -> tor
                 raise ValueError(f"tensor on {x.device} but device={want}")
         return x if dtype is None else x.to(dtype)
     if device is None:
-        raise ValueError("a non-tensor input needs an explicit device=")
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the entry points run on the card by default; "
+                'pass device="cpu" (or a CPU tensor) to run on the CPU'
+            )
+        device = torch.device("cuda")
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
 
@@ -136,13 +159,18 @@ def choose_route(parameters: Parameters, grid: UniformGrid) -> str:
 
 
 def reconstruct_surface(
-    particle_positions, parameters: Parameters, device=None
+    particle_positions, parameters: Parameters, device=None, _defer_pull: bool = False
 ) -> SurfaceReconstruction:
     """Reconstruct a closed triangle mesh of the fluid surface.
 
     ``particle_positions`` is an (N, 3) tensor, which runs on its own
-    device, or an array, which needs ``device``. Returns the mesh as host
-    numpy arrays.
+    device, or an array, which runs on ``device`` (default CUDA). Returns
+    the mesh as host numpy arrays.
+
+    ``_defer_pull`` (used by ``reconstruct_sequence``): on the dense route,
+    start the mesh copy and return with ``mesh`` None; ``resolve()`` waits
+    for it. The subdomain route pulls its mesh in its stitch, so there it
+    changes nothing.
     """
     from splashsurf_tpu_torch.global_pipeline import reconstruct_surface_global
     from splashsurf_tpu_torch.subdomains import reconstruct_surface_subdomain_grid
@@ -181,5 +209,31 @@ def reconstruct_surface(
             positions, parameters, grid, particle_inside_aabb=inside_aabb
         )
     return reconstruct_surface_global(
-        positions, parameters, grid, particle_inside_aabb=inside_aabb
+        positions, parameters, grid, particle_inside_aabb=inside_aabb,
+        defer_pull=_defer_pull,
     )
+
+
+def reconstruct_sequence(
+    frames: Iterable, parameters: Parameters, device=None
+) -> Iterator[SurfaceReconstruction]:
+    """Reconstruct a sequence of frames (reconstruction.py:493-514 of the
+    reference): a generator of resolved results, one per frame, in order.
+
+    Frame t+1 is dispatched before frame t's mesh is resolved, so frame t's
+    mesh copy (on a side stream, into pinned host memory) overlaps frame
+    t+1's first stages. Eager PyTorch reads counts back inside a frame (the
+    overflow count, the density plan, marching cubes), so the overlap covers
+    only the mesh copy against the next frame's first stages.
+    ``SPLASHSURF_TPU_PIPELINE=0`` runs frame at a time. Each frame goes
+    through ``reconstruct_surface`` with ``device``.
+    """
+    pipeline = os.environ.get("SPLASHSURF_TPU_PIPELINE", "1") != "0"
+    prev = None
+    for pts in frames:
+        cur = reconstruct_surface(pts, parameters, device=device, _defer_pull=pipeline)
+        if prev is not None:
+            yield prev.resolve()
+        prev = cur
+    if prev is not None:
+        yield prev.resolve()

@@ -56,9 +56,13 @@ def test_sphere_sdf_lists_equal_reference_and_within_1e4(dtype):
     assert pt.check_mesh_consistency(mesh.vertices, mesh.triangles) is None
 
 
-def test_marching_cubes_needs_a_device_for_arrays():
-    with pytest.raises(ValueError, match="device"):
+def test_marching_cubes_needs_a_device_for_arrays(monkeypatch):
+    """An array goes to CUDA unless ``device`` says otherwise: without CUDA
+    that raises, it never falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
         pt.marching_cubes(np.zeros((3, 3, 3), np.float32), 0.5)
+    assert pt.marching_cubes(np.zeros((3, 3, 3), np.float32), 0.5, device="cpu").num_vertices == 0
     mesh = pt.marching_cubes(torch.zeros((3, 3, 3)), 0.5)
     assert mesh.num_vertices == 0 and mesh.num_triangles == 0
 

@@ -2,7 +2,8 @@
 reference on a small synthetic dam break: in f64 the vertex and triangle
 lists equal the reference's, in f32 the counts are equal and vertices lie
 within 1e-4; the mesh is closed. Plus the port's entry-point contract:
-explicit devices, the routes it does not have yet, and forced
+arrays run on CUDA unless the caller asks for the CPU, the routes it does
+not have yet, and forced
 decomposition taking the subdomain route."""
 
 import numpy as np
@@ -68,15 +69,20 @@ def test_matches_reference(scene, dtype):
     assert pt.check_mesh_consistency(v, t) is None
 
 
-def test_tensor_input_runs_on_its_device(scene):
+def test_tensor_input_runs_on_its_device(scene, monkeypatch):
     params = pt.Parameters.new_relative(RADIUS, 4.0, 1.5)
     a = pt.reconstruct_surface(torch.as_tensor(scene[:1500]), params)
     b = pt.reconstruct_surface(scene[:1500], params, device="cpu")
     np.testing.assert_array_equal(a.mesh.triangles, b.mesh.triangles)
     np.testing.assert_array_equal(a.mesh.vertices, b.mesh.vertices)
     assert a.particle_densities.device.type == "cpu"
-    with pytest.raises(ValueError, match="device"):
+    # an array without device= goes to CUDA; without CUDA that raises, it
+    # never falls back to the CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
         pt.reconstruct_surface(scene, params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        next(pt.reconstruct_sequence([scene], params))
     with pytest.raises(ValueError, match="device"):
         pt.reconstruct_surface(torch.as_tensor(scene), params, device="meta")
     with pytest.raises(ValueError, match="shape"):
