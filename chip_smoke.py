@@ -7,7 +7,12 @@ Phases (each prints progress; any failure raises and exits non-zero):
   0. the card: its name and power limit, torch and CUDA versions;
   1. build the CUDA kernels from ``splashsurf_tpu_torch/csrc``;
   2. kernel K1 (level-set sweep) against its plain PyTorch version on the
-     rasters of the 2M-particle dam break, f32 and (small) f64, timed;
+     rasters of the 2M-particle dam break, f32 and (small) f64, timed (the
+     time includes the occupancy-mask pre-pass), and on edge rasters (only
+     slot 1 occupied, entries on mask-word boundaries, a particle in each
+     corner) in both; the pre-pass bit-equal to its plain version; the
+     compiler's registers and spills, the shared memory per block and the
+     rasters' occupancy as the sweep's tiles see it;
   3. kernel K2 (density sweep) the same way, plus a lattice wider than 5376
      lanes;
   4. ``reconstruct_surface`` on the 2M-particle dam break (r = 0.011,
@@ -17,7 +22,8 @@ Phases (each prints progress; any failure raises and exits non-zero):
      from a CUDA input (kernels): equal counts, vertices within 1e-4;
   6. kernel K3 (per-subdomain sweep) against its plain version on the
      rasters of one splat chunk of the 8M canyon sheet, f32, and on a small
-     f64 chunk, timed;
+     f64 chunk, timed with the pre-pass, and on the edge rasters of phase 2
+     (P = 33); masks, compiler report and occupancy as in phase 2;
   7. ``reconstruct_surface`` on the 8M canyon (r = 0.011, support 4r, cube
      1.5r, 64-cell subdomains, decomposition forced): one cold frame and two
      warm ones, with the route's stage seconds; the mesh must be closed, the
@@ -40,7 +46,8 @@ Each kernel's line carries its bound: the larger of the bytes it must move
 (rasters read once, output written once) over 3.35 TB/s and the float
 operations of the occupied terms this run's data needs over 67 TFLOP/s (an
 H100 SXM's data-sheet peaks at 700 W; the card's power limit is printed
-beside). No single PyTorch call computes these functions, so
+beside). For K1 and K3 those are the terms within the support radius: the
+cells wholly beyond it add exactly 0, and the kernels leave them out. No single PyTorch call computes these functions, so
 ``library_ms`` is null.
 
 The line before the last is a JSON object of the kernels' launches, errors,
@@ -85,8 +92,16 @@ def log(msg):
 def reset_launches(sk):
     """Set every kernel's launch count to 0, just before a main path runs."""
     for fn in (sk.sweep_global_cuda, sk.density_sweep_cuda, sk.splat_sweep_cuda,
-               sk.pair_sweep_cuda):
+               sk.pair_sweep_cuda, sk.occupancy_masks_cuda):
         fn.launches = 0
+
+
+def check_mask_launches(sk, sweeps):
+    """Every sweep launch of a main path built its occupancy masks first."""
+    n = sk.occupancy_masks_cuda.launches
+    if n != sweeps:
+        raise AssertionError(f"{n} mask pre-pass launches for {sweeps} level-set sweeps")
+    return n
 
 
 def card_identity() -> str:
@@ -122,17 +137,122 @@ def bound(name, n_bytes, n_terms):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def sweep_terms(fv, hsc, pad, n_points):
-    """Occupied (point, offset, slot) terms of a level-set sweep (K1, K3):
-    for every offset of the fan, the non-empty raster entries in its window
-    of the points."""
+def sweep_offsets(hsc, pad, h_over_cs=None):
+    """The cell offsets (shifted by pad) of a level-set sweep: the whole
+    fan gather_cell_offsets(hsc), or with ``h_over_cs`` the kernels' run
+    table, which leaves out the cells wholly beyond the support radius."""
     from splashsurf_tpu_torch.density import gather_cell_offsets
+    from splashsurf_tpu_torch.ops import splat_kernels as sk
 
+    if h_over_cs is None:
+        return [tuple(o) for o in (gather_cell_offsets(hsc) + pad).tolist()]
+    return [(a, b, c) for a, b, lo, hi in sk.sweep_runs(hsc, pad, h_over_cs).tolist()
+            for c in range(lo, hi)]
+
+
+def sweep_terms(fv, offsets, n_points):
+    """Occupied (point, offset, slot) terms of a level-set sweep (K1, K3):
+    for every offset, the non-empty raster entries in its window of the
+    points."""
     total = 0
-    for o in gather_cell_offsets(hsc) + pad:
+    for o in offsets:
         sl = (...,) + tuple(slice(int(a), int(a) + n) for a, n in zip(o, n_points))
         total += int(torch.count_nonzero(fv[sl]))
     return total
+
+
+def sweep_shared_bytes(sk, n_runs, n_slots, pad, t_size):
+    """Dynamic shared memory of one block of the level-set sweep: per run
+    its offsets in length units and its staged form (16 bytes), per slot
+    the staged mask window and a flag (``level_set_smem`` in
+    level_set_sum.cuh)."""
+    TX, TY, _ = sk.SWEEP_TILE
+    words = (TX + 2 * pad - 1) * (TY + 2 * pad - 1) * sk.window_words(pad)
+    return n_runs * (2 * t_size + 16) + n_slots * (4 * words + 4)
+
+
+def ptxas_report(sk, source, names):
+    """The compiler's lines (registers, shared memory, spills) for the
+    entry functions of ``source`` whose names contain one of ``names``."""
+    out, src, keep = [], "", False
+    for line in (sk.build_kernels().parent / "build.log").read_text().splitlines():
+        if " -c " in line:  # the command line that starts a source's report
+            src, keep = line, False
+        elif "Compiling entry" in line:
+            keep = source in src and any(n in line for n in names)
+        if keep and ("Compiling entry" in line or "registers" in line or "spill" in line):
+            out.append(line.strip())
+    return out
+
+
+def occupancy_report(sk, fv, masks, hsc, pad, h_over_cs, n_points):
+    """How full the rasters (..., S, Xp, Yp, Zp) are, as the sweep sees
+    them: each slot's share of occupied entries; the occupied terms among
+    the probes of the whole fan (what the probing design visited), and
+    those within the support (what the kernels walk); the share of sweep
+    tiles whose staged mask window is empty, per slot and in every slot."""
+    S, Xp, Yp, Zp = fv.shape[-4:]
+    C = fv.numel() // (S * Xp * Yp * Zp)
+    fill = [float((fv.reshape(C, S, -1)[:, s] != 0).double().mean()) for s in range(S)]
+    fan = sweep_offsets(hsc, pad)
+    terms = sweep_terms(fv, fan, n_points)
+    walked = sweep_terms(fv, sweep_offsets(hsc, pad, h_over_cs), n_points)
+    probes = C * math.prod(n_points) * S * len(fan)
+    TX, TY, TZ = sk.SWEEP_TILE
+    nww = sk.window_words(pad)
+    wx, wy = TX + 2 * pad - 1, TY + 2 * pad - 1
+    occ = (masks.reshape(C * S, 1, Xp, Yp, masks.shape[-1]) != 0).float()
+    occ = torch.nn.functional.pad(occ, (0, nww, 0, wy, 0, wx))
+    win = torch.nn.functional.max_pool3d(occ, (wx, wy, nww), stride=(TX, TY, 1))
+    tiles = [-(-n // t) for n, t in zip(n_points, (TX, TY, TZ))]
+    full = win[:, 0, : tiles[0], : tiles[1], : tiles[2]].reshape(C, S, -1) > 0
+    skip = [float((~full[:, s]).double().mean()) for s in range(S)]
+    empty = float((~full.any(dim=1)).double().mean())
+    log(f"  occupancy: slot fill {[f'{f:.4%}' for f in fill]}; occupied terms {terms} of "
+        f"{probes} fan probes ({terms / probes:.3%}), {walked} within the support; "
+        f"{TX}x{TY}x{TZ} tiles skipping each slot {[f'{x:.2%}' for x in skip]}, every slot "
+        f"{empty:.2%} of {full.shape[0] * full.shape[2]}")
+
+
+def edge_rasters(shape, dtype, dev, cs, pad, seed):
+    """Rasters (..., 2, Xp, Yp, Zp) that probe the sweep's edges: only slot
+    1 occupied; occupied entries on mask-word boundaries only; a lone
+    particle at each corner of the padded raster and at each corner cell of
+    the points' own region (pad + {0, n - 1} per axis), in slot 0, and at
+    the far corners in slot 1. The fan never reaches the padded corners:
+    the kernel must stage them and add nothing."""
+    rng = np.random.default_rng(seed)
+    far = np.inf if dtype == torch.float32 else 1e15
+    Xp, Yp, Zp = shape[-3:]
+    slot1 = np.zeros(shape, bool)
+    slot1[..., 1, :, :, :] = rng.uniform(size=slot1[..., 1, :, :, :].shape) < 0.3
+    words = np.zeros(shape, bool)
+    zs = sorted({z for z in (0, 31, 32, 33, 63, 64, 95, 96, Zp - 1) if z < Zp})
+    words[..., zs] = rng.uniform(size=words[..., zs].shape) < 0.5
+    corners = np.zeros(shape, bool)
+    for lo, hi in ((0, 1), (pad, 2 * pad)):
+        for i in (lo, Xp - hi):
+            for j in (lo, Yp - hi):
+                for k in (lo, Zp - hi):
+                    corners[..., 0, i, j, k] = True
+        corners[..., 1, Xp - hi, Yp - hi, Zp - hi] = True
+    out = []
+    for name, occ in (("only slot 1", slot1), ("word edges", words), ("corners", corners)):
+        fr = rng.uniform(0, cs, (3,) + shape)
+        v = rng.uniform(0.5, 1.0, shape)
+        fr[:, ~occ] = far
+        v[~occ] = 0.0
+        out.append((name, [torch.as_tensor(a, dtype=dtype, device=dev) for a in (*fr, v)]))
+    return out
+
+
+def check_masks(sk, name, fv):
+    """The mask pre-pass bit-equal to its plain version; returns the masks."""
+    got = sk.occupancy_masks_cuda(fv)
+    if not torch.equal(got, sk.occupancy_masks_plain(fv)):
+        raise AssertionError(f"{name}: occupancy masks differ from the plain version")
+    log(f"  {name}: occupancy masks {tuple(got.shape)} bit-equal to the plain version")
+    return got
 
 
 def density_terms(fx):
@@ -227,13 +347,23 @@ def phase_k3(pt, dev, canyon, kernels):
     cs = sd.global_grid.cell_size
     log(f"phase 6: K3 on the fullest of {n_chunks} splat chunks ({B} subdomains), "
         f"rasters {tuple(rasters[0].shape)}")
+    for line in ptxas_report(sk, "splat_sweep.cu", ("level_set_tiles",)):
+        log("  ptxas " + line)
+    log(f"  dynamic shared memory per {sk.SWEEP_TILE} tile block: "
+        f"{sweep_shared_bytes(sk, len(sk.sweep_runs(hsc, m + 1, h / cs)), 2, m + 1, 4)} bytes (f32)")
+    masks = check_masks(sk, "canyon chunk", rasters[3])
+    occupancy_report(sk, rasters[3], masks, hsc, m + 1, h / cs, (P, P, P))
+    del masks
     k3 = lambda: sk.splat_sweep_cuda(*rasters, cs, h, hsc, m, P)
     p3 = lambda: sk.splat_sweep_plain(*rasters, cs, h, hsc, m, P)
     out3 = k3()
     err3 = compare("K3 f32", out3, p3(), K3_F32_TOL)
     ms3, pms3 = cuda_ms(k3, 5), cuda_ms(p3, 2)
-    b3 = bound("splat_sweep", nbytes(*rasters, out3), sweep_terms(rasters[3], hsc, m + 1, (P, P, P)))
-    log(f"  K3 f32: kernel {ms3:.3f} ms, plain {pms3:.3f} ms, bound {b3[0]:.4f} ms ({b3[1]})")
+    b3 = bound("splat_sweep", nbytes(*rasters, out3),
+               sweep_terms(rasters[3], sweep_offsets(hsc, m + 1, h / cs), (P, P, P)))
+    log(f"  K3 f32: kernel {ms3:.3f} ms (of which the mask pre-pass "
+        f"{cuda_ms(lambda: sk.occupancy_masks_cuda(rasters[3]), 5):.4f} ms), plain {pms3:.3f} ms, "
+        f"bound {b3[0]:.4f} ms ({b3[1]})")
     del rasters, out3
     small = torch.as_tensor(bench.make_canyon(20_000, RADIUS, seed=5), device=dev).double()
     r64, sd64, B64, _ = k3_chunk(pt, small, params.try_convert("float64"), last_chunk=False)
@@ -243,6 +373,14 @@ def phase_k3(pt, dev, canyon, kernels):
         sk.splat_sweep_plain(*r64, cs, h, hsc, m, P),
         F64_TOL,
     )
+    # edge rasters: two subdomains of P = 33 points, not a multiple of 32
+    Pe = 33
+    for dt, tol in ((torch.float32, K3_F32_TOL), (torch.float64, F64_TOL)):
+        shape = (2, 2) + (Pe + 2 * m + 1,) * 3
+        for name, r in edge_rasters(shape, dt, dev, cs, m + 1, seed=13):
+            check_masks(sk, f"K3 {dt} {name}", r[3])
+            compare(f"K3 {dt} {name} {shape}", sk.splat_sweep_cuda(*r, cs, h, hsc, m, Pe),
+                    sk.splat_sweep_plain(*r, cs, h, hsc, m, Pe), tol)
     kernels["splat_sweep"] = dict(
         name="splat_sweep", route="cuda",
         source="splashsurf_tpu_torch/csrc/splat_sweep.cu",
@@ -274,6 +412,7 @@ def phase_canyon(pt, canyon, kernels, ident):
     peak = torch.cuda.max_memory_allocated()
     if launches == 0:
         raise AssertionError("kernel splat_sweep was not launched by the subdomain route")
+    check_mask_launches(sk, launches)
     kernels["splat_sweep"]["launches"] = launches
     if rec.subdomain_grid is None:
         raise AssertionError("the canyon did not take the subdomain route")
@@ -296,7 +435,8 @@ def phase_canyon(pt, canyon, kernels, ident):
     log("  stage seconds (last frame): "
         + ", ".join(f"{k} {v:.4f}" for k, v in run["stage_s"].items()))
     log(f"  frame seconds {[round(x, 4) for x in frame_s]}; warm median {warm:.4f} s = "
-        f"{n / warm / 1e6:.3f} Mparticles/s ({ident}); K3 launches {launches}")
+        f"{n / warm / 1e6:.3f} Mparticles/s ({ident}); K3 launches {launches}, each "
+        f"after its mask pre-pass")
 
 
 def phase_cross_subdomain(pt, dev, dam):
@@ -625,14 +765,25 @@ def main() -> int:
     rasters, overflow = gs.rasterize_global(pts, values, grid, 2, hsc)
     log(f"phase 2: K1 on rasters {tuple(rasters[0].shape)}, "
         f"{overflow[0].shape[0]} overflow particles")
+    for line in ptxas_report(sk, "sweep_global.cu", ("level_set_tiles", "occupancy_mask")):
+        log("  ptxas " + line)
+    log(f"  dynamic shared memory per {sk.SWEEP_TILE} tile block: "
+        f"{sweep_shared_bytes(sk, len(sk.sweep_runs(hsc, hsc + 1, h / grid.cell_size)), 2, hsc + 1, 4)} "
+        f"bytes (f32)")
+    masks = check_masks(sk, "2M rasters", rasters[3])
+    occupancy_report(sk, rasters[3], masks, hsc, hsc + 1, h / grid.cell_size, grid.n_points)
+    del masks
     k1 = lambda: sk.sweep_global_cuda(*rasters, grid.cell_size, h, hsc, grid.n_points)
     p1 = lambda: sk.sweep_global_plain(*rasters, grid.cell_size, h, hsc, grid.n_points)
     out1 = k1()
     err1 = compare("K1 f32", out1, p1(), F32_TOL)
     ms1, pms1 = cuda_ms(k1, 10), cuda_ms(p1, 3)
     b1 = bound("sweep_global", nbytes(*rasters, out1),
-               sweep_terms(rasters[3], hsc, hsc + 1, grid.n_points))
-    log(f"  K1 f32: kernel {ms1:.3f} ms, plain {pms1:.3f} ms, bound {b1[0]:.4f} ms ({b1[1]})")
+               sweep_terms(rasters[3], sweep_offsets(hsc, hsc + 1, h / grid.cell_size),
+                           grid.n_points))
+    log(f"  K1 f32: kernel {ms1:.3f} ms (of which the mask pre-pass "
+        f"{cuda_ms(lambda: sk.occupancy_masks_cuda(rasters[3]), 10):.4f} ms), plain {pms1:.3f} ms, "
+        f"bound {b1[0]:.4f} ms ({b1[1]})")
     small = torch.as_tensor(bench.make_dam_break(20_000, RADIUS), device=dev)
     sgrid = pt.grid_for_reconstruction(small, RADIUS, h, params.cube_size)
     s64 = small.double()
@@ -644,6 +795,16 @@ def main() -> int:
         F64_TOL,
     )
     del rasters, r64
+    # edge rasters: points (13, 11, 45), none a multiple of the 2 x 4 x 32 tile
+    cs, pad = grid.cell_size, hsc + 1
+    n_edge = (13, 11, 45)
+    for dt, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
+        shape = (2,) + tuple(n + 2 * pad - 1 for n in n_edge)
+        for name, r in edge_rasters(shape, dt, dev, cs, pad, seed=11):
+            check_masks(sk, f"K1 {dt} {name}", r[3])
+            compare(f"K1 {dt} {name} {shape}",
+                    sk.sweep_global_cuda(*r, cs, h, hsc, n_edge),
+                    sk.sweep_global_plain(*r, cs, h, hsc, n_edge), tol)
     kernels["sweep_global"] = dict(
         name="sweep_global", route="cuda",
         source="splashsurf_tpu_torch/csrc/sweep_global.cu",
@@ -718,6 +879,7 @@ def main() -> int:
         if n == 0:
             raise AssertionError(f"kernel {name} was not launched by the main path")
         kernels[name]["launches"] = n
+    launches["occupancy_masks"] = check_mask_launches(sk, launches["sweep_global"])
     mesh = rec.mesh
     bad = pt.check_mesh_consistency(mesh.vertices, mesh.triangles)
     if bad is not None:

@@ -18,81 +18,52 @@
 // kernels.cubic_kernel, q = (r + r) / h, scaled per term: the two agree to
 // rounding, not bit for bit.
 //
-// What bounds it on an H100: the work this data needs is small (rasters
-// read once, about 12 MB per subdomain at n_sub = 64, hsc = 3, and some 24
-// float operations per occupied (point, offset, slot) term), but the kernel
-// visits all S * |fan| = 464 window entries of every point and reads each
-// weight: it is bound by L1/L2 load traffic, as K1 is. A sparse sheet
-// leaves most entries empty, which skip their three fraction loads.
+// What bounds it on an H100. The work this data needs is small: rasters
+// read once (about 12 MB per subdomain at n_sub = 64, hsc = 3) and some 23
+// float operations per occupied (point, offset, slot) term, and a canyon
+// sheet is sparse. Measured occupancy of the fullest 8M-canyon chunk
+// (47, 2, 72, 72, 72) (chip_smoke.py phase 6): slot 0 is 5.6 % full, slot
+// 1 0.05 %; occupied terms are 3.3 % of the 2 * 232 entries a point's fan
+// covers, 2.3 % within the support radius; 36 % of the 2 x 4 x 32 tiles find
+// no set bit in their window, and 53 % none in slot 1. The first design
+// probed every one of those entries per point and took some 39 times its
+// bound (by bytes). Visiting occupied terms only, the sweep is bound by
+// instruction issue, and within a warp by its busiest lane: the sheet
+// crosses the 32 z of a warp unevenly, and P = 65 leaves every third warp
+// a single lane.
 //
-// Design: K1's, with a chunk index: one thread per output point, z fastest
-// (a warp reads consecutive addresses of each window row), the run table
-// for the fan, empty slots skipped, 64-bit offsets. Built without fast math.
+// Design: K1's (splat::level_set_tiles in level_set_sum.cuh) with the chunk
+// as the outermost tile index. The masks come from K1's pre-pass over the
+// chunk's (C, S, Rp, Rp) rows (occupancy_masks_* in sweep_global.cu). Blocks
+// whose window is empty only write zeros; warps whose reach is empty in a
+// slot skip it; the rest walk the set bits of the fan cut to the support
+// radius. Built without fast math.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "level_set_sum.cuh"
 
-namespace {
-
-template <typename T>
-__global__ void __launch_bounds__(256) splat_sweep_kernel(
-    const T* __restrict__ fx, const T* __restrict__ fy,
-    const T* __restrict__ fz, const T* __restrict__ fv,
-    const int4* __restrict__ runs, int n_runs, int n_slots, int64_t C,
-    int64_t Rp, int64_t P, int pad, T cs, T two_over_h, T sigma,
-    T* __restrict__ out) {
-  const int64_t per_chunk = P * P * P;
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= C * per_chunk) return;
-  const int64_t c = idx / per_chunk;
-  const int64_t r = idx - c * per_chunk;
-  const int64_t z = r % P;
-  const int64_t y = (r / P) % P;
-  const int64_t x = r / (P * P);
-  const int64_t slot_stride = Rp * Rp * Rp;
-  const int64_t base = c * n_slots * slot_stride;
-  out[idx] = splat::level_set_sum(fx + base, fy + base, fz + base, fv + base,
-                                  runs, n_runs, n_slots, slot_stride, Rp, Rp,
-                                  x, y, z, pad, cs, two_over_h) *
-             sigma;
-}
-
-template <typename T>
-int launch(const void* fx, const void* fy, const void* fz, const void* fv,
-           const void* runs, int n_runs, int n_slots, int64_t C, int64_t Rp,
-           int64_t P, int pad, double cs, double h, void* out, void* stream) {
-  const int64_t n_out = C * P * P * P;
-  if (n_out == 0) return 0;
-  const int threads = 256;
-  const int64_t blocks = (n_out + threads - 1) / threads;
-  splat_sweep_kernel<T><<<(unsigned int)blocks, threads, 0,
-                          (cudaStream_t)stream>>>(
-      (const T*)fx, (const T*)fy, (const T*)fz, (const T*)fv,
-      (const int4*)runs, n_runs, n_slots, C, Rp, P, pad, T(cs), T(2.0 / h),
-      T(splat::kernel_sigma(h)), (T*)out);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
 extern "C" {
 
 int splat_sweep_f32(const void* fx, const void* fy, const void* fz,
-                    const void* fv, const void* runs, int n_runs, int n_slots,
-                    int64_t C, int64_t Rp, int64_t P, int pad, double cs,
-                    double h, void* out, void* stream) {
-  return launch<float>(fx, fy, fz, fv, runs, n_runs, n_slots, C, Rp, P, pad,
-                       cs, h, out, stream);
+                    const void* fv, const void* masks, const void* runs,
+                    int n_runs, int n_slots, int64_t C, int64_t Rp, int64_t W,
+                    int64_t P, int pad, double cs, double h, void* out,
+                    void* stream) {
+  return splat::launch_level_set<float>(fx, fy, fz, fv, masks, runs, n_runs,
+                                        n_slots, C, Rp, Rp, Rp, W, P, P, P, pad,
+                                        cs, h, out, stream);
 }
 
 int splat_sweep_f64(const void* fx, const void* fy, const void* fz,
-                    const void* fv, const void* runs, int n_runs, int n_slots,
-                    int64_t C, int64_t Rp, int64_t P, int pad, double cs,
-                    double h, void* out, void* stream) {
-  return launch<double>(fx, fy, fz, fv, runs, n_runs, n_slots, C, Rp, P, pad,
-                        cs, h, out, stream);
+                    const void* fv, const void* masks, const void* runs,
+                    int n_runs, int n_slots, int64_t C, int64_t Rp, int64_t W,
+                    int64_t P, int pad, double cs, double h, void* out,
+                    void* stream) {
+  return splat::launch_level_set<double>(fx, fy, fz, fv, masks, runs, n_runs,
+                                         n_slots, C, Rp, Rp, Rp, W, P, P, P,
+                                         pad, cs, h, out, stream);
 }
 
 }  // extern "C"

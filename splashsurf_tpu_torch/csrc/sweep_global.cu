@@ -1,4 +1,5 @@
-// Level-set sweep over the global background grid (kernel K1).
+// Level-set sweep over the global background grid (kernel K1), and the
+// occupancy-mask pre-pass that K1 and K3 read.
 //
 // Replaces: splashsurf_tpu/ops/splat_pallas.py::sweep_global_pallas, the
 // Pallas TPU kernel behind splashsurf_tpu/ops/global_sweep.py::sweep_global.
@@ -13,94 +14,65 @@
 // and its splat weight; empty slots hold a far sentinel fraction (+inf in
 // f32, 1e15 in f64) and weight 0, so they add exactly 0.
 //
-// What bounds it on an H100: loads. Every point reads 4 values for each of
-// S * |offsets| (2 * 232 at hsc = 3) window entries, about 7 KB per point,
-// against ~20 flops per entry; the windows of neighbouring points overlap
-// almost entirely, so the traffic is L1/L2 traffic and not HBM traffic.
+// What bounds it on an H100. Measured occupancy of the 2M dam break's
+// rasters (2, 392, 160, 112) (chip_smoke.py phase 2): slot 1 is all but
+// empty (0.0001 % of its entries: the jittered lattice puts more than one
+// particle in a cell almost never) and slot 0 is 28 % full, so of the
+// 2 * 232 entries a point's fan covers at hsc = 3 only 16 % hold a
+// particle, and 11 % once the fan is cut to the support radius. The bytes
+// the data needs (rasters read once, 0.07 ms at HBM rate) and the float
+// operations of those terms (0.11 ms) are far below the 4 ms of the first
+// design, which probed every entry. Visiting the occupied terms only, the
+// sweep is bound by instruction issue: the terms' arithmetic and each
+// lane's walk over its runs, which diverges within a warp.
 //
-// Design: one thread per output point, z fastest, so the 32 threads of a
-// warp read 32 consecutive addresses of every window row (coalesced, and
-// the rows of neighbouring warps hit L1). The offset fan is passed as a
-// run table (o0, o1, o2_lo, o2_hi): for fixed (o0, o1) the pruned o2 form
-// one contiguous run, so the inner loop walks one contiguous row segment
-// and any hsc works. The weight is read first and an empty slot (weight 0,
-// which contributes exactly 0) skips its three fraction loads: most slot-1
-// entries and about half of the slot-0 entries are empty at the usual
-// cube size of 0.75 particle spacings. Flat offsets are 64-bit, since at
-// the 160M-cell dense gate S * Xp * Yp * Zp comes near 2^31. Shared-memory
-// tiling of the raster window is left to a later change.
-//
-// The sum at each point is splat::level_set_sum (level_set_sum.cuh), shared
-// with kernel K3. Built without fast math: the empty-slot sentinel relies on
-// IEEE inf arithmetic (sqrt(inf), 2 - inf, max(-inf, 0)).
+// Design: splat::level_set_tiles (level_set_sum.cuh), shared with kernel
+// K3. The pre-pass exported here (occupancy_masks_*) packs one bit per
+// raster entry; a 256-thread block of 2 x 4 rows of 32 z stages its
+// window's mask words in shared memory and skips slot 1 as a whole where
+// its window holds nothing (99.4 % of the blocks here); each warp marks in
+// step the runs of the fan (cut to the support radius) that hold a set bit
+// for each lane, and each lane walks only the set bits of its marked runs,
+// in the probing loop's order. Built without fast math: the empty-slot
+// sentinel relies on IEEE inf arithmetic.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "level_set_sum.cuh"
 
-namespace {
-
-template <typename T>
-__global__ void __launch_bounds__(256) sweep_global_kernel(
-    const T* __restrict__ fx, const T* __restrict__ fy,
-    const T* __restrict__ fz, const T* __restrict__ fv,
-    const int4* __restrict__ runs, int n_runs, int n_slots,
-    int64_t Xp, int64_t Yp, int64_t Zp,
-    int64_t PX, int64_t PY, int64_t PZ,
-    int pad, T cs, T two_over_h, T sigma, T* __restrict__ out) {
-  const int64_t n_out = PX * PY * PZ;
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n_out) return;
-  const int64_t z = idx % PZ;
-  const int64_t xy = idx / PZ;
-  const int64_t y = xy % PY;
-  const int64_t x = xy / PY;
-  out[idx] = splat::level_set_sum(fx, fy, fz, fv, runs, n_runs, n_slots,
-                                  Xp * Yp * Zp, Yp, Zp, x, y, z, pad, cs,
-                                  two_over_h) *
-             sigma;
-}
-
-template <typename T>
-int launch(const void* fx, const void* fy, const void* fz, const void* fv,
-           const void* runs, int n_runs, int n_slots,
-           int64_t Xp, int64_t Yp, int64_t Zp,
-           int64_t PX, int64_t PY, int64_t PZ,
-           int pad, double cs, double h, void* out, void* stream) {
-  const int64_t n_out = PX * PY * PZ;
-  if (n_out == 0) return 0;
-  const int threads = 256;
-  const int64_t blocks = (n_out + threads - 1) / threads;
-  const double sigma = splat::kernel_sigma(h);
-  sweep_global_kernel<T><<<(unsigned int)blocks, threads, 0,
-                           (cudaStream_t)stream>>>(
-      (const T*)fx, (const T*)fy, (const T*)fz, (const T*)fv,
-      (const int4*)runs, n_runs, n_slots, Xp, Yp, Zp, PX, PY, PZ, pad,
-      T(cs), T(2.0 / h), T(sigma), (T*)out);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
 extern "C" {
 
+int occupancy_masks_f32(const void* fv, int64_t n_rows, int64_t Zp, int64_t W,
+                        void* masks, void* stream) {
+  return splat::occupancy_masks<float>(fv, n_rows, Zp, W, masks,
+                                       (cudaStream_t)stream);
+}
+
+int occupancy_masks_f64(const void* fv, int64_t n_rows, int64_t Zp, int64_t W,
+                        void* masks, void* stream) {
+  return splat::occupancy_masks<double>(fv, n_rows, Zp, W, masks,
+                                        (cudaStream_t)stream);
+}
+
 int sweep_global_f32(const void* fx, const void* fy, const void* fz,
-                     const void* fv, const void* runs, int n_runs,
-                     int n_slots, int64_t Xp, int64_t Yp, int64_t Zp,
-                     int64_t PX, int64_t PY, int64_t PZ, int pad, double cs,
-                     double h, void* out, void* stream) {
-  return launch<float>(fx, fy, fz, fv, runs, n_runs, n_slots, Xp, Yp, Zp,
-                       PX, PY, PZ, pad, cs, h, out, stream);
+                     const void* fv, const void* masks, const void* runs,
+                     int n_runs, int n_slots, int64_t Xp, int64_t Yp,
+                     int64_t Zp, int64_t W, int64_t PX, int64_t PY, int64_t PZ,
+                     int pad, double cs, double h, void* out, void* stream) {
+  return splat::launch_level_set<float>(fx, fy, fz, fv, masks, runs, n_runs,
+                                        n_slots, 1, Xp, Yp, Zp, W, PX, PY, PZ,
+                                        pad, cs, h, out, stream);
 }
 
 int sweep_global_f64(const void* fx, const void* fy, const void* fz,
-                     const void* fv, const void* runs, int n_runs,
-                     int n_slots, int64_t Xp, int64_t Yp, int64_t Zp,
-                     int64_t PX, int64_t PY, int64_t PZ, int pad, double cs,
-                     double h, void* out, void* stream) {
-  return launch<double>(fx, fy, fz, fv, runs, n_runs, n_slots, Xp, Yp, Zp,
-                        PX, PY, PZ, pad, cs, h, out, stream);
+                     const void* fv, const void* masks, const void* runs,
+                     int n_runs, int n_slots, int64_t Xp, int64_t Yp,
+                     int64_t Zp, int64_t W, int64_t PX, int64_t PY, int64_t PZ,
+                     int pad, double cs, double h, void* out, void* stream) {
+  return splat::launch_level_set<double>(fx, fy, fz, fv, masks, runs, n_runs,
+                                         n_slots, 1, Xp, Yp, Zp, W, PX, PY, PZ,
+                                         pad, cs, h, out, stream);
 }
 
 }  // extern "C"

@@ -6,13 +6,17 @@ Port of ``splashsurf_tpu/ops/splat_pallas.py``:
 - ``sweep_global_cuda`` (K1, ``csrc/sweep_global.cu``) replaces
   ``sweep_global_pallas``; its plain version ``sweep_global_plain`` is the
   scan formulation of ``global_sweep.sweep_global``.
+- ``occupancy_masks_cuda`` (the pre-pass of K1 and K3, in
+  ``csrc/sweep_global.cu``) packs one bit per raster entry with a nonzero
+  weight; its plain version is ``occupancy_masks_plain``.
 - ``density_sweep_cuda`` (K2, ``csrc/density_sweep.cu``) replaces
   ``density_sweep_pallas``; its plain version ``density_sweep_plain`` is
   ``neighbors._raster_sweep_xla``.
 - ``splat_sweep_cuda`` (K3, ``csrc/splat_sweep.cu``) replaces
   ``splat_sweep_pallas``; its plain version ``splat_sweep_plain`` is the
   scan formulation of ``subdomains.chunk_levelset_raster``. K1 and K3 share
-  their per-point sum (``csrc/level_set_sum.cuh``).
+  one tiled kernel (``csrc/level_set_sum.cuh``) that walks the set bits of
+  the occupancy masks only.
 - ``pair_sweep_cuda`` (K4, ``csrc/pair_sweep.cu``) replaces
   ``pair_sweep_pallas``; its plain version ``pair_sweep_plain`` is
   ``global_sweep._pair_sweep_xla``, over the reference's fan
@@ -129,9 +133,13 @@ def load_kernels() -> ctypes.CDLL:
     except OSError as e:
         raise RuntimeError(f"cannot load {path}: {e}") from e
     p, i, i64, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
+    for name in ("occupancy_masks_f32", "occupancy_masks_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, i64, i64, i64, p, p]
+        fn.restype = i
     for name in ("sweep_global_f32", "sweep_global_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [p, p, p, p, p, i, i, i64, i64, i64, i64, i64, i64,
+        fn.argtypes = [p, p, p, p, p, p, i, i, i64, i64, i64, i64, i64, i64, i64,
                        i, d, d, p, p]
         fn.restype = i
     for name in ("density_sweep_f32", "density_sweep_f64"):
@@ -140,7 +148,7 @@ def load_kernels() -> ctypes.CDLL:
         fn.restype = i
     for name in ("splat_sweep_f32", "splat_sweep_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [p, p, p, p, p, i, i, i64, i64, i64, i, d, d, p, p]
+        fn.argtypes = [p, p, p, p, p, p, i, i, i64, i64, i64, i64, i, d, d, p, p]
         fn.restype = i
     for name in ("pair_sweep_f32", "pair_sweep_f64"):
         fn = getattr(lib, name)
@@ -198,9 +206,86 @@ def offset_runs(hsc: int, pad: int | None = None) -> np.ndarray:
     return _runs(gather_cell_offsets(hsc) + (hsc + 1 if pad is None else pad))
 
 
+def split_runs(runs: np.ndarray, longest: int = 32) -> np.ndarray:
+    """Runs cut into pieces of at most ``longest`` o2, in order: the sweep
+    kernel takes a run's bits from one 32-bit funnel."""
+    out = []
+    for o0, o1, lo, hi in runs.tolist():
+        out.extend((o0, o1, a, min(a + longest, hi)) for a in range(lo, hi, longest))
+    return np.asarray(out, np.int32).reshape(-1, 4)
+
+
+def sweep_runs(hsc: int, pad: int, h_over_cs: float) -> np.ndarray:
+    """The run table of the sweep kernels: the fan ``gather_cell_offsets(hsc)``
+    less the cells that lie wholly beyond the support radius (their terms
+    are exactly 0: every particle in them is at q >= 2), shifted by ``pad``,
+    in runs of at most 32. The kept offsets keep their order, so the sum
+    over them equals the sum over the whole fan."""
+    offs = gather_cell_offsets(hsc)
+    d = np.where(offs > 0, offs, np.where(offs + 1 < 0, -(offs + 1), 0)).astype(np.float64)
+    keep = (d**2).sum(axis=1) < (h_over_cs * (1.0 + 1e-3)) ** 2
+    return split_runs(_runs(offs[keep] + pad))
+
+
 @functools.lru_cache(maxsize=16)
-def _runs_on(hsc: int, pad: int, device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(offset_runs(hsc, pad), device=device)
+def _runs_on(hsc: int, pad: int, h_over_cs: float, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(sweep_runs(hsc, pad, h_over_cs), device=device)
+
+
+# The sweep kernel's tile (csrc/level_set_sum.cuh kTileX, kTileY, 32 z):
+# one warp per (x, y) row segment of 32 consecutive z.
+SWEEP_TILE = (2, 4, 32)
+
+
+def window_words(pad: int) -> int:
+    """Mask words the sweep kernel stages per window row
+    (``window_words`` in level_set_sum.cuh): the tile's 32 z plus 2 pad - 1,
+    and one more for the funnel."""
+    return ((2 * pad + 30) >> 5) + 2
+
+
+def occupancy_masks_plain(fv: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch occupancy masks: weights (..., Zp) in, int32 words
+    (..., ceil(Zp / 32)) out, bit b of word w set iff fv[..., 32 w + b] != 0
+    (the kernel's words, read as signed)."""
+    Zp = fv.shape[-1]
+    W = -(-Zp // 32)
+    occ = torch.nn.functional.pad((fv != 0).to(torch.int64), (0, 32 * W - Zp))
+    weights = torch.bitwise_left_shift(
+        torch.ones(32, dtype=torch.int64, device=fv.device),
+        torch.arange(32, device=fv.device),
+    )
+    words = (occ.reshape(fv.shape[:-1] + (W, 32)) * weights).sum(-1)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def occupancy_masks_cuda(fv: torch.Tensor) -> torch.Tensor:
+    """Occupancy masks of the weight raster ``fv`` (..., Zp): the pre-pass
+    kernel of K1 and K3 on a CUDA tensor, the plain version on a CPU one.
+    Returns int32 words (..., ceil(Zp / 32)) as ``occupancy_masks_plain``."""
+    if fv.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"occupancy_masks: dtype {fv.dtype} (want float32 or float64)")
+    if fv.dim() == 0 or not fv.is_contiguous():
+        raise ValueError("occupancy_masks: the weights must be contiguous, at least 1-D")
+    if fv.device.type == "cpu":
+        return occupancy_masks_plain(fv)
+    if fv.device.type != "cuda":
+        raise ValueError(f"occupancy_masks: unsupported device {fv.device}")
+    Zp = fv.shape[-1]
+    W = -(-Zp // 32)
+    lib = load_kernels()
+    out = torch.empty(fv.shape[:-1] + (W,), dtype=torch.int32, device=fv.device)
+    with torch.cuda.device(fv.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch(
+            getattr(lib, "occupancy_masks_" + _suffix(fv.dtype)),
+            fv.data_ptr(), fv.numel() // max(Zp, 1), Zp, W, out.data_ptr(), stream,
+        )
+    occupancy_masks_cuda.launches += 1
+    return out
+
+
+occupancy_masks_cuda.launches = 0
 
 
 def _level_set_plain(fx, fy, fz, fv, cell_size, compact_support_radius, hsc, pad, n_points):
@@ -246,16 +331,17 @@ def sweep_global_cuda(fx, fy, fz, fv, cell_size, compact_support_radius, hsc, n_
     if Xp < PX + 2 * pad - 1 or Yp < PY + 2 * pad - 1 or Zp < PZ + 2 * pad - 1:
         raise ValueError(f"sweep_global: rasters {tuple(fx.shape)} too small for {n_points}")
     lib = load_kernels()
-    runs = _runs_on(hsc, pad, fx.device)
+    runs = _runs_on(hsc, pad, float(compact_support_radius) / float(cell_size), fx.device)
+    masks = occupancy_masks_cuda(fv)
     out = torch.empty((PX, PY, PZ), dtype=fx.dtype, device=fx.device)
     with torch.cuda.device(fx.device):
         stream = torch.cuda.current_stream().cuda_stream
         _launch(
             getattr(lib, "sweep_global_" + _suffix(fx.dtype)),
             fx.data_ptr(), fy.data_ptr(), fz.data_ptr(), fv.data_ptr(),
-            runs.data_ptr(), runs.shape[0], S, Xp, Yp, Zp, PX, PY, PZ, pad,
-            float(cell_size), float(compact_support_radius), out.data_ptr(),
-            stream,
+            masks.data_ptr(), runs.data_ptr(), runs.shape[0], S, Xp, Yp, Zp,
+            masks.shape[-1], PX, PY, PZ, pad, float(cell_size),
+            float(compact_support_radius), out.data_ptr(), stream,
         )
     sweep_global_cuda.launches += 1
     return out
@@ -371,16 +457,17 @@ def splat_sweep_cuda(rx, ry, rz, rv, cell_size, compact_support_radius, hsc, mar
             f"splat_sweep: rasters {tuple(rx.shape)} for P={P}, margin={margin}, hsc={hsc}"
         )
     lib = load_kernels()
-    runs = _runs_on(hsc, pad, rx.device)
+    runs = _runs_on(hsc, pad, float(compact_support_radius) / float(cell_size), rx.device)
+    masks = occupancy_masks_cuda(rv)
     out = torch.empty((C, P, P, P), dtype=rx.dtype, device=rx.device)
     with torch.cuda.device(rx.device):
         stream = torch.cuda.current_stream().cuda_stream
         _launch(
             getattr(lib, "splat_sweep_" + _suffix(rx.dtype)),
             rx.data_ptr(), ry.data_ptr(), rz.data_ptr(), rv.data_ptr(),
-            runs.data_ptr(), runs.shape[0], S, C, Rp, P, pad,
-            float(cell_size), float(compact_support_radius), out.data_ptr(),
-            stream,
+            masks.data_ptr(), runs.data_ptr(), runs.shape[0], S, C, Rp,
+            masks.shape[-1], P, pad, float(cell_size),
+            float(compact_support_radius), out.data_ptr(), stream,
         )
     splat_sweep_cuda.launches += 1
     return out
