@@ -13,8 +13,11 @@ Phases (each prints progress; any failure raises and exits non-zero):
      corner) in both; the pre-pass bit-equal to its plain version; the
      compiler's registers and spills, the shared memory per block and the
      rasters' occupancy as the sweep's tiles see it;
-  3. kernel K2 (density sweep) the same way, plus a lattice wider than 5376
-     lanes;
+  3. kernel K2 (density sweep) the same way (the time includes its
+     slot-byte pre-pass, bit-equal to its plain version), plus a lattice
+     wider than 5376 lanes, an f64 lattice and one whose pairs straddle the
+     support radius; its compiler report and the lattice's occupancy (query
+     fill, occupied pairs and pairs within the support per particle);
   4. ``reconstruct_surface`` on the 2M-particle dam break (r = 0.011,
      support 4r, cube 1.5r, iso 0.6): one cold frame and three more; the mesh
      must be closed and manifold and both kernels must have launched;
@@ -33,22 +36,33 @@ Phases (each prints progress; any failure raises and exits non-zero):
      equal counts, vertices within 1e-4;
   9. kernel K4 (pair sweep of the cell-raster densities) against its plain
      version on the meta rasters of the 2M dam break, f32, and of a 20K dam
-     break in f64, timed, on occupied query slots;
+     break in f64, timed with its mask pre-pass, on occupied query slots (0
+     on the empty ones), and on edge rasters in f32 and f64 (only slot 1
+     occupied; queries on mask-word and tile boundaries; a query and a
+     source in each corner; pairs just inside and just outside the
+     support); masks, compiler report, shared memory and occupancy (query
+     fill, busy 32-cell segments, pairs per particle, tiles skipping a slot);
  10. ``reconstruct_sequence`` over 6 frames of the 2M dam break with the
      cell-raster densities (``SPLASHSURF_TPU_DENSITY_CELLRASTER=1``): every
      frame without raster overflow takes them (K4 launched once, K2 not at
-     all), each mesh is closed and equals a frame-at-a-time run, and the
+     all, one mask pre-pass for each K1 and K4 launch), each mesh is closed and equals a frame-at-a-time run, and the
      first frame agrees with the legacy densities (rho rtol 1e-5, equal
      counts, vertices within 1e-4); per-frame seconds pipelined and frame at
      a time, and the stage split of both density formulations.
 
 Each kernel's line carries its bound: the larger of the bytes it must move
 (rasters read once, output written once) over 3.35 TB/s and the float
-operations of the occupied terms this run's data needs over 67 TFLOP/s (an
-H100 SXM's data-sheet peaks at 700 W; the card's power limit is printed
-beside). For K1 and K3 those are the terms within the support radius: the
-cells wholly beyond it add exactly 0, and the kernels leave them out. No single PyTorch call computes these functions, so
-``library_ms`` is null.
+operations this run's data needs over 67 TFLOP/s (an H100 SXM's data-sheet
+peaks at 700 W; the card's power limit is printed beside). For K1 and K3
+those are the occupied terms within the support radius: the cells wholly
+beyond it add exactly 0, and the kernels leave them out. For K2 and K4 they
+are the distance of every occupied (query, source) pair and the spline of
+the pairs within the support (beyond it the term is exactly 0, and the
+kernels skip it), and their bytes are fx in full (the occupancy pre-pass
+reads it), fy and fz only in the 32-byte sectors that hold an occupied
+entry, and the output; the earlier count, every raster entry read and a
+whole term for every occupied pair, is printed beside. No single PyTorch
+call computes these functions, so ``library_ms`` is null.
 
 The line before the last is a JSON object of the kernels' launches, errors,
 times and bounds; the last line is ``{"ok": true, "device": {...}}``.
@@ -75,12 +89,18 @@ K3_F32_TOL = dict(rtol=1e-5, atol=2e-5)  # the reference's splat bar
 F64_TOL = dict(rtol=1e-10, atol=1e-12)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, 700 W
 F32_FLOPS = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
-# float operations of one occupied term, counted in the kernels' loops
-# (sqrt and max count one each): K1/K3 23 (offset adds 4, d2 5, q 2, the
-# two clamped cubes 8, weight and sum 4); K2 22 (differences 3, d2 5, q 2,
-# cubes 8, combine and sum 4)
-# and K4 22 (the same loop body as K2)
-FLOPS_PER_TERM = {"sweep_global": 23, "density_sweep": 22, "splat_sweep": 23, "pair_sweep": 22}
+# float operations counted in the kernels' loops (sqrt and max count one
+# each). K1/K3, per occupied term within the support: 23 (offset adds 4, d2
+# 5, q 2, the two clamped cubes 8, weight and sum 4).
+FLOPS_TERM = 23
+# K2/K4, per occupied (query, source) pair: its distance, K2 9 (differences
+# 3, d2 5, the cut's compare 1), K4 12 (and the offset adds 3); K2 adds its
+# 3 offset adds once per occupied source a lane visits. Per pair within the
+# support: the spline, 14 (q 2, cubes 8, combine and sum 4).
+FLOPS_D2 = {"density_sweep": 9, "pair_sweep": 12}
+FLOPS_SOURCE = 3
+FLOPS_SPLINE = 14
+FLOPS_PAIR_OLD = 22  # the earlier count: a whole term for every occupied pair
 CELLRASTER = "SPLASHSURF_TPU_DENSITY_CELLRASTER"
 N_FRAMES = 6
 
@@ -92,15 +112,19 @@ def log(msg):
 def reset_launches(sk):
     """Set every kernel's launch count to 0, just before a main path runs."""
     for fn in (sk.sweep_global_cuda, sk.density_sweep_cuda, sk.splat_sweep_cuda,
-               sk.pair_sweep_cuda, sk.occupancy_masks_cuda):
+               sk.pair_sweep_cuda, sk.occupancy_masks_cuda, sk.bin_occupancy_cuda):
         fn.launches = 0
 
 
 def check_mask_launches(sk, sweeps):
-    """Every sweep launch of a main path built its occupancy masks first."""
+    """Every sweep launch of a main path (K1, K3 or K4) built its occupancy
+    masks first, and every K2 launch its slot bytes."""
     n = sk.occupancy_masks_cuda.launches
     if n != sweeps:
-        raise AssertionError(f"{n} mask pre-pass launches for {sweeps} level-set sweeps")
+        raise AssertionError(f"{n} mask pre-pass launches for {sweeps} K1, K3 and K4 sweeps")
+    n2, k2 = sk.bin_occupancy_cuda.launches, sk.density_sweep_cuda.launches
+    if n2 != k2:
+        raise AssertionError(f"{n2} slot-byte pre-pass launches for {k2} K2 sweeps")
     return n
 
 
@@ -129,12 +153,38 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def bound(name, n_bytes, n_terms):
+def bound(n_bytes, n_flops):
     """(bound_ms, bound_by): the larger of the bytes over the memory rate
-    and the occupied terms' operations over the float32 rate."""
+    and the float operations over the float32 rate."""
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = n_terms * FLOPS_PER_TERM[name] / F32_FLOPS * 1e3
+    by_ops = n_flops / F32_FLOPS * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def needed_bytes(fr, out):
+    """The bytes K2 or K4 must move on the fraction rasters ``fr``: fx in
+    full (the occupancy pre-pass reads every entry), of fy and fz only the
+    32-byte sectors that hold an occupied entry (the kernels load them at
+    a set bit only), the output in full."""
+    fx = fr[0]
+    per = 32 // fx.element_size()
+    occ = (fx < 1e14).reshape(-1)
+    occ = torch.cat([occ, occ.new_zeros(-occ.numel() % per)])
+    sectors = int(occ.reshape(-1, per).any(dim=1).sum())
+    return nbytes(fx, out) + 2 * 32 * sectors
+
+
+def pair_bounds(name, n_bytes, old_bytes, terms):
+    """The bound of K2 or K4 from ``n_bytes`` (``needed_bytes``) and
+    ``terms`` (``density_terms`` or ``pair_terms``), and the bound of the
+    earlier count (every raster entry read, a whole term per occupied pair),
+    each as (ms, by); logs the two parts of the bound."""
+    flops = (terms["pairs"] * FLOPS_D2[name] + terms["under"] * FLOPS_SPLINE
+             + terms.get("sources", 0) * FLOPS_SOURCE)
+    log(f"  {name} bound parts: {n_bytes} bytes needed = {n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
+        f"(every raster entry: {old_bytes} bytes), {flops} operations = "
+        f"{flops / F32_FLOPS * 1e3:.4f} ms")
+    return bound(n_bytes, flops), bound(old_bytes, terms["pairs"] * FLOPS_PAIR_OLD)
 
 
 def sweep_offsets(hsc, pad, h_over_cs=None):
@@ -161,14 +211,20 @@ def sweep_terms(fv, offsets, n_points):
     return total
 
 
-def sweep_shared_bytes(sk, n_runs, n_slots, pad, t_size):
-    """Dynamic shared memory of one block of the level-set sweep: per run
-    its offsets in length units and its staged form (16 bytes), per slot
-    the staged mask window and a flag (``level_set_smem`` in
-    level_set_sum.cuh)."""
-    TX, TY, _ = sk.SWEEP_TILE
-    words = (TX + 2 * pad - 1) * (TY + 2 * pad - 1) * sk.window_words(pad)
-    return n_runs * (2 * t_size + 16) + n_slots * (4 * words + 4)
+def log_block_geometry(sk, kind, n_runs, pad):
+    """The block geometry that the library launches for two slots
+    (``sk.kernel_geometry``: the level-set sweep, or K4 with ``pad`` its
+    reach), held to the host's copies that the CPU emulations and the
+    occupancy reports use; logs the dynamic shared memory per block."""
+    tile, words, f32 = sk.kernel_geometry(kind, n_runs, 2, pad, torch.float32)
+    host = ((sk.SWEEP_TILE, sk.window_words(pad)) if kind == "sweep"
+            else (sk.PAIR_TILE, sk.pair_window_words(pad)))
+    if (tile, words) != host:
+        raise AssertionError(f"{kind}: the library's tile {tile} and {words} window words "
+                             f"differ from the host's {host}")
+    f64 = sk.kernel_geometry(kind, n_runs, 2, pad, torch.float64)[2]
+    log(f"  dynamic shared memory per {tile} tile block (from the library): {f32} bytes "
+        f"(f32), {f64} (f64); {words} mask words per window row, as the host's copy")
 
 
 def ptxas_report(sk, source, names):
@@ -246,42 +302,200 @@ def edge_rasters(shape, dtype, dev, cs, pad, seed):
     return out
 
 
-def check_masks(sk, name, fv):
+def check_masks(sk, name, fv, fractions=False):
     """The mask pre-pass bit-equal to its plain version; returns the masks."""
-    got = sk.occupancy_masks_cuda(fv)
-    if not torch.equal(got, sk.occupancy_masks_plain(fv)):
+    got = sk.occupancy_masks_cuda(fv, fractions)
+    if not torch.equal(got, sk.occupancy_masks_plain(fv, fractions)):
         raise AssertionError(f"{name}: occupancy masks differ from the plain version")
     log(f"  {name}: occupancy masks {tuple(got.shape)} bit-equal to the plain version")
     return got
 
 
-def density_terms(fx):
-    """Occupied (query, source) pairs of the 27-bin density sweep (K2):
-    for every bin, its occupied slots times those of each neighbour bin."""
+def density_terms(fr, bin_size, cut2):
+    """What K2 must compute on the (8, LX+2, Yp, Zp) rasters ``fr``: the
+    occupied query slots, the occupied (query, source) pairs over the 27
+    neighbour bins, those with d2 <= cut2 (within the support, in the plain
+    version's arithmetic), and the occupied sources the lanes holding a
+    query visit."""
+    fx = fr[0]
+    t = np.float32 if fx.dtype == torch.float32 else np.float64
     occ = (fx < 1e14).sum(dim=0).to(torch.float64)  # (LX+2, Yp, Zp)
     X, Y, Z = occ.shape
-    q = occ[1 : X - 1, 1 : Y - 1, 1 : Z - 1]
-    total = 0.0
+    inner = (slice(1, X - 1), slice(1, Y - 1), slice(1, Z - 1))
+    q = occ[inner]
+    fq = [f[(slice(None),) + inner] for f in fr]
+    qocc = fx[(slice(None),) + inner] < 1e14
+    pairs = under = sources = 0
     for a in range(3):
         for b in range(3):
             for c in range(3):
-                total += float((q * occ[a : a + X - 2, b : b + Y - 2, c : c + Z - 2]).sum())
-    return int(total)
+                sl = (slice(a, a + X - 2), slice(b, b + Y - 2), slice(c, c + Z - 2))
+                pairs += int((q * occ[sl]).sum())
+                sources += int(occ[sl][q > 0].sum())
+                od = [float(t(o - 1) * t(bin_size)) for o in (a, b, c)]
+                win = [f[(slice(None),) + sl] for f in fr]
+                for k in range(fx.shape[0]):
+                    d2 = sum((fq[d] - (win[d][k] + od[d])[None]) ** 2 for d in range(3))
+                    # both occupied (two f64 sentinels 1e15 lie close)
+                    both = qocc & (win[0][k] < 1e14)[None]
+                    under += int(((d2 <= cut2) & both).sum())
+    return dict(queries=int(q.sum()), pairs=pairs, under=under, sources=sources)
 
 
-def pair_terms(fx, reach, h_over_cs, pad, n_cells):
-    """Occupied (query, source) pairs of the pruned pair fan (K4): for every
-    offset, the occupied slots of each cell times those of the cell at the
-    offset."""
+def pair_terms(fr, cs, reach, h_over_cs, pad, n_cells, cut2):
+    """What K4 must compute on the (S, Xp, Yp, Zp) rasters ``fr``: the
+    occupied query slots, the occupied (query, source) pairs over the pruned
+    fan, and those with d2 <= cut2 (within the support, in the plain
+    version's arithmetic)."""
     from splashsurf_tpu_torch.ops.splat_kernels import pair_cell_offsets
 
+    fx = fr[0]
+    t = np.float32 if fx.dtype == torch.float32 else np.float64
+    S = fx.shape[0]
     occ = (fx < 1e14).sum(dim=0).to(torch.float64)  # (Xp, Yp, Zp)
-    q = occ[tuple(slice(pad, pad + n) for n in n_cells)]
-    total = 0.0
+    inner = tuple(slice(pad, pad + n) for n in n_cells)
+    q = occ[inner]
+    fq = [f[(slice(None),) + inner] for f in fr]
+    qocc = fx[(slice(None),) + inner] < 1e14
+    pairs = under = 0
     for o in pair_cell_offsets(reach, h_over_cs):
-        win = occ[tuple(slice(pad + a, pad + a + n) for a, n in zip(o, n_cells))]
-        total += float((q * win).sum())
-    return int(total)
+        sl = tuple(slice(pad + a, pad + a + n) for a, n in zip(o, n_cells))
+        pairs += int((q * occ[sl]).sum())
+        od = [float(t(a) * t(cs)) for a in o]
+        win = [f[(slice(None),) + sl] for f in fr]
+        for k in range(S):
+            d2 = sum((fq[d] - (win[d][k] + od[d])[None]) ** 2 for d in range(3))
+            both = qocc & (win[0][k] < 1e14)[None]  # two f64 sentinels lie close
+            under += int(((d2 <= cut2) & both).sum())
+    return dict(queries=int(q.sum()), pairs=pairs, under=under)
+
+
+def log_bounds(name, ms, prepass_ms, plain_ms, b, b_old, terms):
+    log(f"  {name}: kernel {ms:.3f} ms (of which the pre-pass {prepass_ms:.4f} ms), plain "
+        f"{plain_ms:.3f} ms, bound {b[0]:.4f} ms ({b[1]}; the earlier count gives "
+        f"{b_old[0]:.4f} ms, {b_old[1]}); {ms / b[0]:.1f}x the bound")
+    n = max(terms["queries"], 1)
+    log(f"  {name} work: {terms['queries']} queries, {terms['pairs'] / n:.2f} occupied pairs "
+        f"and {terms['under'] / n:.2f} within the support per particle "
+        f"({terms['under'] / max(terms['pairs'], 1):.2%})")
+
+
+def k4_occupancy_report(sk, fx, masks, reach, pad, n_cells):
+    """How K4's tiles see the fraction rasters (S, Xp, Yp, Zp): the query
+    fill per slot; the 32-cell z segments that hold a query and their
+    queries; the tiles whose staged mask window holds no set bit, per slot
+    (the block skips that slot) and in every slot."""
+    S, Xp, Yp, Zp = fx.shape
+    ncx, ncy, ncz = n_cells
+    qocc = fx[(slice(None),) + tuple(slice(pad, pad + n) for n in n_cells)] < 1e14
+    fill = [float(qocc[s].double().mean()) for s in range(S)]
+    seg = torch.nn.functional.pad(qocc.float(), (0, -ncz % 32)).reshape(S, ncx, ncy, -1, 32).sum(-1)
+    busy = seg > 0
+    TX, TY, TZ = sk.PAIR_TILE
+    nww = sk.pair_window_words(reach)
+    wx, wy = TX + 2 * reach, TY + 2 * reach
+    occ = (masks.reshape(S, 1, Xp, Yp, masks.shape[-1]) != 0).float()[
+        :, :, pad - reach :, pad - reach :, (pad - reach) >> 5 :]
+    occ = torch.nn.functional.pad(occ, (0, nww, 0, wy, 0, wx))
+    win = torch.nn.functional.max_pool3d(occ, (wx, wy, nww), stride=(TX, TY, 1))
+    tiles = [-(-n // t) for n, t in zip(n_cells, (TX, TY, TZ))]
+    full = win[:, 0, : tiles[0], : tiles[1], : tiles[2]].reshape(S, -1) > 0
+    skip = [float((~full[s]).double().mean()) for s in range(S)]
+    log(f"  K4 occupancy: query fill {[f'{f:.4%}' for f in fill]}; busy 32-cell segments "
+        f"{float(busy.double().mean()):.2%}, {float(seg[busy].mean()):.2f} queries per busy one; "
+        f"{TX}x{TY}x{TZ} tiles skipping each slot {[f'{x:.2%}' for x in skip]}, every slot "
+        f"{float((~full.any(0)).double().mean()):.2%} of {full.shape[1]}")
+
+
+def k2_occupancy_report(fx):
+    """How full K2's lattice (8, LX+2, Yp, Zp) is: the query fill per slot,
+    the lanes and the 32-lane warps that hold a query."""
+    S, Xp, Yp, Zp = fx.shape
+    W = (Yp - 2) * Zp
+    q = fx.reshape(S, Xp, Yp * Zp)[:, 1:-1, Zp + 1 : Zp + 1 + W] < 1e14  # (8, LX, W)
+    lanes = q.any(0).reshape(-1)
+    warps = torch.nn.functional.pad(lanes, (0, -lanes.numel() % 32)).reshape(-1, 32).any(1)
+    log(f"  K2 occupancy: query fill {[f'{float(q[s].double().mean()):.2%}' for s in range(S)]}; "
+        f"lanes with a query {float(lanes.double().mean()):.2%}, warps with none "
+        f"{float((~warps).double().mean()):.2%} of {warps.numel()}")
+
+
+def pair_edge_rasters(n_cells, pad, dtype, dev, cs, h, seed):
+    """Fraction rasters (2, Xp, Yp, Zp), Xp = ncx + 2 pad, that probe K4's
+    edges: only slot 1 occupied; queries on mask-word and tile boundaries
+    only; a query in each corner cell of the grid and a source in each
+    corner of the padded raster, in both slots; pairs at d = h (1 +- 1e-6)
+    and h (1 +- 1e-3), just inside and just outside the support."""
+    rng = np.random.default_rng(seed)
+    far = np.inf if dtype == torch.float32 else 1e15
+    t = np.float32 if dtype == torch.float32 else np.float64
+    shape = (2,) + tuple(n + 2 * pad for n in n_cells)
+    Xp, Yp, Zp = shape[1:]
+    out = []
+    occ = np.zeros(shape, bool)
+    occ[1] = rng.uniform(size=shape[1:]) < 0.3
+    out.append(("only slot 1", occ))
+    occ = np.zeros(shape, bool)
+    zs = [z for z in (31, 32, 33, 63, 64, 65, 95, 96) if z < Zp]
+    xs = [pad + x for x in range(n_cells[0]) if x % 4 in (0, 3)]
+    ys = [pad + y for y in range(n_cells[1]) if y % 8 in (0, 7)]
+    occ[np.ix_([0, 1], xs, ys, zs)] = rng.uniform(size=(2, len(xs), len(ys), len(zs))) < 0.6
+    out.append(("word and tile edges", occ))
+    occ = np.zeros(shape, bool)
+    for i in (0, pad, Xp - pad - 1, Xp - 1):
+        for j in (0, pad, Yp - pad - 1, Yp - 1):
+            for k in (0, pad, Zp - pad - 1, Zp - 1):
+                occ[:, i, j, k] = True
+    out.append(("corners", occ))
+    res = []
+    for name, occ in out:
+        fr = rng.uniform(0, cs, (3,) + shape).astype(t)
+        fr[:, ~occ] = far
+        res.append((name, fr))
+    # pairs across the support: queries in slot 0 of one cell in every
+    # other (x, y) row, each with a source in slot 1 at d = h (1 + eps) along
+    # a random direction
+    fr = np.full((3,) + shape, far, t)
+    eps = (1e-6, -1e-6, 1e-3, -1e-3)
+    i = 0
+    for x in range(pad, pad + n_cells[0]):
+        for y in range(pad + 1, pad + n_cells[1] - 1, 2):
+            z = pad + 1 + (x + y) % (n_cells[2] - 2)
+            f0 = rng.uniform(0.3 * cs, 0.7 * cs, 3)
+            u = rng.normal(size=3)
+            u /= np.linalg.norm(u)
+            p = np.array([x, y, z]) * cs + f0 + h * (1 + eps[i % 4]) * u
+            c = np.floor(p / cs).astype(int)
+            if (c < pad).any() or (c >= np.array(shape[1:]) - pad).any() or fr[0, 1][tuple(c)] < 1e14:
+                continue
+            fr[:, 0, x, y, z] = f0
+            fr[:, 1][(slice(None),) + tuple(c)] = p - c * cs
+            i += 1
+    res.append((f"{i} pairs across the support", fr))
+    return [(name, [torch.as_tensor(a, device=dev) for a in fr]) for name, fr in res]
+
+
+def straddle_lattice(dtype, dev, h, seed):
+    """Bin rasters (8, LX+2, LY+2, LZ+2), bin size h, in which slot 0 of
+    every interior bin has a particle and slot 1 of the next bin along x one
+    at d = h (1 + eps) from it, eps in +-1e-7, +-1e-5, +-1e-3: pairs just
+    inside and just outside the support."""
+    rng = np.random.default_rng(seed)
+    far = np.inf if dtype == torch.float32 else 1e15
+    LX, LY, LZ = 6, 10, 12
+    fr = np.full((3, 8, LX + 2, LY + 2, LZ + 2), far)
+    eps = np.array([1e-7, -1e-7, 1e-5, -1e-5, 1e-3, -1e-3])
+    inner = (slice(1, LX), slice(1, LY + 1), slice(1, LZ + 1))
+    n = (LX - 1) * LY * LZ
+    f0 = rng.uniform(0.25 * h, 0.5 * h, (3, n))
+    e = eps[np.arange(n) % eps.size]
+    for d in range(3):
+        fr[d, 0][inner] = f0[d].reshape(LX - 1, LY, LZ)
+    nxt = (slice(2, LX + 1), slice(1, LY + 1), slice(1, LZ + 1))
+    fr[0, 1][nxt] = (f0[0] + h * e).reshape(LX - 1, LY, LZ)
+    for d in (1, 2):
+        fr[d, 1][nxt] = f0[d].reshape(LX - 1, LY, LZ)
+    return LX, [torch.as_tensor(a, dtype=dtype, device=dev).contiguous() for a in fr]
 
 
 def nbytes(*tensors):
@@ -349,8 +563,7 @@ def phase_k3(pt, dev, canyon, kernels):
         f"rasters {tuple(rasters[0].shape)}")
     for line in ptxas_report(sk, "splat_sweep.cu", ("level_set_tiles",)):
         log("  ptxas " + line)
-    log(f"  dynamic shared memory per {sk.SWEEP_TILE} tile block: "
-        f"{sweep_shared_bytes(sk, len(sk.sweep_runs(hsc, m + 1, h / cs)), 2, m + 1, 4)} bytes (f32)")
+    log_block_geometry(sk, "sweep", len(sk.sweep_runs(hsc, m + 1, h / cs)), m + 1)
     masks = check_masks(sk, "canyon chunk", rasters[3])
     occupancy_report(sk, rasters[3], masks, hsc, m + 1, h / cs, (P, P, P))
     del masks
@@ -359,7 +572,7 @@ def phase_k3(pt, dev, canyon, kernels):
     out3 = k3()
     err3 = compare("K3 f32", out3, p3(), K3_F32_TOL)
     ms3, pms3 = cuda_ms(k3, 5), cuda_ms(p3, 2)
-    b3 = bound("splat_sweep", nbytes(*rasters, out3),
+    b3 = bound(nbytes(*rasters, out3), FLOPS_TERM *
                sweep_terms(rasters[3], sweep_offsets(hsc, m + 1, h / cs), (P, P, P)))
     log(f"  K3 f32: kernel {ms3:.3f} ms (of which the mask pre-pass "
         f"{cuda_ms(lambda: sk.occupancy_masks_cuda(rasters[3]), 5):.4f} ms), plain {pms3:.3f} ms, "
@@ -486,10 +699,81 @@ def check_same_mesh(name, a, b, ordered, tree=None, same_counts=True):
         f"diff {vdiff:.3e}" + (f"; triangle lists equal: {same}" if ordered else ""))
 
 
+def phase_k2(dev, pts, h, kernels):
+    """Phase 3: K2 against its plain version on the geoslot lattice of the
+    2M dam break (f32, timed with its slot-byte pre-pass), on a lattice
+    wider than 5376 lanes, an f64 lattice and one whose pairs straddle the
+    support radius."""
+    from splashsurf_tpu_torch import neighbors as N
+    from splashsurf_tpu_torch.ops import splat_kernels as sk
+
+    lo, hi = torch.aminmax(pts, dim=0)
+    phases = N._octant_phase(pts, h / 2.0)
+    agrid = N._phase_aligned_bingrid(lo.cpu().numpy(), hi.cpu().numpy(), h, phases)
+    drast, _, ok = N.geoslot_rasters(pts, agrid)
+    if not bool(ok):
+        raise AssertionError("geoslot octant check failed on the dam break")
+    LX = agrid.dims[0]
+    log(f"phase 3: K2 on lattice {agrid.dims}, rasters {tuple(drast[0].shape)}")
+    for line in ptxas_report(sk, "density_sweep.cu", ("density_sweep_kernel", "bin_occupancy")):
+        log("  ptxas " + line)
+    k2_occupancy_report(drast[0])
+    got = sk.bin_occupancy_cuda(drast[0])
+    if not torch.equal(got, sk.bin_occupancy_plain(drast[0])):
+        raise AssertionError("K2 slot bytes differ from the plain version")
+    log(f"  slot bytes {tuple(got.shape)} bit-equal to the plain version")
+
+    def occupied(r):
+        S, _, Yp, Zp = r[0].shape
+        W = (Yp - 2) * Zp
+        q = r[0].reshape(S, -1, Yp * Zp)[:, 1 : 1 + r[0].shape[1] - 2, Zp + 1 : Zp + 1 + W]
+        return q < 1e14  # empty query slots hold the far sentinel
+
+    def check(name, r, LXr, bs, tol):
+        occ = occupied(r)
+        out = sk.density_sweep_cuda(*r, LXr, bs, h)
+        err = compare(name, out, sk.density_sweep_plain(*r, LXr, bs, h), tol, occ)
+        if bool((out[~occ] != 0).any()):
+            raise AssertionError(f"{name}: a nonzero sum on an empty query slot")
+        return out, err
+
+    out2, err2 = check("K2 f32", drast, LX, agrid.bin_size, F32_TOL)
+    k2 = lambda: sk.density_sweep_cuda(*drast, LX, agrid.bin_size, h)
+    ms2, pms2 = cuda_ms(k2, 10), cuda_ms(lambda: sk.density_sweep_plain(*drast, LX, agrid.bin_size, h), 3)
+    pre2 = cuda_ms(lambda: sk.bin_occupancy_cuda(drast[0]), 10)
+    terms = density_terms(drast, agrid.bin_size, sk.support_cut2(h, drast[0].dtype))
+    b2, b2_old = pair_bounds("density_sweep", needed_bytes(drast, out2), nbytes(*drast, out2),
+                             terms)
+    log_bounds("K2 f32", ms2, pre2, pms2, b2, b2_old, terms)
+    log(f"  K2 sources visited per particle {terms['sources'] / max(terms['queries'], 1):.2f}")
+    rng = np.random.default_rng(7)
+    for dt, LXw, LY, LZ, tol in ((torch.float32, 12, 80, 78, F32_TOL),
+                                 (torch.float64, 6, 20, 18, F64_TOL)):
+        shape = (8, LXw + 2, LY + 2, LZ + 2)
+        fr = rng.uniform(0, h, (3,) + shape)
+        fr[:, rng.uniform(size=shape) < 0.5] = np.inf if dt == torch.float32 else 1e15
+        fr[:, :, [0, -1]] = fr[:, :, :, [0, -1]] = fr[:, :, :, :, [0, -1]] = (
+            np.inf if dt == torch.float32 else 1e15
+        )
+        wr = [torch.as_tensor(f, dtype=dt, device=dev).contiguous() for f in fr]
+        check(f"K2 {dt} lattice {(LXw, LY, LZ)} (W = {LY * (LZ + 2)})", wr, LXw, h, tol)
+    for dt, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
+        LXs, sr = straddle_lattice(dt, dev, h, seed=17)
+        check(f"K2 {dt} pairs straddling the support", sr, LXs, h, tol)
+    kernels["density_sweep"] = dict(
+        name="density_sweep", route="cuda",
+        source="splashsurf_tpu_torch/csrc/density_sweep.cu",
+        replaces="splashsurf_tpu/ops/splat_pallas.py:202",
+        max_abs_err=err2, ms=ms2, plain_ms=pms2, bound_ms=b2[0], bound_by=b2[1],
+        library_ms=None,
+    )
+
+
 def phase_k4(pt, dev, pts, grid, hsc, params, kernels):
     """Phase 9: K4 against its plain version on the meta rasters of the 2M
-    dam break (f32, timed) and of a 20K dam break in f64, on occupied query
-    slots; the kernel writes exactly 0 on the empty ones."""
+    dam break (f32, timed with its mask pre-pass) and of a 20K dam break in
+    f64, on occupied query slots; the kernel writes exactly 0 on the empty
+    ones. Then edge rasters in f32 and f64."""
     import bench
     from splashsurf_tpu_torch.ops import global_sweep as gs
     from splashsurf_tpu_torch.ops import splat_kernels as sk
@@ -500,27 +784,47 @@ def phase_k4(pt, dev, pts, grid, hsc, params, kernels):
         fracs, n_over, _ = gs.rasterize_global(p, None, g, 2, hsc, with_meta=True)
         args = (g.cell_size, h, math.ceil(h / g.cell_size - 1e-9), h / g.cell_size, hsc + 1,
                 g.n_cells)
-        occ = fracs[0][(slice(None),) + tuple(slice(hsc + 1, hsc + 1 + n) for n in g.n_cells)] < 1e14
-        return fracs, args, occ, n_over
+        return fracs, args, n_over
 
-    fracs, args, occ, n_over = inputs(pts, grid)
+    def check(name, fracs, args, tol):
+        occ = fracs[0][(slice(None),) + tuple(slice(args[4], args[4] + n) for n in args[5])] < 1e14
+        out = sk.pair_sweep_cuda(*fracs, *args)
+        err = compare(name, out, sk.pair_sweep_plain(*fracs, *args), tol, occ)
+        if bool((out[~occ] != 0).any()):
+            raise AssertionError(f"{name}: a nonzero sum on an empty query slot")
+        return out, err
+
+    fracs, args, n_over = inputs(pts, grid)
+    reach, pad = args[2], args[4]
+    n_runs = len(sk.pair_runs(reach, args[3]))
     log(f"phase 9: K4 on rasters {tuple(fracs[0].shape)} ({n_over} overflow particles), "
-        f"fan {len(sk.pair_cell_offsets(args[2], args[3]))} offsets, reach {args[2]}")
-    k4 = lambda: sk.pair_sweep_cuda(*fracs, *args)
-    p4 = lambda: sk.pair_sweep_plain(*fracs, *args)
-    out4 = k4()
-    err4 = compare("K4 f32", out4, p4(), F32_TOL, occ)
-    if bool((out4[~occ] != 0).any()):
-        raise AssertionError("K4 wrote a nonzero sum on an empty query slot")
-    ms4, pms4 = cuda_ms(k4, 10), cuda_ms(p4, 3)
-    b4 = bound("pair_sweep", nbytes(*fracs, out4), pair_terms(fracs[0], *args[2:]))
-    log(f"  K4 f32: kernel {ms4:.3f} ms, plain {pms4:.3f} ms, bound {b4[0]:.4f} ms ({b4[1]})")
-    del fracs, out4, occ
+        f"fan {len(sk.pair_cell_offsets(reach, args[3]))} offsets in {n_runs} runs, reach {reach}")
+    for line in ptxas_report(sk, "pair_sweep.cu", ("pair_sweep_tiles",)):
+        log("  ptxas " + line)
+    log_block_geometry(sk, "pair_sweep", n_runs, reach)
+    masks = check_masks(sk, "K4 2M rasters", fracs[0], fractions=True)
+    k4_occupancy_report(sk, fracs[0], masks, reach, pad, args[5])
+    del masks
+    out4, err4 = check("K4 f32", fracs, args, F32_TOL)
+    ms4 = cuda_ms(lambda: sk.pair_sweep_cuda(*fracs, *args), 10)
+    pms4 = cuda_ms(lambda: sk.pair_sweep_plain(*fracs, *args), 3)
+    pre4 = cuda_ms(lambda: sk.occupancy_masks_cuda(fracs[0], fractions=True), 10)
+    terms = pair_terms(fracs, args[0], *args[2:], sk.support_cut2(h, fracs[0].dtype))
+    b4, b4_old = pair_bounds("pair_sweep", needed_bytes(fracs, out4), nbytes(*fracs, out4), terms)
+    log_bounds("K4 f32", ms4, pre4, pms4, b4, b4_old, terms)
+    del fracs, out4
     small = torch.as_tensor(bench.make_dam_break(20_000, RADIUS), device=dev).double()
     sgrid = pt.grid_for_reconstruction(small, RADIUS, h, params.cube_size)
-    f64, args64, occ64, _ = inputs(small, sgrid)
-    compare("K4 f64", sk.pair_sweep_cuda(*f64, *args64), sk.pair_sweep_plain(*f64, *args64),
-            F64_TOL, occ64)
+    f64, args64, _ = inputs(small, sgrid)
+    check("K4 f64", f64, args64, F64_TOL)
+    # edge rasters: cells (13, 11, 45), none a multiple of the 4 x 8 x 32 tile
+    n_edge = (13, 11, 45)
+    cs = grid.cell_size
+    eargs = (cs, h, reach, h / cs, pad, n_edge)
+    for dt, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
+        for name, r in pair_edge_rasters(n_edge, pad, dt, dev, cs, h, seed=19):
+            check_masks(sk, f"K4 {dt} {name}", r[0], fractions=True)
+            check(f"K4 {dt} {name} {tuple(r[0].shape)}", r, eargs, tol)
     kernels["pair_sweep"] = dict(
         name="pair_sweep", route="cuda",
         source="splashsurf_tpu_torch/csrc/pair_sweep.cu",
@@ -675,6 +979,7 @@ def phase_sequence(pt, pts, params, kernels, ident):
 
         seq, gaps_pipe = timed_sequence(pt.reconstruct_sequence(recording(), params))
         launches = sk.pair_sweep_cuda.launches
+        masks = check_mask_launches(sk, sk.sweep_global_cuda.launches + launches)
         took, prev = 0, (0, 0)
         for i, ((kind, k4, k2), n_over) in enumerate(zip(record, over)):
             step, prev = (k4 - prev[0], k2 - prev[1]), (k4, k2)
@@ -705,7 +1010,8 @@ def phase_sequence(pt, pts, params, kernels, ident):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-    log(f"  {took} of {N_FRAMES} frames took the cell-raster densities; K4 launches {launches}; "
+    log(f"  {took} of {N_FRAMES} frames took the cell-raster densities; K4 launches {launches}, "
+        f"mask pre-pass launches {masks} (K1 and K4); "
         f"mesh {seq[0].mesh.num_vertices} vertices, {seq[0].mesh.num_triangles} triangles, closed")
     for name, gaps in (("pipelined", gaps_pipe), ("frame at a time", gaps_single)):
         # the sequence dispatches two frames before its first yield and
@@ -767,9 +1073,7 @@ def main() -> int:
         f"{overflow[0].shape[0]} overflow particles")
     for line in ptxas_report(sk, "sweep_global.cu", ("level_set_tiles", "occupancy_mask")):
         log("  ptxas " + line)
-    log(f"  dynamic shared memory per {sk.SWEEP_TILE} tile block: "
-        f"{sweep_shared_bytes(sk, len(sk.sweep_runs(hsc, hsc + 1, h / grid.cell_size)), 2, hsc + 1, 4)} "
-        f"bytes (f32)")
+    log_block_geometry(sk, "sweep", len(sk.sweep_runs(hsc, hsc + 1, h / grid.cell_size)), hsc + 1)
     masks = check_masks(sk, "2M rasters", rasters[3])
     occupancy_report(sk, rasters[3], masks, hsc, hsc + 1, h / grid.cell_size, grid.n_points)
     del masks
@@ -778,7 +1082,7 @@ def main() -> int:
     out1 = k1()
     err1 = compare("K1 f32", out1, p1(), F32_TOL)
     ms1, pms1 = cuda_ms(k1, 10), cuda_ms(p1, 3)
-    b1 = bound("sweep_global", nbytes(*rasters, out1),
+    b1 = bound(nbytes(*rasters, out1), FLOPS_TERM *
                sweep_terms(rasters[3], sweep_offsets(hsc, hsc + 1, h / grid.cell_size),
                            grid.n_points))
     log(f"  K1 f32: kernel {ms1:.3f} ms (of which the mask pre-pass "
@@ -814,52 +1118,7 @@ def main() -> int:
     )
 
     # --- 3. K2 ---------------------------------------------------------------
-    lo, hi = torch.aminmax(pts, dim=0)
-    phases = N._octant_phase(pts, h / 2.0)
-    agrid = N._phase_aligned_bingrid(lo.cpu().numpy(), hi.cpu().numpy(), h, phases)
-    drast, _, ok = N.geoslot_rasters(pts, agrid)
-    if not bool(ok):
-        raise AssertionError("geoslot octant check failed on the dam break")
-    LX = agrid.dims[0]
-    log(f"phase 3: K2 on lattice {agrid.dims}, rasters {tuple(drast[0].shape)}")
-
-    def occupied(r):
-        S, _, Yp, Zp = r[0].shape
-        W = (Yp - 2) * Zp
-        q = r[0].reshape(S, -1, Yp * Zp)[:, 1 : 1 + r[0].shape[1] - 2, Zp + 1 : Zp + 1 + W]
-        return q < 1e14  # empty query slots hold the far sentinel
-
-    k2 = lambda: sk.density_sweep_cuda(*drast, LX, agrid.bin_size, h)
-    p2 = lambda: sk.density_sweep_plain(*drast, LX, agrid.bin_size, h)
-    out2 = k2()
-    err2 = compare("K2 f32", out2, p2(), F32_TOL, occupied(drast))
-    ms2, pms2 = cuda_ms(k2, 10), cuda_ms(p2, 3)
-    b2 = bound("density_sweep", nbytes(*drast, out2), density_terms(drast[0]))
-    log(f"  K2 f32: kernel {ms2:.3f} ms, plain {pms2:.3f} ms, bound {b2[0]:.4f} ms ({b2[1]})")
-    rng = np.random.default_rng(7)
-    for dt, LXw, LY, LZ, tol in ((torch.float32, 12, 80, 78, F32_TOL),
-                                 (torch.float64, 6, 20, 18, F64_TOL)):
-        shape = (8, LXw + 2, LY + 2, LZ + 2)
-        fr = rng.uniform(0, h, (3,) + shape)
-        fr[:, rng.uniform(size=shape) < 0.5] = np.inf if dt == torch.float32 else 1e15
-        fr[:, :, [0, -1]] = fr[:, :, :, [0, -1]] = fr[:, :, :, :, [0, -1]] = (
-            np.inf if dt == torch.float32 else 1e15
-        )
-        wr = [torch.as_tensor(f, dtype=dt, device=dev).contiguous() for f in fr]
-        compare(
-            f"K2 {dt} lattice {(LXw, LY, LZ)} (W = {LY * (LZ + 2)})",
-            sk.density_sweep_cuda(*wr, LXw, h, h),
-            sk.density_sweep_plain(*wr, LXw, h, h),
-            tol, occupied(wr),
-        )
-    del drast
-    kernels["density_sweep"] = dict(
-        name="density_sweep", route="cuda",
-        source="splashsurf_tpu_torch/csrc/density_sweep.cu",
-        replaces="splashsurf_tpu/ops/splat_pallas.py:202",
-        max_abs_err=err2, ms=ms2, plain_ms=pms2, bound_ms=b2[0], bound_by=b2[1],
-        library_ms=None,
-    )
+    phase_k2(dev, pts, h, kernels)
 
     # --- 4. the main path at full size ---------------------------------------
     log(f"phase 4: reconstruct_surface, {n_main} particles")

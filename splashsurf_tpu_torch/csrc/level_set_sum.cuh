@@ -34,7 +34,9 @@
 //   row segments, __ballot_sync of v != 0): one bit per raster entry,
 //   ceil(Zp / 32) 32-bit words per (chunk, slot, x, y) row, bit b of word
 //   w for z = 32 w + b. "Occupied" is exactly v != 0, the test the probing
-//   loop made. The pre-pass reads the weight raster once.
+//   loop made. The pre-pass reads the weight raster once. Kernel K4
+//   (pair_sweep.cu) takes the same pre-pass over its fraction raster, with
+//   the test v < 1e14.
 // - The fan within the support. The wrapper's run table leaves out the
 //   cells whose nearest point lies beyond the support radius (by 0.1 %):
 //   every particle there is at q >= 2 and adds exactly 0. At support 4r
@@ -82,12 +84,20 @@ __device__ __forceinline__ double dev_sqrt(double x) { return sqrt(x); }
 __device__ __forceinline__ float dev_max0(float x) { return fmaxf(x, 0.0f); }
 __device__ __forceinline__ double dev_max0(double x) { return fmax(x, 0.0); }
 
-// Occupancy masks of n_rows rows of Zp weights: words (n_rows, W),
-// W = ceil(Zp / 32), bit b of word w set iff fv[row, 32 w + b] != 0. Each
-// warp packs kMaskWords consecutive words, their loads issued together.
+// Occupancy masks of n_rows rows of Zp values: words (n_rows, W),
+// W = ceil(Zp / 32), bit b of word w set iff fv[row, 32 w + b] is occupied:
+// a weight v != 0 (kFractions false: the level-set sweeps' test) or a
+// fraction below the empty sentinel, v < 1e14 (kFractions true: the pair
+// sweep's test; an occupied fraction lies within one cell). Each warp packs
+// kMaskWords consecutive words, their loads issued together.
 constexpr int kMaskWords = 4;
 
-template <typename T>
+template <typename T, bool kFractions>
+__device__ __forceinline__ bool occupied(T v) {
+  return kFractions ? v < T(1e14) : v != T(0);
+}
+
+template <typename T, bool kFractions>
 __global__ void __launch_bounds__(256) occupancy_mask_kernel(
     const T* __restrict__ fv, int64_t n_rows, int64_t Zp, int64_t W,
     uint32_t* __restrict__ masks) {
@@ -100,7 +110,7 @@ __global__ void __launch_bounds__(256) occupancy_mask_kernel(
     const int64_t word = first + j;
     const int64_t row = word / W;
     const int64_t z = (word - row * W) * 32 + lane;
-    occ[j] = word < n_rows * W && z < Zp && fv[row * Zp + z] != T(0);
+    occ[j] = word < n_rows * W && z < Zp && occupied<T, kFractions>(fv[row * Zp + z]);
   }
 #pragma unroll
   for (int j = 0; j < kMaskWords; ++j) {
@@ -111,13 +121,17 @@ __global__ void __launch_bounds__(256) occupancy_mask_kernel(
 
 template <typename T>
 int occupancy_masks(const void* fv, int64_t n_rows, int64_t Zp, int64_t W,
-                    void* masks, cudaStream_t stream) {
+                    int fractions, void* masks, cudaStream_t stream) {
   const int64_t warps = (n_rows * W + kMaskWords - 1) / kMaskWords;
   const int64_t blocks = (warps + 7) / 8;  // 8 warps a block
   if (blocks == 0) return 0;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
-  occupancy_mask_kernel<T><<<(unsigned)blocks, 256, 0, stream>>>(
-      (const T*)fv, n_rows, Zp, W, (uint32_t*)masks);
+  if (fractions)
+    occupancy_mask_kernel<T, true><<<(unsigned)blocks, 256, 0, stream>>>(
+        (const T*)fv, n_rows, Zp, W, (uint32_t*)masks);
+  else
+    occupancy_mask_kernel<T, false><<<(unsigned)blocks, 256, 0, stream>>>(
+        (const T*)fv, n_rows, Zp, W, (uint32_t*)masks);
   return (int)cudaGetLastError();
 }
 

@@ -44,14 +44,14 @@
 extern "C" {
 
 int occupancy_masks_f32(const void* fv, int64_t n_rows, int64_t Zp, int64_t W,
-                        void* masks, void* stream) {
-  return splat::occupancy_masks<float>(fv, n_rows, Zp, W, masks,
+                        int fractions, void* masks, void* stream) {
+  return splat::occupancy_masks<float>(fv, n_rows, Zp, W, fractions, masks,
                                        (cudaStream_t)stream);
 }
 
 int occupancy_masks_f64(const void* fv, int64_t n_rows, int64_t Zp, int64_t W,
-                        void* masks, void* stream) {
-  return splat::occupancy_masks<double>(fv, n_rows, Zp, W, masks,
+                        int fractions, void* masks, void* stream) {
+  return splat::occupancy_masks<double>(fv, n_rows, Zp, W, fractions, masks,
                                         (cudaStream_t)stream);
 }
 
@@ -73,6 +73,17 @@ int sweep_global_f64(const void* fx, const void* fy, const void* fz,
   return splat::launch_level_set<double>(fx, fy, fz, fv, masks, runs, n_runs,
                                          n_slots, 1, Xp, Yp, Zp, W, PX, PY, PZ,
                                          pad, cs, h, out, stream);
+}
+
+// The level-set sweep's block geometry (K1 and K3), as the launch uses it:
+// out = (tile x, tile y, tile z, staged mask words per window row, dynamic
+// shared memory bytes of one block).
+void sweep_geometry(int n_runs, int n_slots, int pad, int t_size, int64_t* out) {
+  out[0] = splat::kTileX;
+  out[1] = splat::kTileY;
+  out[2] = 32;
+  out[3] = splat::window_words(pad);
+  out[4] = (int64_t)splat::level_set_smem(n_runs, n_slots, pad, (size_t)t_size);
 }
 
 }  // extern "C"

@@ -6,12 +6,16 @@ Port of ``splashsurf_tpu/ops/splat_pallas.py``:
 - ``sweep_global_cuda`` (K1, ``csrc/sweep_global.cu``) replaces
   ``sweep_global_pallas``; its plain version ``sweep_global_plain`` is the
   scan formulation of ``global_sweep.sweep_global``.
-- ``occupancy_masks_cuda`` (the pre-pass of K1 and K3, in
+- ``occupancy_masks_cuda`` (the pre-pass of K1, K3 and K4, in
   ``csrc/sweep_global.cu``) packs one bit per raster entry with a nonzero
-  weight; its plain version is ``occupancy_masks_plain``.
+  weight, or for K4 a fraction below the empty sentinel; its plain version
+  is ``occupancy_masks_plain``.
 - ``density_sweep_cuda`` (K2, ``csrc/density_sweep.cu``) replaces
   ``density_sweep_pallas``; its plain version ``density_sweep_plain`` is
-  ``neighbors._raster_sweep_xla``.
+  ``neighbors._raster_sweep_xla``. Its pre-pass ``bin_occupancy_cuda``
+  (plain ``bin_occupancy_plain``) packs each bin's occupied slots into a
+  byte; the kernel loads only occupied sources, its warps taking the
+  source slots in step.
 - ``splat_sweep_cuda`` (K3, ``csrc/splat_sweep.cu``) replaces
   ``splat_sweep_pallas``; its plain version ``splat_sweep_plain`` is the
   scan formulation of ``subdomains.chunk_levelset_raster``. K1 and K3 share
@@ -20,7 +24,12 @@ Port of ``splashsurf_tpu/ops/splat_pallas.py``:
 - ``pair_sweep_cuda`` (K4, ``csrc/pair_sweep.cu``) replaces
   ``pair_sweep_pallas``; its plain version ``pair_sweep_plain`` is
   ``global_sweep._pair_sweep_xla``, over the reference's fan
-  ``pair_cell_offsets``.
+  ``pair_cell_offsets``. Its tiles gather their occupied queries into a
+  list and walk the set bits of the fraction masks only.
+
+K2 and K4 skip the square root and the spline of a pair beyond
+``support_cut2``: such a pair's term is exactly +0, so the sums are
+unchanged.
 
 A wrapper given CPU tensors runs the plain version. Given CUDA tensors it
 launches its kernel on the current stream or raises; it never falls back.
@@ -135,7 +144,11 @@ def load_kernels() -> ctypes.CDLL:
     p, i, i64, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
     for name in ("occupancy_masks_f32", "occupancy_masks_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [p, i64, i64, i64, p, p]
+        fn.argtypes = [p, i64, i64, i64, i, p, p]
+        fn.restype = i
+    for name in ("bin_occupancy_f32", "bin_occupancy_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, i64, p, p]
         fn.restype = i
     for name in ("sweep_global_f32", "sweep_global_f64"):
         fn = getattr(lib, name)
@@ -144,7 +157,7 @@ def load_kernels() -> ctypes.CDLL:
         fn.restype = i
     for name in ("density_sweep_f32", "density_sweep_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [p, p, p, i64, i64, i64, d, d, p, p]
+        fn.argtypes = [p, p, p, p, i64, i64, i64, d, d, d, p, p]
         fn.restype = i
     for name in ("splat_sweep_f32", "splat_sweep_f64"):
         fn = getattr(lib, name)
@@ -152,9 +165,27 @@ def load_kernels() -> ctypes.CDLL:
         fn.restype = i
     for name in ("pair_sweep_f32", "pair_sweep_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [p, p, p, p, i, i, i64, i64, i64, i64, i64, i64, i, d, d, p, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, i64, i64, i64, i64, i64, i64, i64, i,
+                       d, d, d, p, p]
         fn.restype = i
+    for name in ("sweep_geometry", "pair_sweep_geometry"):
+        fn = getattr(lib, name)
+        fn.argtypes = [i, i, i, i, p]
+        fn.restype = None
     return lib
+
+
+def kernel_geometry(kind: str, n_runs: int, n_slots: int, pad: int, dtype):
+    """The block geometry that the built library launches: the tile (x, y,
+    z), the mask words staged per window row and the dynamic shared memory
+    bytes of one block, for the level-set sweep (``kind`` "sweep", K1 and
+    K3; ``pad`` the raster pad) or K4 (``"pair_sweep"``; ``pad`` the reach).
+    ``SWEEP_TILE``, ``window_words``, ``PAIR_TILE`` and ``pair_window_words``
+    are the host's copies, for the CPU emulations."""
+    out = (ctypes.c_int64 * 5)()
+    t_size = torch.empty((), dtype=dtype).element_size()
+    getattr(load_kernels(), kind + "_geometry")(n_runs, n_slots, pad, t_size, out)
+    return tuple(out[:3]), out[3], out[4]
 
 
 def _check_inputs(tensors, what: str, ndim: int = 4):
@@ -180,6 +211,21 @@ def _launch(fn, *args):
 
 def _suffix(dtype) -> str:
     return "f64" if dtype == torch.float64 else "f32"
+
+
+# Relative slack of the pair kernels' distance cut, far above the rounding
+# of d2, sqrt and q (a few units in the last place of f32)
+CUT_SLACK = 1e-4
+
+
+def support_cut2(compact_support_radius, dtype) -> float:
+    """The squared distance past which K2 and K4 skip a pair's square root
+    and spline, h^2 (1 + CUT_SLACK) in the rasters' precision (as the
+    kernels hold it). A pair beyond it has q = sqrt(d2) * (2/h) > 2 in
+    their arithmetic, so its term is exactly +0 and the cut leaves every
+    sum unchanged bit for bit."""
+    h = float(compact_support_radius)
+    return kernels.rounded(h * h * (1.0 + CUT_SLACK), dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -233,7 +279,8 @@ def _runs_on(hsc: int, pad: int, h_over_cs: float, device: torch.device) -> torc
 
 
 # The sweep kernel's tile (csrc/level_set_sum.cuh kTileX, kTileY, 32 z):
-# one warp per (x, y) row segment of 32 consecutive z.
+# one warp per (x, y) row segment of 32 consecutive z. The library reports
+# its own through kernel_geometry.
 SWEEP_TILE = (2, 4, 32)
 
 
@@ -244,13 +291,20 @@ def window_words(pad: int) -> int:
     return ((2 * pad + 30) >> 5) + 2
 
 
-def occupancy_masks_plain(fv: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch occupancy masks: weights (..., Zp) in, int32 words
-    (..., ceil(Zp / 32)) out, bit b of word w set iff fv[..., 32 w + b] != 0
-    (the kernel's words, read as signed)."""
+def _occupied(values: torch.Tensor, fractions: bool) -> torch.Tensor:
+    """The kernels' occupancy test: a fraction below the empty sentinel (an
+    occupied fraction lies within one cell or bin), or a nonzero weight."""
+    return values < 1e14 if fractions else values != 0
+
+
+def occupancy_masks_plain(fv: torch.Tensor, fractions: bool = False) -> torch.Tensor:
+    """Plain PyTorch occupancy masks: values (..., Zp) in, int32 words
+    (..., ceil(Zp / 32)) out, bit b of word w set iff fv[..., 32 w + b] is
+    occupied: != 0 for weights, < 1e14 with ``fractions`` (the kernel's
+    words, read as signed)."""
     Zp = fv.shape[-1]
     W = -(-Zp // 32)
-    occ = torch.nn.functional.pad((fv != 0).to(torch.int64), (0, 32 * W - Zp))
+    occ = torch.nn.functional.pad(_occupied(fv, fractions).to(torch.int64), (0, 32 * W - Zp))
     weights = torch.bitwise_left_shift(
         torch.ones(32, dtype=torch.int64, device=fv.device),
         torch.arange(32, device=fv.device),
@@ -259,16 +313,17 @@ def occupancy_masks_plain(fv: torch.Tensor) -> torch.Tensor:
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 
-def occupancy_masks_cuda(fv: torch.Tensor) -> torch.Tensor:
-    """Occupancy masks of the weight raster ``fv`` (..., Zp): the pre-pass
-    kernel of K1 and K3 on a CUDA tensor, the plain version on a CPU one.
-    Returns int32 words (..., ceil(Zp / 32)) as ``occupancy_masks_plain``."""
+def occupancy_masks_cuda(fv: torch.Tensor, fractions: bool = False) -> torch.Tensor:
+    """Occupancy masks of the weight raster ``fv`` (..., Zp), or with
+    ``fractions`` of a fraction raster: the pre-pass kernel of K1, K3 and
+    K4 on a CUDA tensor, the plain version on a CPU one. Returns int32 words
+    (..., ceil(Zp / 32)) as ``occupancy_masks_plain``."""
     if fv.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"occupancy_masks: dtype {fv.dtype} (want float32 or float64)")
     if fv.dim() == 0 or not fv.is_contiguous():
-        raise ValueError("occupancy_masks: the weights must be contiguous, at least 1-D")
+        raise ValueError("occupancy_masks: the values must be contiguous, at least 1-D")
     if fv.device.type == "cpu":
-        return occupancy_masks_plain(fv)
+        return occupancy_masks_plain(fv, fractions)
     if fv.device.type != "cuda":
         raise ValueError(f"occupancy_masks: unsupported device {fv.device}")
     Zp = fv.shape[-1]
@@ -279,7 +334,8 @@ def occupancy_masks_cuda(fv: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         _launch(
             getattr(lib, "occupancy_masks_" + _suffix(fv.dtype)),
-            fv.data_ptr(), fv.numel() // max(Zp, 1), Zp, W, out.data_ptr(), stream,
+            fv.data_ptr(), fv.numel() // max(Zp, 1), Zp, W, int(fractions),
+            out.data_ptr(), stream,
         )
     occupancy_masks_cuda.launches += 1
     return out
@@ -393,10 +449,46 @@ def density_sweep_plain(fx, fy, fz, LX, bin_size, compact_support_radius):
     return acc
 
 
+def bin_occupancy_plain(fx: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch slot bytes of the bin rasters: fractions (8, ...) in,
+    uint8 (...) out, bit k set iff fx[k, ...] < 1e14 (slot k occupied)."""
+    shift = torch.arange(fx.shape[0], device=fx.device).reshape((-1,) + (1,) * (fx.dim() - 1))
+    bits = torch.bitwise_left_shift(_occupied(fx, True).to(torch.int32), shift)
+    return bits.sum(0).to(torch.uint8)
+
+
+def bin_occupancy_cuda(fx: torch.Tensor) -> torch.Tensor:
+    """The slot byte of every bin of the (8, LX+2, Yp, Zp) fraction raster
+    ``fx``: the pre-pass kernel of K2 on a CUDA tensor, the plain version on
+    a CPU one. Returns uint8 (LX+2, Yp, Zp) as ``bin_occupancy_plain``."""
+    _check_inputs((fx,), "bin_occupancy")
+    if fx.shape[0] != 8:
+        raise ValueError(f"bin_occupancy: {fx.shape[0]} slots (want 8)")
+    if fx.device.type == "cpu":
+        return bin_occupancy_plain(fx)
+    if fx.device.type != "cuda":
+        raise ValueError(f"bin_occupancy: unsupported device {fx.device}")
+    lib = load_kernels()
+    out = torch.empty(fx.shape[1:], dtype=torch.uint8, device=fx.device)
+    with torch.cuda.device(fx.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch(
+            getattr(lib, "bin_occupancy_" + _suffix(fx.dtype)),
+            fx.data_ptr(), out.numel(), out.data_ptr(), stream,
+        )
+    bin_occupancy_cuda.launches += 1
+    return out
+
+
+bin_occupancy_cuda.launches = 0
+
+
 def density_sweep_cuda(fx, fy, fz, LX, bin_size, compact_support_radius):
     """Per-(slot, bin) SPH density sums from the (8, LX+2, Yp, Zp) bin
-    rasters: kernel K2 on CUDA tensors, the plain version on CPU tensors.
-    Returns (8, LX, (Yp - 2) * Zp) sums of the normalized kernel W."""
+    rasters: kernel K2 (after its slot-byte pre-pass ``bin_occupancy_cuda``)
+    on CUDA tensors, the plain version on CPU tensors. Returns (8, LX,
+    (Yp - 2) * Zp) sums of the normalized kernel W; the kernel writes 0 on
+    empty query slots, where the plain version may leave NaN."""
     _check_inputs((fx, fy, fz), "density_sweep")
     if fx.device.type == "cpu":
         return density_sweep_plain(fx, fy, fz, LX, bin_size, compact_support_radius)
@@ -406,14 +498,15 @@ def density_sweep_cuda(fx, fy, fz, LX, bin_size, compact_support_radius):
     if slots != 8 or Xp != LX + 2:
         raise ValueError(f"density_sweep: rasters {tuple(fx.shape)} for LX={LX}")
     lib = load_kernels()
+    occ = bin_occupancy_cuda(fx)
     out = torch.empty((slots, LX, (Yp - 2) * Zp), dtype=fx.dtype, device=fx.device)
     with torch.cuda.device(fx.device):
         stream = torch.cuda.current_stream().cuda_stream
         _launch(
             getattr(lib, "density_sweep_" + _suffix(fx.dtype)),
-            fx.data_ptr(), fy.data_ptr(), fz.data_ptr(), LX, Yp, Zp,
-            float(bin_size), float(compact_support_radius), out.data_ptr(),
-            stream,
+            fx.data_ptr(), fy.data_ptr(), fz.data_ptr(), occ.data_ptr(), LX, Yp, Zp,
+            float(bin_size), float(compact_support_radius),
+            support_cut2(compact_support_radius, fx.dtype), out.data_ptr(), stream,
         )
     density_sweep_cuda.launches += 1
     return out
@@ -495,10 +588,25 @@ def pair_cell_offsets(reach: int, h_over_cs: float):
     return tuple(map(tuple, offs[keep]))
 
 
+def pair_runs(reach: int, h_over_cs: float) -> np.ndarray:
+    """K4's run table: the fan ``pair_cell_offsets`` as unshifted runs
+    (o0, o1, o2_lo, o2_hi), each at most 2 reach + 1 long, in its order."""
+    return _runs(np.asarray(pair_cell_offsets(reach, h_over_cs), np.int32))
+
+
 @functools.lru_cache(maxsize=16)
 def _pair_runs_on(reach: int, h_over_cs: float, device: torch.device) -> torch.Tensor:
-    offs = np.asarray(pair_cell_offsets(reach, h_over_cs), np.int32)
-    return torch.as_tensor(_runs(offs), device=device)
+    return torch.as_tensor(pair_runs(reach, h_over_cs), device=device)
+
+
+# K4's tile (csrc/pair_sweep.cu kTileX, kTileY, 32 z) and the mask words it
+# stages per window row (pair_window_words); the library reports its own
+# through kernel_geometry
+PAIR_TILE = (4, 8, 32)
+
+
+def pair_window_words(reach: int) -> int:
+    return ((62 + 2 * reach) >> 5) + 2
 
 
 def _check_pair_args(fx, reach, pad, n_cells):
@@ -545,8 +653,9 @@ def pair_sweep_plain(fx, fy, fz, cs, h, reach, h_over_cs, pad, n_cells):
 def pair_sweep_cuda(fx, fy, fz, cs, h, reach, h_over_cs, pad, n_cells):
     """Per-(slot, cell) unnormalized spline pair sums (S, ncx, ncy, ncz)
     from the (S, Xp, Yp, Zp) fraction rasters of ``rasterize_global``:
-    kernel K4 on CUDA tensors (0 on empty query slots), the plain version on
-    CPU tensors."""
+    kernel K4 (after the occupancy masks of ``fx``, ``occupancy_masks_cuda``
+    with ``fractions``) on CUDA tensors, 0 on empty query slots; the plain
+    version on CPU tensors."""
     _check_inputs((fx, fy, fz), "pair_sweep")
     if fx.device.type == "cpu":
         return pair_sweep_plain(fx, fy, fz, cs, h, reach, h_over_cs, pad, n_cells)
@@ -558,14 +667,16 @@ def pair_sweep_cuda(fx, fy, fz, cs, h, reach, h_over_cs, pad, n_cells):
     t = kernels.np_dtype(fx.dtype).type
     lib = load_kernels()
     runs = _pair_runs_on(reach, float(h_over_cs), fx.device)
+    masks = occupancy_masks_cuda(fx, fractions=True)
     out = torch.empty((S, ncx, ncy, ncz), dtype=fx.dtype, device=fx.device)
     with torch.cuda.device(fx.device):
         stream = torch.cuda.current_stream().cuda_stream
         _launch(
             getattr(lib, "pair_sweep_" + _suffix(fx.dtype)),
-            fx.data_ptr(), fy.data_ptr(), fz.data_ptr(), runs.data_ptr(),
-            runs.shape[0], S, Xp, Yp, Zp, ncx, ncy, ncz, pad,
-            float(cs), float(t(2.0) / t(h)), out.data_ptr(), stream,
+            fx.data_ptr(), fy.data_ptr(), fz.data_ptr(), masks.data_ptr(),
+            runs.data_ptr(), runs.shape[0], S, reach, Xp, Yp, Zp, masks.shape[-1],
+            ncx, ncy, ncz, pad, float(cs), float(t(2.0) / t(h)),
+            support_cut2(h, fx.dtype), out.data_ptr(), stream,
         )
     pair_sweep_cuda.launches += 1
     return out
