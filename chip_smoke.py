@@ -48,7 +48,20 @@ Phases (each prints progress; any failure raises and exits non-zero):
      all, one mask pre-pass for each K1 and K4 launch), each mesh is closed and equals a frame-at-a-time run, and the
      first frame agrees with the legacy densities (rho rtol 1e-5, equal
      counts, vertices within 1e-4); per-frame seconds pipelined and frame at
-     a time, and the stage split of both density formulations.
+     a time, and the stage split of both density formulations;
+ 11. the user's command on the 2M dam break, in-process through the CLI
+     (``run_splashsurf``): the particles and a seeded velocity written to a
+     VTK file, then ``reconstruct`` with cleanup, barnacle decimation,
+     weighted smoothing, SPH normals and their smoothing, the velocity
+     interpolated and the mesh checked; K1 and K2 must launch, the native
+     half-edge engine must load, and the mesh read back must be closed and
+     manifold; the profile tree (stage seconds, file IO included), the mesh
+     sizes around cleanup and decimation and the peak device memory;
+ 12. ``reconstruction_pipeline`` on a 60K dam break in f64 with the same
+     chain, CPU input against CUDA input (triangle lists equal, vertices and
+     attributes within rtol 2e-5 / atol 1e-5: after the cleanup the mesh is
+     f32), and the f32 smoothing and SPH-interpolation ops on one host mesh,
+     CUDA against CPU at the same tolerance.
 
 Each kernel's line carries its bound: the larger of the bytes it must move
 (rasters read once, output written once) over 3.35 TB/s and the float
@@ -103,6 +116,13 @@ FLOPS_SPLINE = 14
 FLOPS_PAIR_OLD = 22  # the earlier count: a whole term for every occupied pair
 CELLRASTER = "SPLASHSURF_TPU_DENSITY_CELLRASTER"
 N_FRAMES = 6
+N_PIPE = 60_000
+PIPE_TOL = dict(rtol=2e-5, atol=1e-5)
+# the user's command of phase 11 (input and output files appended)
+CLI_FLAGS = ["-r", str(RADIUS), "-l", "2.0", "-c", "1.5", "-t", "0.6",
+             "--mesh-cleanup=on", "--decimate-barnacles=on", "--mesh-smoothing-iters=25",
+             "--mesh-smoothing-weights=on", "--normals=on", "--sph-normals=on",
+             "--normals-smoothing-iters=10", "-a", "velocity", "--check-mesh=on"]
 
 
 def log(msg):
@@ -1028,6 +1048,174 @@ def phase_sequence(pt, pts, params, kernels, ident):
             + f"; sum {sum(split.values()):.5f}")
 
 
+def phase_cli(pt, pts_np, ident):
+    """Phase 11: the user's command on the 2M dam break, in-process, so that
+    the kernels' launch counts can be read."""
+    import tempfile
+
+    from splashsurf_tpu_torch import native, postprocess, profiling
+    from splashsurf_tpu_torch.cli import run_splashsurf
+    from splashsurf_tpu_torch.ops import splat_kernels as sk
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native half-edge engine did not build or load")
+    log(f"phase 11: the reconstruct CLI on {len(pts_np)} particles; native half-edge engine "
+        f"{native._LIB.relative_to(native._LIB.parents[2])} ready in {time.perf_counter() - t0:.2f} s")
+    vel = np.random.default_rng(0).standard_normal(pts_np.shape).astype(np.float32)
+    sizes = {}
+
+    def recording(name, fn):
+        def wrapped(mesh, *args, **kw):
+            out = fn(mesh, *args, **kw)
+            sizes[name] = (mesh.num_vertices, mesh.num_triangles,
+                           out[0].num_vertices, out[0].num_triangles)
+            return out
+        return wrapped
+
+    saved = (postprocess.marching_cubes_cleanup, postprocess.decimation)
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "fluid.vtk"), os.path.join(tmp, "surface.vtk")
+        t0 = time.perf_counter()
+        pt.io.write_particles(src, pts_np, {"velocity": vel})
+        write_s = time.perf_counter() - t0
+        argv = ["reconstruct", src, *CLI_FLAGS, "-o", dst]
+        log(f"  python -m splashsurf_tpu_torch {' '.join(argv)}")
+        postprocess.marching_cubes_cleanup = recording("cleanup", saved[0])
+        postprocess.decimation = recording("decimation", saved[1])
+        runs = []
+        try:
+            # the first run is the main path (its launches are read); the
+            # second, warm one shows which seconds are first-use costs
+            for _ in range(2):
+                profiling.reset()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches(sk)
+                t0 = time.perf_counter()
+                rc = run_splashsurf(argv)
+                runs.append(dict(
+                    rc=rc, s=time.perf_counter() - t0, tree=profiling.write_to_string(),
+                    peak=torch.cuda.max_memory_allocated(),
+                    launches={"sweep_global": sk.sweep_global_cuda.launches,
+                              "density_sweep": sk.density_sweep_cuda.launches},
+                ))
+                if rc != 0:
+                    break
+                # each run's pre-passes, read before the next run resets them
+                runs[-1]["launches"]["occupancy_masks"] = check_mask_launches(
+                    sk, sk.sweep_global_cuda.launches)
+        finally:
+            postprocess.marching_cubes_cleanup, postprocess.decimation = saved
+        rc, cli_s, launches, peak = (runs[0][k] for k in ("rc", "s", "launches", "peak"))
+        if rc != 0:
+            raise AssertionError(f"the CLI exited {rc}")
+        for name, n in launches.items():
+            if n == 0:
+                raise AssertionError(f"kernel {name} was not launched by the CLI path")
+        if set(sizes) != {"cleanup", "decimation"}:
+            raise AssertionError(f"cleanup and decimation did not both run: {sorted(sizes)}")
+        in_mb, out_mb = os.path.getsize(src) / 1e6, os.path.getsize(dst) / 1e6
+        t0 = time.perf_counter()
+        mesh = pt.io.mesh_from_file(dst)
+        read_s = time.perf_counter() - t0
+    bad = pt.check_mesh_consistency(mesh.vertices, mesh.triangles)
+    if bad is not None or mesh.num_triangles == 0 or not np.isfinite(mesh.vertices).all():
+        raise AssertionError(f"the CLI's mesh is not closed/manifold, empty or not finite: {bad}")
+    if (mesh.num_vertices, mesh.num_triangles) != sizes["decimation"][2:]:
+        raise AssertionError(f"mesh read back {mesh.num_vertices}/{mesh.num_triangles}, "
+                             f"decimation gave {sizes['decimation'][2:]}")
+    log(f"  rc 0 in {cli_s:.3f} s; launches {launches} (K1, K2, K1's mask pre-pass); mesh read back closed and "
+        f"manifold: {mesh.num_vertices} vertices, {mesh.num_triangles} triangles")
+    for name in ("cleanup", "decimation"):
+        v0, t0_, v1, t1 = sizes[name]
+        log(f"  {name}: {v0} vertices, {t0_} triangles -> {v1} vertices, {t1} triangles")
+    log(f"  file IO outside the CLI: particles written ({in_mb:.1f} MB) in {write_s:.3f} s, "
+        f"mesh read back ({out_mb:.1f} MB) in {read_s:.3f} s")
+    log(f"  peak device memory {peak} bytes ({peak / 1e9:.3f} GB); {ident}")
+    for name, run in zip(("first", "second (warm)"), runs):
+        log(f"  profile tree of the {name} CLI run, {run['s']:.3f} s in all, rc {run['rc']}, "
+            f"launches {run['launches']} ({ident}):")
+        for line in run["tree"].splitlines():
+            log("    " + line)
+
+
+def phase_pipeline_cross(pt, dev):
+    """Phase 12: the pipeline in f64 and its device ops in f32, CPU against
+    CUDA."""
+    import bench
+    from splashsurf_tpu_torch import postprocess as pp
+    from splashsurf_tpu_torch.sph_interpolation import (
+        SphInterpolator, compute_weighted_neighbor_counts, smooth_step,
+    )
+
+    pts = bench.make_dam_break(N_PIPE, RADIUS, seed=7)
+    vel = np.random.default_rng(1).standard_normal(pts.shape)
+    post = pt.PostprocessingParameters(
+        mesh_cleanup=True, decimate_barnacles=True, mesh_smoothing_iters=25,
+        mesh_smoothing_weights=True, compute_normals=True, sph_normals=True,
+        normals_smoothing_iters=10, interpolate_attributes=["velocity"],
+        check_mesh_closed=True, check_mesh_manifold=True,
+    )
+    p64 = pt.Parameters.new_relative(RADIUS, 4.0, 1.5, dtype="float64")
+    log(f"phase 12: reconstruction_pipeline, {len(pts)} particles, f64, the phase 11 chain, "
+        "CPU input vs CUDA input")
+    out, secs = {}, {}
+    for name, kw in (("cpu", dict(device="cpu")), ("cuda", dict(device=dev))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = pt.reconstruction_pipeline(pts, p64, post, {"velocity": vel}, **kw).tri_mesh
+        secs[name] = time.perf_counter() - t0
+    a, b = out["cpu"], out["cuda"]
+    if not np.array_equal(a.mesh.triangles, b.mesh.triangles):
+        raise AssertionError("f64 pipeline: CPU and CUDA triangle lists differ")
+    errs = {"vertices": compare("f64 pipeline vertices", torch.as_tensor(b.mesh.vertices),
+                                torch.as_tensor(a.mesh.vertices), PIPE_TOL)}
+    for x, y in zip(a.point_attributes, b.point_attributes):
+        errs[x.name] = compare(f"f64 pipeline {x.name}", torch.as_tensor(y.data),
+                               torch.as_tensor(x.data), PIPE_TOL)
+    log(f"  triangle lists equal ({b.mesh.num_triangles}); max abs differences {errs}; "
+        f"seconds cpu {secs['cpu']:.3f}, cuda {secs['cuda']:.3f}")
+
+    p32 = pt.Parameters.new_relative(RADIUS, 4.0, 1.5)
+    rec = pt.reconstruct_surface(pts.astype(np.float32), p32, device="cpu")
+    mesh, rho = rec.mesh, rec.particle_densities
+    h = p32.compact_support_radius
+    weights = None
+    res = {}
+    for name, d in (("cpu", torch.device("cpu")), ("cuda", dev)):
+        pos = torch.as_tensor(pts.astype(np.float32), device=d)
+        interp = SphInterpolator(pos, rho.to(d), p32.particle_rest_mass, h)
+        wnn = compute_weighted_neighbor_counts(pos, h)
+        if weights is None:  # the same weights on both sides: the op alone is compared
+            weights = smooth_step(np.minimum(np.maximum(
+                interp.interpolate_scalar_quantity(wnn, mesh.vertices, True), 0.0) / 13.0, 1.0)
+            ).astype(np.float32)
+        normals = interp.interpolate_normals(mesh.vertices)
+        res[name] = {
+            "weighted neighbour counts": wnn,
+            "interpolated wnn": interp.interpolate_scalar_quantity(wnn, mesh.vertices, True),
+            "SPH normals": normals,
+            "interpolated velocity": interp.interpolate_vector_quantity(
+                vel.astype(np.float32), mesh.vertices, True),
+            "smoothed vertices": pp.laplacian_smoothing(
+                mesh.vertices, mesh.triangles, 25, 1.0, weights, device=d),
+            "smoothed normals": pp.laplacian_smoothing_normals(
+                res["cpu"]["SPH normals"] if name == "cuda" else normals,
+                mesh.triangles, mesh.num_vertices, 10, device=d),
+        }
+    errs, failed = {}, []
+    for key, want in res["cpu"].items():
+        got = res["cuda"][key]
+        errs[key] = float(np.abs(got - want).max())
+        if got.dtype != np.float32 or not np.allclose(got, want, **PIPE_TOL):
+            failed.append(key)
+    log(f"  f32 ops on a {mesh.num_vertices}-vertex host mesh, CUDA vs CPU, max abs "
+        f"differences {errs}")
+    if failed:
+        raise AssertionError(f"f32 ops differ beyond {PIPE_TOL}: {failed}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1179,6 +1367,11 @@ def main() -> int:
     # --- 9-10. the cell-raster densities and the sequence --------------------
     phase_k4(pt, dev, pts, grid, hsc, params, kernels)
     phase_sequence(pt, pts, params, kernels, ident)
+
+    # --- 11-12. the CLI and the post-processing pipeline ---------------------
+    del pts
+    phase_cli(pt, pts_np, ident)
+    phase_pipeline_cross(pt, dev)
 
     print(ident, flush=True)
     names = ("sweep_global", "density_sweep", "splat_sweep", "pair_sweep")

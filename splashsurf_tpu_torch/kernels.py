@@ -77,11 +77,29 @@ def cubic_function(q: torch.Tensor) -> torch.Tensor:
     return (a * a * a - 4.0 * (b * b * b)) * (1.0 / _FOUR_PI)
 
 
+def cubic_function_dq(q: torch.Tensor) -> torch.Tensor:
+    """Derivative df/dq of the cubic spline."""
+    a = torch.clamp_min(2.0 - q, 0.0)
+    b = torch.clamp_min(1.0 - q, 0.0)
+    return (-3.0 * a * a + 12.0 * (b * b)) * (1.0 / _FOUR_PI)
+
+
+def _sigma(dtype, compact_support_radius):
+    """(h, 8 / h^3) as numpy scalars rounded and combined in ``dtype``'s
+    precision, so no device tensor is made per call."""
+    h = np_dtype(dtype).type(compact_support_radius)
+    return h, h.dtype.type(8.0) / (h * h * h)
+
+
 def cubic_kernel(r: torch.Tensor, compact_support_radius) -> torch.Tensor:
     """Cubic spline kernel W(r) with compact support radius h (kernel.rs:104-107)."""
-    # scalars rounded and combined in r's precision (numpy scalar arithmetic),
-    # so no device tensor is made per call
-    h = np_dtype(r.dtype).type(compact_support_radius)
-    sigma = h.dtype.type(8.0) / (h * h * h)
+    h, sigma = _sigma(r.dtype, compact_support_radius)
     q = (r + r) / float(h)
     return float(sigma) * cubic_function(q)
+
+
+def cubic_kernel_gradient_norm(r: torch.Tensor, compact_support_radius) -> torch.Tensor:
+    """Signed magnitude of the kernel gradient at radius r (kernel.rs:133-140)."""
+    h, sigma = _sigma(r.dtype, compact_support_radius)
+    q = (r + r) / float(h)
+    return float(sigma) * cubic_function_dq(q) * float(h.dtype.type(2.0) / h)

@@ -1,19 +1,29 @@
-"""Mesh container and consistency check (PyTorch port of the corresponding
-parts of ``splashsurf_tpu.mesh``). The mesh lives on the host as numpy
-arrays; the checks are host-side numpy."""
+"""Mesh containers and core mesh ops (PyTorch port of
+``splashsurf_tpu.mesh``; reference: splashsurf_lib/src/mesh.rs).
+
+The containers hold host numpy arrays. ``face_normals``, ``vertex_normals``
+and ``triangle_areas`` run in torch: a tensor stays on its own device; an
+array goes to ``device`` (default CUDA, RuntimeError without it) and the
+result comes back as an array. Connectivity, the topology edits of
+``MeshWithData`` and the consistency check are host numpy.
+"""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import enum
+from typing import List, Optional, Union
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass
 class TriMesh3d:
-    """A triangle surface mesh: vertices (V, 3) float, triangles (T, 3) int32
-    (``TriMesh3d``, mesh.rs:188-193)."""
+    """A triangle surface mesh: vertices (V, 3) float, triangles (T, 3) int32.
+
+    Reference: ``TriMesh3d`` (mesh.rs:188-193).
+    """
 
     vertices: np.ndarray
     triangles: np.ndarray
@@ -26,6 +36,435 @@ class TriMesh3d:
     def num_triangles(self) -> int:
         return int(self.triangles.shape[0])
 
+    # -- ops -------------------------------------------------------------
+
+    def face_normals(self, normalized: bool = True, device=None):
+        return face_normals(self.vertices, self.triangles, normalized=normalized, device=device)
+
+    def vertex_normals(self, device=None):
+        """Area-weighted vertex normals (mesh.rs:848-952)."""
+        return vertex_normals(self.vertices, self.triangles, device=device)
+
+    def nvertices(self) -> int:
+        """pysplashsurf.pyi:70 parity."""
+        return self.num_vertices
+
+    def copy(self) -> "TriMesh3d":
+        """Deep copy (pysplashsurf.pyi:263)."""
+        return TriMesh3d(
+            vertices=np.array(self.vertices),
+            triangles=np.array(self.triangles),
+        )
+
+    def write_to_file(self, path, *, file_format=None) -> None:
+        """Write the mesh to a file, format from the extension
+        (pysplashsurf.pyi:275)."""
+        from splashsurf_tpu_torch import io as _io
+
+        _io.write_mesh(str(path), self)
+
+    def par_vertex_normals(self, device=None):
+        return self.vertex_normals(device=device)
+
+    def vertex_vertex_connectivity(self) -> "VertexVertexConnectivity":
+        """Adjacent-vertex lists per vertex (mesh.rs:290).
+
+        Returns a :class:`VertexVertexConnectivity` (a list of per-vertex
+        neighbor arrays); use :func:`vertex_vertex_connectivity_csr` for
+        the array program form.
+        """
+        offsets, neighbors = vertex_vertex_connectivity_csr(
+            np.asarray(self.triangles), self.num_vertices
+        )
+        return VertexVertexConnectivity(
+            neighbors[offsets[i] : offsets[i + 1]]
+            for i in range(self.num_vertices)
+        )
+
+    def keep_vertices(self, vertex_mask: np.ndarray) -> "TriMesh3d":
+        """Keep flagged vertices and all triangles whose vertices survive."""
+        vertex_mask = np.asarray(vertex_mask, dtype=bool)
+        new_index = np.cumsum(vertex_mask) - 1
+        tris = np.asarray(self.triangles)
+        tri_keep = vertex_mask[tris].all(axis=1)
+        return TriMesh3d(
+            vertices=np.asarray(self.vertices)[vertex_mask],
+            triangles=new_index[tris[tri_keep]].astype(np.int32),
+        )
+
+    def keep_cells(self, cell_indices: np.ndarray) -> "TriMesh3d":
+        """Keep the given triangles and drop unreferenced vertices (mesh.rs:269-372)."""
+        tris = np.asarray(self.triangles)[np.asarray(cell_indices)]
+        used = np.zeros(self.num_vertices, dtype=bool)
+        used[tris.ravel()] = True
+        new_index = np.cumsum(used) - 1
+        return TriMesh3d(
+            vertices=np.asarray(self.vertices)[used],
+            triangles=new_index[tris].astype(np.int32),
+        )
+
+    def par_clamp_with_aabb(
+        self, aabb, clamp_vertices: bool = True, keep_vertices: bool = False
+    ) -> "TriMesh3d":
+        """Remove cells fully outside the AABB, then clamp survivors (mesh.rs:333-371).
+
+        Keeps every triangle with at least one vertex inside the AABB; drops
+        unreferenced vertices unless ``keep_vertices``; when ``clamp_vertices``
+        the surviving vertex positions are clamped into the AABB."""
+        verts = np.asarray(self.vertices)
+        lo = np.asarray(aabb.min, dtype=verts.dtype)
+        hi = np.asarray(aabb.max, dtype=verts.dtype)
+        inside = np.all((verts >= lo) & (verts <= hi), axis=1)
+        tris = np.asarray(self.triangles)
+        cells_to_keep = np.flatnonzero(inside[tris].any(axis=1))
+        if keep_vertices:
+            new = TriMesh3d(
+                vertices=verts.copy(), triangles=tris[cells_to_keep].astype(np.int32)
+            )
+        else:
+            new = self.keep_cells(cells_to_keep)
+        if clamp_vertices:
+            new = TriMesh3d(
+                vertices=np.clip(np.asarray(new.vertices), lo, hi),
+                triangles=new.triangles,
+            )
+        return new
+
+
+@dataclasses.dataclass
+class MixedTriQuadMesh3d:
+    """Mesh with both triangle and quad cells (mesh.rs:232)."""
+
+    vertices: np.ndarray
+    triangles: np.ndarray  # (T, 3) int32
+    quads: np.ndarray  # (Q, 4) int32
+
+    @property
+    def num_vertices(self) -> int:
+        return int(self.vertices.shape[0])
+
+    def nvertices(self) -> int:
+        """pysplashsurf.pyi:70 parity."""
+        return self.num_vertices
+
+    def copy(self) -> "MixedTriQuadMesh3d":
+        return MixedTriQuadMesh3d(
+            vertices=np.array(self.vertices),
+            triangles=np.array(self.triangles),
+            quads=np.array(self.quads),
+        )
+
+    def get_triangles(self) -> np.ndarray:
+        """Copy of all triangle cells (pysplashsurf.pyi:156)."""
+        return np.array(self.triangles, dtype=np.uint64)
+
+    def get_quads(self) -> np.ndarray:
+        """Copy of all quad cells (pysplashsurf.pyi:160)."""
+        return np.array(self.quads, dtype=np.uint64)
+
+    def write_to_file(self, path, *, file_format=None) -> None:
+        from splashsurf_tpu_torch import io as _io
+
+        _io.write_mesh(str(path), self)
+
+
+class VertexVertexConnectivity(list):
+    """Vertex-vertex connectivity of a mesh (pysplashsurf.pyi:305 parity):
+    a list of per-vertex neighbor index arrays with the reference's
+    copy/take accessors."""
+
+    def copy_connectivity(self) -> List[List[int]]:
+        return [list(map(int, a)) for a in self]
+
+    def take_connectivity(self) -> List[List[int]]:
+        out = self.copy_connectivity()
+        self.clear()
+        return out
+
+
+class MeshType(enum.Enum):
+    """Type of mesh wrapped by a ``MeshWithData`` (pysplashsurf.pyi:318)."""
+
+    Tri3d = "Tri3d"
+    MixedTriQuad3d = "MixedTriQuad3d"
+
+
+@dataclasses.dataclass
+class MeshAttribute:
+    """A named per-vertex (or per-cell) attribute (mesh.rs:162-184)."""
+
+    name: str
+    data: np.ndarray  # (V,) scalar or (V, 3) vector
+
+
+@dataclasses.dataclass
+class MeshWithData:
+    """A mesh bundled with named point/cell attributes (mesh.rs:1227).
+
+    The topology-editing operations remap BOTH point and cell attributes
+    through the surviving vertex/cell index maps, like the reference's
+    ``MeshWithData`` (mesh.rs:1227+)."""
+
+    mesh: Union[TriMesh3d, MixedTriQuadMesh3d]
+    point_attributes: List[MeshAttribute] = dataclasses.field(default_factory=list)
+    cell_attributes: List[MeshAttribute] = dataclasses.field(default_factory=list)
+
+    @property
+    def mesh_type(self) -> MeshType:
+        """pysplashsurf.pyi:80 parity."""
+        return (
+            MeshType.Tri3d
+            if isinstance(self.mesh, TriMesh3d)
+            else MeshType.MixedTriQuad3d
+        )
+
+    def _require_tri(self) -> "TriMesh3d":
+        if not isinstance(self.mesh, TriMesh3d):
+            raise TypeError(
+                "attribute-remapping topology ops require a TriMesh3d"
+            )
+        return self.mesh
+
+    def add_point_attribute(self, name: str, attribute) -> None:
+        """Attach a point attribute (pysplashsurf.pyi:111): exactly one
+        value per vertex."""
+        data = np.asarray(attribute)
+        if data.shape[0] != self.mesh.num_vertices:
+            raise ValueError(
+                f"point attribute {name!r} has {data.shape[0]} values for "
+                f"{self.mesh.num_vertices} vertices"
+            )
+        self.point_attributes.append(MeshAttribute(name, data))
+
+    def add_cell_attribute(self, name: str, attribute) -> None:
+        """Attach a cell attribute (pysplashsurf.pyi:122): exactly one
+        value per cell."""
+        data = np.asarray(attribute)
+        ncells = (
+            len(self.mesh.triangles)
+            if isinstance(self.mesh, TriMesh3d)
+            else len(self.mesh.triangles) + len(self.mesh.quads)
+        )
+        if data.shape[0] != ncells:
+            raise ValueError(
+                f"cell attribute {name!r} has {data.shape[0]} values for "
+                f"{ncells} cells"
+            )
+        self.cell_attributes.append(MeshAttribute(name, data))
+
+    def copy_mesh(self):
+        """Copy of the wrapped mesh without attributes (pysplashsurf.pyi:103)."""
+        return self.mesh.copy()
+
+    def copy(self) -> "MeshWithData":
+        """Deep copy with data and attributes (pysplashsurf.pyi:107)."""
+        return MeshWithData(
+            mesh=self.mesh.copy(),
+            point_attributes=[
+                MeshAttribute(a.name, np.array(a.data))
+                for a in self.point_attributes
+            ],
+            cell_attributes=[
+                MeshAttribute(a.name, np.array(a.data))
+                for a in self.cell_attributes
+            ],
+        )
+
+    def write_to_file(self, path, *, file_format=None) -> None:
+        """Write the mesh and its point attributes (pysplashsurf.pyi:133)."""
+        from splashsurf_tpu_torch import io as _io
+
+        _io.write_mesh(
+            str(path),
+            self.mesh,
+            point_attributes={
+                a.name: np.asarray(a.data) for a in self.point_attributes
+            },
+        )
+
+    def keep_cells(self, cell_indices: np.ndarray) -> "MeshWithData":
+        """Keep the given cells; point/cell attributes follow the maps."""
+        mesh = self._require_tri()
+        cell_indices = np.asarray(cell_indices)
+        tris = np.asarray(mesh.triangles)[cell_indices]
+        used = np.zeros(mesh.num_vertices, dtype=bool)
+        used[tris.ravel()] = True
+        return MeshWithData(
+            mesh=mesh.keep_cells(cell_indices),
+            point_attributes=[
+                MeshAttribute(a.name, np.asarray(a.data)[used])
+                for a in self.point_attributes
+            ],
+            cell_attributes=[
+                MeshAttribute(a.name, np.asarray(a.data)[cell_indices])
+                for a in self.cell_attributes
+            ],
+        )
+
+    def keep_vertices(self, vertex_mask: np.ndarray) -> "MeshWithData":
+        """Keep flagged vertices; cells with a dropped corner are removed and
+        their cell attributes with them."""
+        mesh = self._require_tri()
+        vertex_mask = np.asarray(vertex_mask, dtype=bool)
+        tri_keep = vertex_mask[np.asarray(mesh.triangles)].all(axis=1)
+        return MeshWithData(
+            mesh=mesh.keep_vertices(vertex_mask),
+            point_attributes=[
+                MeshAttribute(a.name, np.asarray(a.data)[vertex_mask])
+                for a in self.point_attributes
+            ],
+            cell_attributes=[
+                MeshAttribute(a.name, np.asarray(a.data)[tri_keep])
+                for a in self.cell_attributes
+            ],
+        )
+
+    def par_clamp_with_aabb(
+        self, aabb, clamp_vertices: bool = True, keep_vertices: bool = False
+    ) -> "MeshWithData":
+        """Remove cells fully outside the AABB, clamp survivors, and remap
+        attributes through the surviving cell/vertex maps (mesh.rs:333-371 +
+        MeshWithData remapping). Defaults match ``TriMesh3d``."""
+        mesh = self._require_tri()
+        verts = np.asarray(mesh.vertices)
+        lo = np.asarray(aabb.min, dtype=verts.dtype)
+        hi = np.asarray(aabb.max, dtype=verts.dtype)
+        inside = np.all((verts >= lo) & (verts <= hi), axis=1)
+        tris = np.asarray(mesh.triangles)
+        cells_to_keep = np.flatnonzero(inside[tris].any(axis=1))
+        if keep_vertices:
+            out = MeshWithData(
+                mesh=TriMesh3d(
+                    vertices=verts.copy(),
+                    triangles=tris[cells_to_keep].astype(np.int32),
+                ),
+                point_attributes=self.point_attributes,
+                cell_attributes=[
+                    MeshAttribute(a.name, np.asarray(a.data)[cells_to_keep])
+                    for a in self.cell_attributes
+                ],
+            )
+        else:
+            out = self.keep_cells(cells_to_keep)
+        if clamp_vertices:
+            out.mesh.vertices = np.clip(np.asarray(out.mesh.vertices), lo, hi)
+        return out
+
+    def remap_through_vertex_map(
+        self, new_mesh: "TriMesh3d", vertex_map
+    ) -> "MeshWithData":
+        """Carry point attributes through a decimation/cleanup vertex map
+        (``vertex_map[new_vertex] = old_vertex``, as returned by
+        ``marching_cubes_cleanup`` / ``decimation``). Cell attributes cannot
+        survive a collapse that changes the cell set and are dropped."""
+        vm = np.asarray(vertex_map)
+        return MeshWithData(
+            mesh=new_mesh,
+            point_attributes=[
+                MeshAttribute(a.name, np.asarray(a.data)[vm])
+                for a in self.point_attributes
+            ],
+            cell_attributes=[],
+        )
+
+
+# ---------------------------------------------------------------------------
+# normals and areas (torch, on the given tensors' device)
+# ---------------------------------------------------------------------------
+
+
+def _torch_args(vertices, triangles, device):
+    """(vertices, triangles, as_numpy): a tensor stays on its own device; an
+    array goes to ``device`` (default CUDA), and the caller converts the
+    result back."""
+    from splashsurf_tpu_torch.reconstruction import as_device_tensor
+
+    as_numpy = not isinstance(vertices, torch.Tensor)
+    v = as_device_tensor(vertices, device)
+    t = triangles if isinstance(triangles, torch.Tensor) else torch.as_tensor(np.asarray(triangles))
+    return v, t.to(device=v.device, dtype=torch.int64), as_numpy
+
+
+def _unit(n: torch.Tensor) -> torch.Tensor:
+    norm = torch.linalg.vector_norm(n, dim=-1, keepdim=True)
+    return n / torch.where(norm > 0, norm, torch.ones_like(norm))
+
+
+def _face_normals(v: torch.Tensor, t: torch.Tensor, normalized: bool) -> torch.Tensor:
+    a, b, c = v[t[:, 0]], v[t[:, 1]], v[t[:, 2]]
+    n = torch.linalg.cross(b - a, c - a, dim=-1)
+    return _unit(n) if normalized else n
+
+
+def face_normals(vertices, triangles, normalized: bool = True, device=None):
+    """Per-triangle normals: (T, 3)."""
+    v, t, as_numpy = _torch_args(vertices, triangles, device)
+    n = _face_normals(v, t, normalized)
+    return n.cpu().numpy() if as_numpy else n
+
+
+def vertex_normals(vertices, triangles, device=None):
+    """Area-weighted vertex normals via scatter-add over triangle corners.
+
+    The unnormalized cross product carries twice the triangle area, so summing
+    it per incident vertex gives area weighting for free (mesh.rs:848-952).
+    """
+    v, t, as_numpy = _torch_args(vertices, triangles, device)
+    fn = _face_normals(v, t, normalized=False)
+    out = torch.zeros_like(v)
+    for corner in range(3):
+        out.index_add_(0, t[:, corner], fn)
+    out = _unit(out)
+    return out.cpu().numpy() if as_numpy else out
+
+
+def triangle_areas(vertices, triangles, device=None):
+    v, t, as_numpy = _torch_args(vertices, triangles, device)
+    out = 0.5 * torch.linalg.vector_norm(_face_normals(v, t, normalized=False), dim=-1)
+    return out.cpu().numpy() if as_numpy else out
+
+
+# ---------------------------------------------------------------------------
+# connectivity (host, numpy)
+# ---------------------------------------------------------------------------
+
+
+def vertex_vertex_connectivity_csr(triangles: np.ndarray, num_vertices: int):
+    """CSR vertex adjacency from the triangle list (host, numpy).
+
+    Returns (offsets (V+1,), neighbors (E,)) with duplicate edges removed.
+    """
+    tris = np.asarray(triangles, dtype=np.int64)
+    # Each triangle contributes 6 directed edges.
+    src = np.concatenate(
+        [tris[:, 0], tris[:, 1], tris[:, 1], tris[:, 2], tris[:, 2], tris[:, 0]]
+    )
+    dst = np.concatenate(
+        [tris[:, 1], tris[:, 0], tris[:, 2], tris[:, 1], tris[:, 0], tris[:, 2]]
+    )
+    key, _ = _unique_keys(src * num_vertices + dst)
+    src_u = key // num_vertices
+    dst_u = (key % num_vertices).astype(np.int32)
+    counts = np.bincount(src_u, minlength=num_vertices)
+    offsets = np.zeros(num_vertices + 1, dtype=np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    return offsets, dst_u
+
+
+def vertex_cell_connectivity(triangles: np.ndarray, num_vertices: int):
+    """Per-vertex incident triangle lists (mesh.rs vertex_cell_connectivity).
+
+    Returns a ragged list of int arrays.
+    """
+    tris = np.asarray(triangles, dtype=np.int64)
+    t_ids = np.repeat(np.arange(len(tris)), 3)
+    v_ids = tris.ravel()
+    order = np.argsort(v_ids, kind="stable")
+    v_sorted, t_sorted = v_ids[order], t_ids[order]
+    starts = np.searchsorted(v_sorted, np.arange(num_vertices))
+    ends = np.searchsorted(v_sorted, np.arange(num_vertices) + 1)
+    return [t_sorted[s:e] for s, e in zip(starts, ends)]
+
 
 def edge_information(triangles: np.ndarray):
     """Unique undirected edges (E, 2) and their incident-triangle counts
@@ -33,8 +472,20 @@ def edge_information(triangles: np.ndarray):
     tris = np.asarray(triangles, dtype=np.int64)
     e = np.concatenate([tris[:, [0, 1]], tris[:, [1, 2]], tris[:, [2, 0]]], axis=0)
     e.sort(axis=1)
-    edges, counts = np.unique(e, axis=0, return_counts=True)
-    return edges, counts
+    n = int(e.max()) + 1 if e.size else 1
+    keys, counts = _unique_keys(e[:, 0] * n + e[:, 1])
+    return np.stack([keys // n, keys % n], axis=1), counts
+
+
+def _unique_keys(keys: np.ndarray):
+    """Sorted unique int64 keys and their counts, as ``np.unique`` gives
+    them, by one sort: some numpy versions' ``np.unique`` takes a hash path
+    that is far slower than a sort on a few million keys."""
+    keys = np.sort(keys)
+    if keys.size == 0:
+        return keys, np.zeros(0, np.int64)
+    first = np.flatnonzero(np.concatenate(([True], keys[1:] != keys[:-1])))
+    return keys[first], np.diff(np.append(first, len(keys)))
 
 
 def check_mesh_consistency(

@@ -25,15 +25,26 @@ from splashsurf_tpu_torch.mesh import TriMesh3d
 from splashsurf_tpu_torch.params import Parameters, SpatialDecomposition
 from splashsurf_tpu_torch.uniform_grid import UniformGrid, kernel_extents
 
-# Largest grid (cells) the reference routes to the dense global pipeline,
-# and the largest it lets that pipeline materialize.
-GLOBAL_DENSE_MAX_CELLS = 160_000_000
+# The dense route's guard: the largest grid it materializes
+# (reconstruction.py:406 of the reference, not an environment switch).
 GLOBAL_DENSE_GUARD_CELLS = 128_000_000
-# The reference's slab route: slabs of at most this many cells
-# (ops/slab_sweep.py:450), taken for at most this many slabs on grids of
-# fewer than 2^31 points.
-SLAB_CELLS_BUDGET = 48_000_000
-SLAB_MAX_SLABS = 64
+
+
+def _env_int(name: str, default: int) -> int:
+    return int(os.environ.get(name, default))
+
+
+def global_dense_max_cells() -> int:
+    """Largest grid (cells) routed to the dense global pipeline
+    (``SPLASHSURF_TPU_GLOBAL_DENSE_MAX_CELLS``, default 160M; the
+    reference's reconstruction.py:186-199)."""
+    return _env_int("SPLASHSURF_TPU_GLOBAL_DENSE_MAX_CELLS", 160_000_000)
+
+
+def slab_cells_budget() -> int:
+    """Cells per slab of the slab route (``SPLASHSURF_TPU_SLAB_CELLS_BUDGET``,
+    default 48M; ops/slab_sweep.py:450-460 of the reference)."""
+    return _env_int("SPLASHSURF_TPU_SLAB_CELLS_BUDGET", 48_000_000)
 
 
 @dataclasses.dataclass
@@ -112,6 +123,11 @@ def _bucket_grid_dim(n: int) -> int:
 
 
 def _bucket_grid(grid: UniformGrid) -> UniformGrid:
+    """The bucketed grid, or ``grid`` itself with
+    ``SPLASHSURF_TPU_GRID_BUCKET=0`` (reconstruction.py:178 of the
+    reference)."""
+    if os.environ.get("SPLASHSURF_TPU_GRID_BUCKET", "1") == "0":
+        return grid
     dims = tuple(_bucket_grid_dim(int(c)) for c in grid.n_cells)
     if dims == grid.n_cells:
         return grid
@@ -130,24 +146,35 @@ def choose_route(parameters: Parameters, grid: UniformGrid) -> str:
     """The route the reference package takes for this grid
     (reconstruction.py:330-411): "dense" or "subdomain"; raises
     NotImplementedError where it would take the slab route, and ValueError
-    where the dense route would materialize too large a grid."""
+    where the dense route would materialize too large a grid.
+
+    The switches are read at each call, with the reference's defaults:
+    ``SPLASHSURF_TPU_GLOBAL_DENSE_MAX_CELLS`` (the dense gate),
+    ``SPLASHSURF_TPU_SLAB_DENSE`` ("1": slabs past the gate),
+    ``SPLASHSURF_TPU_SLAB_MAX_SLABS`` and ``SPLASHSURF_TPU_SLAB_CELLS_BUDGET``.
+    The port runs on one device, so the reference's single-device condition
+    for slabs always holds."""
     route = "dense"
     if parameters.spatial_decomposition == SpatialDecomposition.UNIFORM_GRID:
         gd = parameters.grid_decomposition
         route = "subdomain"
         if gd.auto_disable:
+            gate = global_dense_max_cells()
             if max(grid.n_cells) <= 1.2 * gd.subdomain_num_cubes_per_dim:
                 route = "dense"  # hardly larger than one subdomain
-            elif grid.total_cells <= GLOBAL_DENSE_MAX_CELLS:
+            elif grid.total_cells <= gate:
                 route = "dense"
-            elif int(np.prod(np.asarray(grid.n_points, np.int64))) < 2**31:
-                n_slabs = -(-grid.n_cells[0] // slab_width_cells(grid, SLAB_CELLS_BUDGET))
-                if n_slabs <= SLAB_MAX_SLABS:
+            elif (
+                os.environ.get("SPLASHSURF_TPU_SLAB_DENSE", "1") == "1"
+                and int(np.prod(np.asarray(grid.n_points, np.int64))) < 2**31
+            ):
+                n_slabs = -(-grid.n_cells[0] // slab_width_cells(grid, slab_cells_budget()))
+                if n_slabs <= _env_int("SPLASHSURF_TPU_SLAB_MAX_SLABS", 64):
                     raise NotImplementedError(
                         f"grid {grid.n_cells} ({grid.total_cells} cells) is past the "
-                        f"dense gate of {GLOBAL_DENSE_MAX_CELLS} cells and fits "
-                        f"{n_slabs} slabs: the reference takes the slab route there, "
-                        "which is not ported yet; see ROADMAP.md"
+                        f"dense gate of {gate} cells and fits {n_slabs} slabs: the "
+                        "reference takes the slab route there, which is not ported "
+                        "yet; see ROADMAP.md"
                     )
     if route == "dense" and grid.total_cells > GLOBAL_DENSE_GUARD_CELLS:
         raise ValueError(

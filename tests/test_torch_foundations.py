@@ -6,6 +6,7 @@ contract on a machine without a CUDA toolchain."""
 import ast
 import dataclasses
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -141,6 +142,22 @@ class TestKernelFunctions:
         )
 
     @pytest.mark.parametrize("dtype", [np.float32, np.float64])
+    def test_cubic_kernel_derivatives_match(self, dtype):
+        h = 0.044
+        r = np.linspace(0.0, 1.2 * h, 4001).astype(dtype)
+        got = tk.cubic_kernel_gradient_norm(torch.as_tensor(r), h).numpy()
+        want = np.asarray(jk.cubic_kernel_gradient_norm(r, h))
+        assert got.dtype == want.dtype
+        tol = dict(rtol=1e-6, atol=1e-3) if dtype == np.float32 else dict(rtol=1e-13, atol=1e-6)
+        np.testing.assert_allclose(got, want, **tol)  # |dW/dr| peaks near 1.6e5 at h = 0.044
+        assert (got <= 0).all() and (got[r >= h] == 0).all()
+        q = np.linspace(0, 2.5, 101).astype(dtype)
+        np.testing.assert_allclose(
+            tk.cubic_function_dq(torch.as_tensor(q)).numpy(),
+            np.asarray(jk.cubic_function_dq(q)), rtol=1e-6, atol=1e-7,
+        )
+
+    @pytest.mark.parametrize("dtype", [np.float32, np.float64])
     def test_sentinels(self, dtype):
         assert tk.far_fill(dtype) == jk.far_fill(dtype)
         assert tk.far_position(dtype) == jk.far_position(dtype)
@@ -198,6 +215,25 @@ class TestIsolation:
             for mod in _imported_modules(f):
                 top = mod.split(".")[0]
                 assert top not in ("jax", "jaxlib", "splashsurf_tpu"), (f, mod)
+
+    @pytest.mark.parametrize("root", ["splashsurf_tpu_torch", "chip_smoke.py"])
+    def test_nothing_is_loaded_or_built_from_the_reference_package(self, root):
+        """No string names the reference's native directory or a C++ source
+        or library under it: the port builds its own copy of the host
+        engine."""
+        named = re.compile(r"(?<![\w.])splashsurf_tpu/(native\b|\S*\.(cpp|so)\b)")
+        base = PORT_DIR.parent / root
+        files = sorted(base.rglob("*.py")) if base.is_dir() else [base]
+        for f in files:
+            for node in ast.walk(ast.parse(f.read_text(), filename=str(f))):
+                if isinstance(node, ast.Constant) and isinstance(node.value, str):
+                    assert not named.search(node.value), (f, node.value)
+
+    def test_host_engine_is_the_ports_own(self):
+        from splashsurf_tpu_torch import native
+
+        assert native._SRC.is_relative_to(PORT_DIR) and native._SRC.is_file()
+        assert native._LIB.parent == PORT_DIR / "_build"
 
     def test_load_kernels_raises_without_nvcc(self, monkeypatch):
         if sk._find_nvcc() is not None:

@@ -1,0 +1,235 @@
+"""The port's route choice reads the reference's switches from the
+environment at each call, with the reference's defaults: the dense gate
+(``SPLASHSURF_TPU_GLOBAL_DENSE_MAX_CELLS``), the slab route's switch, slab
+count and slab budget (``SPLASHSURF_TPU_SLAB_DENSE``,
+``SPLASHSURF_TPU_SLAB_MAX_SLABS``, ``SPLASHSURF_TPU_SLAB_CELLS_BUDGET``) and
+the grid bucketing (``SPLASHSURF_TPU_GRID_BUCKET``). The readers are held
+against the JAX package's own; the routes taken are held, end to end,
+against the route its ``reconstruct_surface`` enters, and the meshes
+against its meshes."""
+
+import numpy as np
+import pytest
+import torch
+
+import bench
+import jax
+import splashsurf_tpu as st
+from splashsurf_tpu import neighbors as jn
+from splashsurf_tpu import global_pipeline as jgp
+from splashsurf_tpu import reconstruction as jr
+from splashsurf_tpu import subdomains as jsub
+from splashsurf_tpu.ops import slab_sweep as jslab
+from splashsurf_tpu.params import GridDecompositionParameters as JGrid
+from splashsurf_tpu.reconstruction import clear_grid_plan
+
+import splashsurf_tpu_torch as pt
+from splashsurf_tpu_torch import global_pipeline as tgp
+from splashsurf_tpu_torch import reconstruction as tr
+from splashsurf_tpu_torch import subdomains as tsub
+
+SWITCHES = (
+    "SPLASHSURF_TPU_GLOBAL_DENSE_MAX_CELLS",
+    "SPLASHSURF_TPU_SLAB_DENSE",
+    "SPLASHSURF_TPU_SLAB_MAX_SLABS",
+    "SPLASHSURF_TPU_SLAB_CELLS_BUDGET",
+    "SPLASHSURF_TPU_GRID_BUCKET",
+)
+
+
+@pytest.fixture(autouse=True)
+def _clean_env(monkeypatch):
+    for k in SWITCHES:
+        monkeypatch.delenv(k, raising=False)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs in several worker processes at once; torch's own
+    thread pool per worker would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _port_route(grid, n_sub=64):
+    params = pt.Parameters.new_relative(
+        0.011, 4.0, 1.5, grid_decomposition=pt.GridDecompositionParameters(n_sub)
+    )
+    try:
+        return tr.choose_route(params, grid)
+    except NotImplementedError as e:
+        assert "slab route" in str(e)
+        return "slab"
+
+
+CUBE = pt.UniformGrid(min=(0.0, 0.0, 0.0), cell_size=0.0165, n_cells=(500, 500, 500))  # 125M
+WIDE = pt.UniformGrid(min=(0.0, 0.0, 0.0), cell_size=0.0165, n_cells=(2000, 300, 300))  # 180M
+
+
+@pytest.mark.parametrize(
+    "env, grid, want",
+    [
+        ({}, CUBE, "dense"),
+        ({}, WIDE, "slab"),
+        ({"SPLASHSURF_TPU_GLOBAL_DENSE_MAX_CELLS": "100000000"}, CUBE, "slab"),
+        ({"SPLASHSURF_TPU_GLOBAL_DENSE_MAX_CELLS": "100000000",
+          "SPLASHSURF_TPU_SLAB_DENSE": "0"}, CUBE, "subdomain"),
+        ({"SPLASHSURF_TPU_SLAB_DENSE": "0"}, WIDE, "subdomain"),
+        ({"SPLASHSURF_TPU_SLAB_DENSE": "yes"}, WIDE, "subdomain"),  # only "1" turns slabs on
+        ({"SPLASHSURF_TPU_SLAB_MAX_SLABS": "3"}, WIDE, "subdomain"),  # 4 slabs
+        ({"SPLASHSURF_TPU_SLAB_MAX_SLABS": "4"}, WIDE, "slab"),
+        ({"SPLASHSURF_TPU_SLAB_CELLS_BUDGET": "1000000"}, WIDE, "subdomain"),  # 182 slabs
+        ({"SPLASHSURF_TPU_SLAB_CELLS_BUDGET": "1000000",
+          "SPLASHSURF_TPU_SLAB_MAX_SLABS": "250"}, WIDE, "slab"),
+    ],
+)
+def test_choose_route_follows_the_switches(monkeypatch, env, grid, want):
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    assert tr.global_dense_max_cells() == jr._global_dense_max_cells()
+    assert tr.slab_cells_budget() == jslab.gs_dense_gate()
+    assert _port_route(grid) == want
+
+
+def test_switches_are_read_at_each_call(monkeypatch):
+    assert _port_route(CUBE) == "dense"
+    monkeypatch.setenv("SPLASHSURF_TPU_GLOBAL_DENSE_MAX_CELLS", "1000")
+    assert _port_route(CUBE) == "slab"
+    monkeypatch.setenv("SPLASHSURF_TPU_SLAB_DENSE", "0")
+    assert _port_route(CUBE) == "subdomain"
+
+
+def test_the_dense_guard_is_not_a_switch(monkeypatch):
+    # past 128M cells the dense route raises, whatever the gate says
+    monkeypatch.setenv("SPLASHSURF_TPU_GLOBAL_DENSE_MAX_CELLS", "300000000")
+    big = pt.UniformGrid(min=(0.0, 0.0, 0.0), cell_size=0.0165, n_cells=(600, 500, 500))
+    with pytest.raises(ValueError, match="dense"):
+        _port_route(big)
+
+
+def _soup(mesh, cell_size):
+    tri = np.round(np.asarray(mesh.vertices)[np.asarray(mesh.triangles)] / cell_size, 3)
+    return sorted(tuple(sum(sorted(map(tuple, t)), ())) for t in tri)
+
+
+@pytest.fixture(scope="module")
+def dam():
+    return bench.make_dam_break(2000, 0.011, seed=4)
+
+
+def _reference(pts, params):
+    jn.clear_density_plan()
+    clear_grid_plan()
+    return st.reconstruct_surface(pts, params)
+
+
+def test_past_a_shrunk_gate_without_slabs_both_take_the_subdomain_route(dam, monkeypatch):
+    monkeypatch.setenv("SPLASHSURF_TPU_GLOBAL_DENSE_MAX_CELLS", "1000")
+    monkeypatch.setenv("SPLASHSURF_TPU_SLAB_DENSE", "0")
+    jp = st.Parameters.new_relative(0.011, 4.0, 1.5, grid_decomposition=JGrid(16)).try_convert(
+        "float64"
+    )
+    pts = dam.astype(np.float64)
+    ref = _reference(pts, jp)
+    rec = pt.reconstruct_surface(pts, pt.Parameters.from_reference(jp), device="cpu")
+    assert ref.subdomain_grid is not None and rec.subdomain_grid is not None
+    assert max(rec.grid.n_cells) > 1.2 * 16 and rec.grid.total_cells > 1000
+    assert (rec.subdomain_grid.min, rec.subdomain_grid.n_cells) == (
+        ref.subdomain_grid.min, ref.subdomain_grid.n_cells
+    )
+    assert rec.mesh.num_triangles == ref.mesh.num_triangles > 500
+    assert _soup(rec.mesh, rec.grid.cell_size) == _soup(ref.mesh, rec.grid.cell_size)
+    # with slabs on (the default), the port names the slab route it lacks
+    monkeypatch.delenv("SPLASHSURF_TPU_SLAB_DENSE")
+    with pytest.raises(NotImplementedError, match="slab route"):
+        pt.reconstruct_surface(pts, pt.Parameters.from_reference(jp), device="cpu")
+
+
+def test_grid_bucket_off_gives_the_reference_grid(dam, monkeypatch):
+    monkeypatch.setenv("SPLASHSURF_TPU_GRID_BUCKET", "0")
+    jp = st.Parameters.new_relative(0.011, 4.0, 1.5).try_convert("float64")
+    pts = dam.astype(np.float64)
+    raw = pt.grid_for_reconstruction(
+        torch.as_tensor(pts), jp.particle_radius, jp.compact_support_radius, jp.cube_size
+    )
+    assert tr._bucket_grid(raw) is raw
+    monkeypatch.delenv("SPLASHSURF_TPU_GRID_BUCKET")
+    assert tr._bucket_grid(raw).n_cells != raw.n_cells  # bucketing would pad it
+    monkeypatch.setenv("SPLASHSURF_TPU_GRID_BUCKET", "0")
+    ref = _reference(pts, jp)
+    rec = pt.reconstruct_surface(pts, pt.Parameters.from_reference(jp), device="cpu")
+    assert rec.grid.n_cells == ref.grid.n_cells == raw.n_cells
+    assert rec.grid.min == ref.grid.min
+    np.testing.assert_array_equal(rec.mesh.triangles, np.asarray(ref.mesh.triangles))
+    np.testing.assert_allclose(rec.mesh.vertices, np.asarray(ref.mesh.vertices), rtol=0, atol=1e-12)
+
+
+class _Entered(Exception):
+    """Raised by a spy in place of a route's reconstruction: (route, grid)."""
+
+
+def _spy(monkeypatch, module, attr, route):
+    def enter(positions, parameters, grid, **kw):
+        raise _Entered(route, grid)
+
+    monkeypatch.setattr(module, attr, enter)
+
+
+def _route_entered(run):
+    try:
+        run()
+    except _Entered as e:
+        return e.args
+    except NotImplementedError as e:  # the port, where the reference takes slabs
+        assert "slab route" in str(e)
+        return "slab", None
+    raise AssertionError("no route was entered")
+
+
+@pytest.mark.parametrize(
+    "env, want",
+    [
+        ({}, "dense"),
+        ({"SPLASHSURF_TPU_GLOBAL_DENSE_MAX_CELLS": "1000"}, "slab"),
+        ({"SPLASHSURF_TPU_GLOBAL_DENSE_MAX_CELLS": "1000", "SPLASHSURF_TPU_SLAB_DENSE": "0"},
+         "subdomain"),
+        ({"SPLASHSURF_TPU_GLOBAL_DENSE_MAX_CELLS": "1000",
+          "SPLASHSURF_TPU_SLAB_CELLS_BUDGET": "1000", "SPLASHSURF_TPU_SLAB_MAX_SLABS": "1"},
+         "subdomain"),
+        ({"SPLASHSURF_TPU_GLOBAL_DENSE_MAX_CELLS": "1000",
+          "SPLASHSURF_TPU_SLAB_CELLS_BUDGET": "1000"}, "slab"),
+        ({"SPLASHSURF_TPU_GLOBAL_DENSE_MAX_CELLS": "1000", "SPLASHSURF_TPU_SLAB_DENSE": "0",
+          "SPLASHSURF_TPU_GRID_BUCKET": "0"}, "subdomain"),
+    ],
+)
+def test_both_packages_enter_the_same_route(dam, monkeypatch, env, want):
+    """Each package's route entry points are replaced by spies: the route
+    the JAX package's ``reconstruct_surface`` enters, and its grid, are the
+    port's (where the reference enters its slab route, the port raises
+    NotImplementedError naming it). The reference takes slabs on one device
+    only; the port has one, so the reference is shown one."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    devices = jax.devices
+    monkeypatch.setattr(jax, "devices", lambda *a, **kw: devices(*a, **kw)[:1])
+    _spy(monkeypatch, jgp, "reconstruct_surface_global", "dense")
+    _spy(monkeypatch, jsub, "reconstruct_surface_subdomain_grid", "subdomain")
+    _spy(monkeypatch, jslab, "reconstruct_surface_slabbed", "slab")
+    _spy(monkeypatch, tgp, "reconstruct_surface_global", "dense")
+    _spy(monkeypatch, tsub, "reconstruct_surface_subdomain_grid", "subdomain")
+    jp = st.Parameters.new_relative(0.011, 4.0, 1.5, grid_decomposition=JGrid(16)).try_convert(
+        "float64"
+    )
+    pts = dam.astype(np.float64)
+    ref_route, ref_grid = _route_entered(lambda: _reference(pts, jp))
+    assert ref_route == want
+    route, grid = _route_entered(
+        lambda: pt.reconstruct_surface(pts, pt.Parameters.from_reference(jp), device="cpu")
+    )
+    assert route == want
+    if grid is not None:
+        assert grid.n_cells == tuple(ref_grid.n_cells)
+        np.testing.assert_array_equal(grid.min, np.asarray(ref_grid.min))
+        assert grid.cell_size == ref_grid.cell_size
