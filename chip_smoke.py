@@ -62,6 +62,20 @@ Phases (each prints progress; any failure raises and exits non-zero):
      attributes within rtol 2e-5 / atol 1e-5: after the cleanup the mesh is
      f32), and the f32 smoothing and SPH-interpolation ops on one host mesh,
      CUDA against CPU at the same tolerance.
+ 13. the slab route: ``reconstruct_surface`` on the 8M canyon with default
+     parameters (past the 160M-cell dense gate: 8 slabs of 340 cells, one
+     K1 launch each), a cold frame and three warm ones with the route's
+     stage seconds and the peak device memory; the mesh closed, its counts
+     within 1e-4 of phase 7's subdomain mesh; the 2M dam break through 7
+     slabs (the gate and the slab budget at 1M cells) against phase 4's
+     dense mesh (triangle lists equal, vertices within 1e-6); K1 against
+     its plain version on 8-cell slab windows, one inside the fluid and the
+     ragged last slab of a grid that ends in it;
+ 14. the neighbour lists (``global_neighborhood_list=True``): the 100K dam
+     break from a CPU input against a CUDA input through
+     ``reconstruct_surface``, then the 2M dam break's search on the card
+     (seconds apart from the host lists' build, peak device memory,
+     ``compute_neighborhood_stats``) against the same search on the CPU.
 
 Each kernel's line carries its bound: the larger of the bytes it must move
 (rasters read once, output written once) over 3.35 TB/s and the float
@@ -624,7 +638,8 @@ def phase_k3(pt, dev, canyon, kernels):
 
 
 def phase_canyon(pt, canyon, kernels, ident):
-    """Phase 7: the subdomain route at full size, the main path of K3."""
+    """Phase 7: the subdomain route at full size, the main path of K3.
+    Returns the mesh of its last frame."""
     from splashsurf_tpu_torch import neighbors as N
     from splashsurf_tpu_torch import subdomains as S
     from splashsurf_tpu_torch.ops import splat_kernels as sk
@@ -670,6 +685,7 @@ def phase_canyon(pt, canyon, kernels, ident):
     log(f"  frame seconds {[round(x, 4) for x in frame_s]}; warm median {warm:.4f} s = "
         f"{n / warm / 1e6:.3f} Mparticles/s ({ident}); K3 launches {launches}, each "
         f"after its mask pre-pass")
+    return mesh
 
 
 def phase_cross_subdomain(pt, dev, dam):
@@ -1216,6 +1232,259 @@ def phase_pipeline_cross(pt, dev):
         raise AssertionError(f"f32 ops differ beyond {PIPE_TOL}: {failed}")
 
 
+def timed_frames(pt, pts, params, n):
+    """``n`` frames of ``reconstruct_surface``, each timed on the host clock
+    from call to host mesh, the device synchronised: (last result, seconds)."""
+    secs = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = pt.reconstruct_surface(pts, params)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return rec, secs
+
+
+def slab_run(pt, pts, params, sk):
+    """One slab-route frame from zeroed launch counts: (result, a copy of
+    ``slab_sweep.LAST_RUN``, K1 launches); each K1 launch built its masks."""
+    from splashsurf_tpu_torch.ops import slab_sweep as SL
+
+    reset_launches(sk)
+    SL.LAST_RUN.clear()
+    rec = pt.reconstruct_surface(pts, params)
+    torch.cuda.synchronize()
+    k1 = sk.sweep_global_cuda.launches
+    check_mask_launches(sk, k1)
+    run = dict(SL.LAST_RUN)
+    run["stage_s"] = dict(run.get("stage_s", {}))
+    if rec.subdomain_grid is not None or not run.get("slabbed"):
+        raise AssertionError("the frame did not take the slab route")
+    if k1 != run["n_slabs"]:
+        raise AssertionError(f"{k1} K1 launches for {run['n_slabs']} slabs")
+    return rec, run, k1
+
+
+def check_closed(pt, name, mesh):
+    bad = pt.check_mesh_consistency(mesh.vertices, mesh.triangles)
+    if bad is not None or mesh.num_triangles == 0 or not np.isfinite(mesh.vertices).all():
+        raise AssertionError(f"{name}: mesh not closed/manifold, empty or not finite: {bad}")
+
+
+def phase_slab(pt, dev, canyon, sub_mesh, pts_np, dense_mesh, ident):
+    """Phase 13: the slab route, which default parameters take past the
+    dense gate: the 8M canyon against phase 7's subdomain mesh, the 2M dam
+    break through 7 slabs against phase 4's dense mesh, and K1 against its
+    plain version on the canyon's fullest and last slab windows and on
+    8-cell windows."""
+    log("phase 13: the slab route")
+    slab_canyon(pt, canyon, sub_mesh, ident, expect=(8, 340))
+    pts = torch.as_tensor(pts_np, device=dev)
+    slab_dam(pt, pts, dense_mesh, ident, expect=(7, 63))
+    k1_windows(pt, pts)
+
+
+def slab_canyon(pt, canyon, sub_mesh, ident, expect):
+    """The canyon with default parameters: ``expect`` = (slabs, width)."""
+    from splashsurf_tpu_torch import neighbors as N
+    from splashsurf_tpu_torch.ops import splat_kernels as sk
+    from splashsurf_tpu_torch.reconstruction import _bucket_grid, choose_route
+
+    params = pt.Parameters.new_relative(RADIUS, 4.0, 1.5)
+    n = canyon.shape[0]
+    grid = _bucket_grid(pt.grid_for_reconstruction(
+        canyon, RADIUS, params.compact_support_radius, params.cube_size))
+    log(f"  reconstruct_surface, {n}-particle canyon, default parameters: grid "
+        f"{grid.n_cells} ({grid.total_cells} cells), route {choose_route(params, grid)}")
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec, run, k1 = slab_run(pt, canyon, params, sk)
+    cold = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if (run["n_slabs"], run["slab_w"]) != expect:
+        raise AssertionError(f"{run['n_slabs']} slabs of {run['slab_w']} cells, not {expect}")
+    mesh = rec.mesh
+    check_closed(pt, "slab canyon", mesh)
+    dv, dt = mesh.num_vertices - sub_mesh.num_vertices, mesh.num_triangles - sub_mesh.num_triangles
+    rel = max(abs(dv) / sub_mesh.num_vertices, abs(dt) / sub_mesh.num_triangles)
+    log(f"  {run['n_slabs']} slabs of {run['slab_w']} cells ({run['slab_cells']} cells each), "
+        f"particles per slab {run['rows']}; K1 launches {k1}, each after its mask pre-pass; "
+        f"densities {N.LAST_GATE.get('kind')}")
+    log(f"  mesh {mesh.num_vertices} vertices, {mesh.num_triangles} triangles, closed; "
+        f"the subdomain route's (phase 7) {sub_mesh.num_vertices}, {sub_mesh.num_triangles}: "
+        f"differences {dv} vertices, {dt} triangles, {rel:.3e} relative")
+    if rel > 1e-4:
+        raise AssertionError(f"slab and subdomain canyon counts differ by {rel:.3e} relative")
+    del rec, mesh
+    _, warm_s = timed_frames(pt, canyon, params, 3)
+    warm = statistics.median(warm_s)
+    log("  stage seconds (cold frame): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in run["stage_s"].items()))
+    log(f"  frame seconds: cold {cold:.4f}, warm {[round(x, 4) for x in warm_s]}; warm median "
+        f"{warm:.4f} s = {n / warm / 1e6:.3f} Mparticles/s; peak device memory {peak} bytes "
+        f"({peak / 1e9:.3f} GB, cold frame) ({ident})")
+    # K1 against its plain version at the shapes this route gave it: the
+    # fullest slab's window and the ragged last slab's
+    values, _, hsc = slab_values(pt, canyon, params)
+    W, rows = run["slab_w"], run["rows"]
+    full = int(np.argmax(rows))
+    last = run["n_slabs"] - 1
+    for s, name in ((full, f"the canyon's fullest slab ({rows[full]} particles)"),
+                    (last, f"the canyon's ragged last slab ({grid.n_cells[0] - last * W} "
+                           f"of {W} cells in the grid)")):
+        k1_window(canyon, values, grid, hsc, params.compact_support_radius, W, s * W, name)
+
+
+def slab_dam(pt, pts, dense_mesh, ident, expect, cells=1_000_000):
+    """The dam break with the dense gate and the slab budget at ``cells``,
+    against its dense mesh: ``expect`` = (slabs, width)."""
+    from splashsurf_tpu_torch.ops import splat_kernels as sk
+
+    params = pt.Parameters.new_relative(RADIUS, 4.0, 1.5)
+    env = {"SPLASHSURF_TPU_GLOBAL_DENSE_MAX_CELLS": str(cells),
+           "SPLASHSURF_TPU_SLAB_CELLS_BUDGET": str(cells)}
+    saved = {k: os.environ.get(k) for k in env}
+    try:
+        os.environ.update(env)
+        rec, run, k1 = slab_run(pt, pts, params, sk)
+        _, warm_s = timed_frames(pt, pts, params, 3)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if (run["n_slabs"], run["slab_w"]) != expect:
+        raise AssertionError(f"dam break: {run['n_slabs']} slabs of {run['slab_w']}, not {expect}")
+    mesh = rec.mesh
+    check_closed(pt, "slab dam break", mesh)
+    if not np.array_equal(mesh.triangles, dense_mesh.triangles):
+        raise AssertionError("dam break: the slab route's triangle list is not the dense route's")
+    vdiff = float(np.abs(mesh.vertices - dense_mesh.vertices).max())
+    if vdiff > 1e-6:
+        raise AssertionError(f"dam break: slab and dense vertices differ by {vdiff}")
+    log(f"  {pts.shape[0]}-particle dam break, dense gate and slab budget at {cells} cells: "
+        f"{run['n_slabs']} slabs of {run['slab_w']} cells, K1 launches {k1}; triangle list "
+        f"equal to the dense route's ({mesh.num_triangles}), max vertex diff {vdiff:.3e}, "
+        f"vertices bit-equal: {bool(np.array_equal(mesh.vertices, dense_mesh.vertices))}")
+    log(f"  stage seconds: " + ", ".join(f"{k} {v:.5f}" for k, v in run["stage_s"].items())
+        + f"; warm frames {[round(x, 4) for x in warm_s]} s ({ident})")
+
+
+def k1_window(pts, values, grid, hsc, h, W, x0, name):
+    """K1 against its plain version on the slab window of ``W`` cells from
+    global cell ``x0`` on, at the shapes the slab route gives it: the
+    window's rasters (2, W + 2 pad, Yp, Zp), masks checked bit for bit,
+    and its (W + 1, PY, PZ) points."""
+    from splashsurf_tpu_torch.ops import global_sweep as gs
+    from splashsurf_tpu_torch.ops import splat_kernels as sk
+
+    rasters, overflow = gs.rasterize_global(pts, values, grid, 2, hsc, slab_ncx=W, slab_x0=x0)
+    npts = (W + 1,) + grid.n_points[1:]
+    check_masks(sk, f"K1 {W}-cell window, {name}", rasters[3])
+    compare(f"K1 {W}-cell window at x0 = {x0}, {name}, rasters {tuple(rasters[0].shape)} -> "
+            f"{npts}, {int(torch.count_nonzero(rasters[3]))} occupied slots, "
+            f"{overflow[0].shape[0]} overflow",
+            sk.sweep_global_cuda(*rasters, grid.cell_size, h, hsc, npts),
+            sk.sweep_global_plain(*rasters, grid.cell_size, h, hsc, npts), F32_TOL)
+
+
+def slab_values(pt, pts, params):
+    """The slab route's weights m / rho of ``pts`` and its grid and hsc."""
+    from splashsurf_tpu_torch import neighbors as N
+    from splashsurf_tpu_torch.reconstruction import _bucket_grid
+
+    h = params.compact_support_radius
+    grid = _bucket_grid(pt.grid_for_reconstruction(pts, RADIUS, h, params.cube_size))
+    hsc = pt.kernel_extents(h, grid.cell_size).half_supported_cells
+    rho = N.compute_particle_densities(pts, h, params.particle_rest_mass)
+    return params.particle_rest_mass / rho, grid, hsc
+
+
+def k1_windows(pt, pts):
+    """K1 against its plain version on 8-cell slab windows of the dam
+    break: inside the fluid, and the ragged last slab of a grid cut to end
+    inside it (3 of the window's cells in the grid)."""
+    params = pt.Parameters.new_relative(RADIUS, 4.0, 1.5)
+    values, grid, hsc = slab_values(pt, pts, params)
+    ncx, ncy, ncz = grid.n_cells
+    cut = pt.UniformGrid(min=grid.min, cell_size=grid.cell_size, n_cells=(ncx // 2 + 3, ncy, ncz))
+    for g, x0, name in ((grid, ncx // 2, "inside the fluid"),
+                        (cut, cut.n_cells[0] - 3, f"ragged last slab of a {cut.n_cells} grid")):
+        k1_window(pts, values, g, hsc, params.compact_support_radius, 8, x0, name)
+
+
+def csr_sets(offsets, indices):
+    """The CSR lists with each row's indices sorted: per-particle sets."""
+    offsets, indices = np.asarray(offsets), np.asarray(indices)
+    rows = np.repeat(np.arange(len(offsets) - 1), np.diff(offsets))
+    return offsets, indices[np.lexsort((indices, rows))]
+
+
+def check_same_lists(name, a, b):
+    """Two CSR lists (offsets, indices) hold the same per-particle sets;
+    logs whether they also share the order within each list."""
+    sa, sb = csr_sets(*a), csr_sets(*b)
+    if not (np.array_equal(sa[0], sb[0]) and np.array_equal(sa[1], sb[1])):
+        raise AssertionError(f"{name}: the neighbour sets differ")
+    same = bool(np.array_equal(a[1], b[1]))
+    log(f"  {name}: {len(a[0]) - 1} lists, {len(a[1])} entries, the same sets; the same "
+        f"order too: {same}")
+
+
+def phase_neighbors(pt, dev, cross, pts_np, ident):
+    """Phase 14: the neighbour lists, CUDA input against CPU input."""
+    from splashsurf_tpu_torch import neighbors as N
+
+    params = pt.Parameters.new_relative(RADIUS, 4.0, 1.5, global_neighborhood_list=True)
+    h = params.compact_support_radius
+    log(f"phase 14: neighbour lists within h = {h}; reconstruct_surface with "
+        f"global_neighborhood_list=True on {len(cross)} particles, CPU input vs CUDA input")
+    rc = pt.reconstruct_surface(cross, params, device="cpu")
+    rg = pt.reconstruct_surface(torch.as_tensor(cross, device=dev), params)
+    for name, r in (("cpu", rc), ("cuda", rg)):
+        if not isinstance(r.particle_neighbors, pt.NeighborhoodLists) or len(
+            r.particle_neighbors) != len(cross):
+            raise AssertionError(f"{name}: no neighbour list per particle")
+    check_same_lists(f"{len(cross)}-particle dam break lists",
+                     (rg.particle_neighbors.offsets, rg.particle_neighbors.indices),
+                     (rc.particle_neighbors.offsets, rc.particle_neighbors.indices))
+    del rc, rg
+
+    pts = torch.as_tensor(pts_np, device=dev)
+    N.neighbor_search_csr(pts, h)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    search_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        counts, indices = N.neighbor_search_csr(pts, h)
+        torch.cuda.synchronize()
+        search_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    lists = N.lists_from_device_csr(counts, indices)
+    build_s = time.perf_counter() - t0
+    stats = pt.compute_neighborhood_stats(lists)
+    log(f"  {len(pts_np)}-particle dam break on the card: search seconds "
+        f"{[round(x, 4) for x in search_s]} (median {statistics.median(search_s):.4f}); host "
+        f"lists (copy and NeighborhoodLists) {build_s:.3f} s; peak device memory {peak} bytes, "
+        f"{peak - base} above the positions ({ident})")
+    log(f"  compute_neighborhood_stats: max {stats.max_neighbors}, mean "
+        f"{stats.avg_neighbors:.3f} over {stats.particles_with_neighbors} particles with "
+        f"neighbours, {len(lists) - stats.particles_with_neighbors} without")
+    t0 = time.perf_counter()
+    cc, ci = N.neighbor_search_csr(pts.cpu(), h)
+    cpu_s = time.perf_counter() - t0
+    offs = lambda c: np.concatenate([[0], np.cumsum(c.cpu().numpy())])
+    check_same_lists(f"{len(pts_np)}-particle dam break lists, CUDA vs CPU (CPU search "
+                     f"{cpu_s:.1f} s)",
+                     (offs(counts), indices.cpu().numpy()), (offs(cc), ci.numpy()))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1337,6 +1606,7 @@ def main() -> int:
     log(f"  mesh {mesh.num_vertices} vertices, {mesh.num_triangles} triangles, closed")
     log(f"  frame seconds {[round(s, 4) for s in frame_s]}; warm median {warm:.4f} s "
         f"= {n_main / warm / 1e6:.3f} Mparticles/s ({ident}); launches {launches}")
+    dense_mesh = mesh
 
     # --- 5. cross-check: plain (CPU) vs kernels (CUDA) ------------------------
     cross = bench.make_dam_break(N_CROSS, RADIUS, seed=3)
@@ -1360,8 +1630,7 @@ def main() -> int:
     # --- 6-8. the subdomain route -------------------------------------------
     canyon = torch.as_tensor(bench.make_canyon(N_CANYON, RADIUS), device=dev)
     phase_k3(pt, dev, canyon, kernels)
-    phase_canyon(pt, canyon, kernels, ident)
-    del canyon
+    canyon_mesh = phase_canyon(pt, canyon, kernels, ident)
     phase_cross_subdomain(pt, dev, cross)
 
     # --- 9-10. the cell-raster densities and the sequence --------------------
@@ -1372,6 +1641,11 @@ def main() -> int:
     del pts
     phase_cli(pt, pts_np, ident)
     phase_pipeline_cross(pt, dev)
+
+    # --- 13-14. the slab route and the neighbour lists -----------------------
+    phase_slab(pt, dev, canyon, canyon_mesh, pts_np, dense_mesh, ident)
+    del canyon, canyon_mesh
+    phase_neighbors(pt, dev, cross, pts_np, ident)
 
     print(ident, flush=True)
     names = ("sweep_global", "density_sweep", "splat_sweep", "pair_sweep")

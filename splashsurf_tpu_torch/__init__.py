@@ -7,8 +7,9 @@ cell size in, a closed triangle mesh out, one frame at a time
 through the post-processing recipe of the reference's CLI
 (``reconstruction_pipeline``; ``python -m splashsurf_tpu_torch reconstruct``,
 with file IO in ``io``). The dense global route (with the legacy or the
-cell-raster densities) and the subdomain-grid route of the reference package
-are ported; their four TPU kernels are hand-written CUDA for Hopper
+cell-raster densities), the x-slab route past the dense gate and the
+subdomain-grid route of the reference package are ported, and so is its
+neighbour search (``neighborhood_search_spatial_hashing_parallel``); their four TPU kernels are hand-written CUDA for Hopper
 (``csrc/``), each beside a plain PyTorch version that runs on the CPU. Inputs
 run on the card unless the caller asks for the CPU. This package imports
 neither ``jax`` nor ``splashsurf_tpu``.
@@ -23,6 +24,12 @@ from splashsurf_tpu_torch.mesh import (
     MixedTriQuadMesh3d,
     TriMesh3d,
     check_mesh_consistency,
+)
+from splashsurf_tpu_torch.neighbors import (
+    NeighborhoodLists,
+    NeighborhoodStats,
+    compute_neighborhood_stats,
+    neighborhood_search_spatial_hashing_parallel,
 )
 from splashsurf_tpu_torch.params import (
     GridDecompositionParameters,
@@ -48,6 +55,8 @@ __all__ = [
     "MeshAttribute",
     "MeshWithData",
     "MixedTriQuadMesh3d",
+    "NeighborhoodLists",
+    "NeighborhoodStats",
     "Parameters",
     "PostprocessingParameters",
     "ReconstructionResult",
@@ -56,10 +65,12 @@ __all__ = [
     "TriMesh3d",
     "UniformGrid",
     "check_mesh_consistency",
+    "compute_neighborhood_stats",
     "grid_for_reconstruction",
     "io",
     "kernel_extents",
     "marching_cubes",
+    "neighborhood_search_spatial_hashing_parallel",
     "reconstruct_sequence",
     "reconstruct_surface",
     "reconstruction_pipeline",

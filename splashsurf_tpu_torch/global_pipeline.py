@@ -73,7 +73,9 @@ def reconstruct_surface_global(
 ) -> SurfaceReconstruction:
     """Reconstruct on one dense grid on the positions' device. The mesh comes
     back to the host (with ``defer_pull``, at ``resolve()``); the
-    per-particle densities stay a device tensor."""
+    per-particle densities stay a device tensor; the neighbour lists, when
+    ``parameters.global_neighborhood_list`` asks for them, are searched
+    after the mesh is dispatched and come back with the result."""
     h = parameters.compact_support_radius
     hsc = kernel_extents(h, grid.cell_size).half_supported_cells
     out = None
@@ -87,11 +89,13 @@ def reconstruct_surface_global(
         verts, tris = gs.reconstruct_global_dense(
             positions, values, grid, h, hsc, parameters.iso_surface_threshold
         )
+    pull = MeshPull(verts, tris)
     rec = SurfaceReconstruction(
         grid=grid, mesh=None, particle_densities=rho,
+        particle_neighbors=neighbors.particle_neighbor_lists(positions, parameters),
         particle_inside_aabb=particle_inside_aabb,
     )
-    rec._pending_mesh = MeshPull(verts, tris)
+    rec._pending_mesh = pull
     return rec if defer_pull else rec.resolve()
 
 

@@ -18,6 +18,7 @@ import torch
 
 from splashsurf_tpu_torch.kernels import rounded
 from splashsurf_tpu_torch.mc import lut
+from splashsurf_tpu_torch.placement import as_device_tensor
 
 
 def edge_layout(n_points: Tuple[int, int, int]):
@@ -99,7 +100,6 @@ def marching_cubes(
     (pysplashsurf/src/marching_cubes.rs:106-178).
     """
     from splashsurf_tpu_torch.mesh import TriMesh3d
-    from splashsurf_tpu_torch.reconstruction import as_device_tensor
 
     values = as_device_tensor(values, device)
     dtype, dev = values.dtype, values.device

@@ -17,6 +17,8 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
+from splashsurf_tpu_torch.placement import as_device_tensor
+
 
 @dataclasses.dataclass
 class TriMesh3d:
@@ -377,8 +379,6 @@ def _torch_args(vertices, triangles, device):
     """(vertices, triangles, as_numpy): a tensor stays on its own device; an
     array goes to ``device`` (default CUDA), and the caller converts the
     result back."""
-    from splashsurf_tpu_torch.reconstruction import as_device_tensor
-
     as_numpy = not isinstance(vertices, torch.Tensor)
     v = as_device_tensor(vertices, device)
     t = triangles if isinstance(triangles, torch.Tensor) else torch.as_tensor(np.asarray(triangles))

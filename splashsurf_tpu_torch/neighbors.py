@@ -1,5 +1,5 @@
-"""Per-particle SPH densities on a bin lattice (PyTorch port of the density
-path of ``splashsurf_tpu.neighbors``).
+"""Per-particle SPH densities and neighbour lists on a bin lattice (PyTorch
+port of ``splashsurf_tpu.neighbors``).
 
 Particles are binned on a lattice whose bin size is the compact support h,
 so every neighbour of a particle lies in the 27 bins around its own. Two
@@ -21,19 +21,26 @@ lattices, which the gate keeps off the dense rasters, take the third:
    block per occupied bin (plain PyTorch; the reference has no TPU kernel
    here). With K = 8 and a few fuller bins, their rank >= 8 particles go
    through the same exact overflow correction as the raster formulation.
+
+The neighbour lists (``neighborhood_search_spatial_hashing_parallel``) use
+the same sorted cell list: each query gathers the 27 bins around its own,
+in chunks of queries that bound the candidate slots, keeps the candidates
+within the search radius, and the lists come to the host in CSR form.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from splashsurf_tpu_torch import kernels
+from splashsurf_tpu_torch.aabb import Aabb3d
 from splashsurf_tpu_torch.ops.splat_kernels import density_sweep_cuda
+from splashsurf_tpu_torch.placement import as_device_tensor
 
 # Largest materializable bin lattice for the raster/geoslot formulations.
 GATE_LATTICE_MAX = 8_000_000
@@ -557,3 +564,232 @@ def compute_particle_densities(
         capacity=plan["capacity"], u_cap=plan["u_cap"],
         overflow=plan["overflow"], candidate_capacity=plan["ccap"],
     )
+
+
+# ---------------------------------------------------------------------------
+# neighbour lists (neighbors.py:149-153, 194-445 of the reference)
+# ---------------------------------------------------------------------------
+
+# Candidate slots (queries x 27 bins x capacity) of one chunk of the
+# neighbour search: each slot holds an int64 index, a mask bit and the
+# squared distance, so one chunk's working set stays near 0.5 GB in f32.
+NEIGHBOR_CHUNK_SLOTS = 1 << 24
+
+
+def max_bin_occupancy(cell_list: CellList) -> int:
+    """Largest particle count in any bin (one read-back; it sets the gather
+    capacity)."""
+    return bin_stats(cell_list)[0]
+
+
+def _neighbor_chunks(positions, grid: BinGrid, cell_list: CellList, radius, capacity: int):
+    """The neighbour search in chunks of queries, in index order: yields
+    (first query, candidate indices (M, 27*capacity), within) per chunk,
+    ``within`` marking the candidates at d^2 < r^2 that are not the query
+    itself. Candidates come stencil offset major, bin-sorted order minor,
+    as the reference enumerates them. A chunk holds at most
+    ``NEIGHBOR_CHUNK_SLOTS`` candidate slots, read at each call."""
+    dev = positions.device
+    n = positions.shape[0]
+    r = kernels.np_dtype(positions.dtype).type(radius)
+    r2 = float(r * r)
+    tables = _segment_tables(cell_list.sorted_bins, grid.lattice)
+    rows = max(1, NEIGHBOR_CHUNK_SLOTS // (27 * capacity))
+    for q0 in range(0, n, rows):
+        query = positions[q0 : q0 + rows]
+        idx, mask = gather_candidates(query, grid, cell_list, capacity, tables)
+        d2 = None
+        for d in range(3):
+            diff = positions[:, d][idx] - query[:, d, None]
+            d2 = diff * diff if d2 is None else d2 + diff * diff
+        own = torch.arange(q0, q0 + query.shape[0], device=dev)[:, None]
+        yield q0, idx, mask & (idx != own) & (d2 < r2)
+
+
+def neighbor_counts_and_distsq(positions, grid: BinGrid, cell_list: CellList, radius,
+                               capacity: int) -> torch.Tensor:
+    """Neighbour counts within ``radius`` per particle, self excluded
+    ((N,) int32)."""
+    return torch.cat([
+        w.sum(dim=1)
+        for _, _, w in _neighbor_chunks(positions, grid, cell_list, radius, capacity)
+    ]).to(torch.int32)
+
+
+def neighbor_lists_padded(positions, grid: BinGrid, cell_list: CellList, radius,
+                          capacity: int, max_neighbors: int):
+    """Fixed-width neighbour lists: (N, max_neighbors) int32, -1 padded, and
+    the full counts (N,) int32 (a row keeps its first ``max_neighbors``
+    neighbours in candidate order). Use :func:`to_csr` for ragged lists."""
+    n = positions.shape[0]
+    out = torch.full((n, max_neighbors), -1, dtype=torch.int32, device=positions.device)
+    counts = []
+    for q0, idx, within in _neighbor_chunks(positions, grid, cell_list, radius, capacity):
+        rank = torch.cumsum(within, dim=1) - 1
+        keep = within & (rank < max_neighbors)
+        row = torch.nonzero(keep)[:, 0] + q0
+        out[row, rank[keep]] = idx[keep].to(torch.int32)
+        counts.append(within.sum(dim=1))
+    return out, torch.cat(counts).to(torch.int32)
+
+
+def neighbor_lists_csr(positions, grid: BinGrid, cell_list: CellList, radius,
+                       capacity: int, max_neighbors: Optional[int] = None):
+    """Ragged neighbour lists on the device: (counts (N,) int64, indices
+    (sum of counts,) int32), each row in candidate order and cut to its
+    first ``max_neighbors`` where that is given."""
+    counts, indices = [], []
+    for _, idx, within in _neighbor_chunks(positions, grid, cell_list, radius, capacity):
+        if max_neighbors is not None:
+            within &= torch.cumsum(within, dim=1) <= max_neighbors
+        counts.append(within.sum(dim=1))
+        indices.append(idx[within].to(torch.int32))
+    return torch.cat(counts), torch.cat(indices)
+
+
+def to_csr(padded_lists: np.ndarray, counts: np.ndarray):
+    """Padded neighbour lists to CSR (offsets, indices) on the host."""
+    counts = np.asarray(counts)
+    offsets = np.zeros(len(counts) + 1, dtype=np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    padded = np.asarray(padded_lists)
+    width = padded.shape[1] if padded.ndim == 2 else 0
+    mask = np.arange(width)[None, :] < counts[:, None]
+    indices = padded[mask].astype(np.int32)  # row-major: keeps the order
+    return offsets, indices
+
+
+class NeighborhoodLists(list):
+    """Per-particle neighbour lists (pysplashsurf parity): a list of
+    per-particle int32 index arrays; ``offsets`` / ``indices`` give the CSR
+    form."""
+
+    def get_neighborhood_lists(self):
+        return [list(map(int, a)) for a in self]
+
+    @property
+    def offsets(self) -> np.ndarray:
+        off = np.zeros(len(self) + 1, dtype=np.int64)
+        np.cumsum([len(a) for a in self], out=off[1:])
+        return off
+
+    @property
+    def indices(self) -> np.ndarray:
+        if not len(self):
+            return np.zeros(0, np.int32)
+        return np.concatenate([np.asarray(a) for a in self]).astype(np.int32)
+
+    @staticmethod
+    def from_csr(offsets, indices) -> "NeighborhoodLists":
+        bounds = np.asarray(offsets).tolist()
+        return NeighborhoodLists(indices[a:b] for a, b in zip(bounds[:-1], bounds[1:]))
+
+
+def neighbor_search_csr(positions: torch.Tensor, radius: float,
+                        max_neighbors: Optional[int] = 256, domain=None):
+    """The device part of the neighbour search: (counts (N,) int64, indices
+    int32) on the positions' device, each list in candidate order and cut to
+    its first ``max_neighbors``. The bin lattice (bin size ``radius``)
+    covers ``domain`` (an ``Aabb3d``) where given, else the particles."""
+    if domain is not None:
+        mn, mx = domain.mins, domain.maxs
+    else:
+        lo, hi = torch.aminmax(positions, dim=0)
+        mn, mx = lo.cpu().numpy(), hi.cpu().numpy()
+    grid = BinGrid.for_domain(mn, mx, radius)
+    cl = build_cell_list(positions, grid)
+    capacity = _round_up(max_bin_occupancy(cl))
+    return neighbor_lists_csr(positions, grid, cl, radius, capacity, max_neighbors)
+
+
+def lists_from_device_csr(counts: torch.Tensor, indices: torch.Tensor) -> NeighborhoodLists:
+    """``NeighborhoodLists`` on the host from the device CSR of
+    :func:`neighbor_search_csr` (one copy of each array)."""
+    offsets = np.zeros(counts.shape[0] + 1, dtype=np.int64)
+    np.cumsum(counts.cpu().numpy(), out=offsets[1:])
+    return NeighborhoodLists.from_csr(offsets, indices.cpu().numpy())
+
+
+def neighborhood_search_spatial_hashing_parallel(
+    positions, radius=None, max_neighbors: int = 256, search_radius=None, device=None
+) -> NeighborhoodLists:
+    """Neighbour lists of all particles within the search radius, self
+    excluded (pysplashsurf's ``neighborhood_search_spatial_hashing_parallel``):
+    ``(positions, radius)``, or the reference's ``(positions, domain:
+    Aabb3d, search_radius)``, whose bin lattice covers the domain. Each list
+    keeps its first ``max_neighbors`` neighbours (256, as the reference).
+
+    The search runs on the positions' device (a tensor stays on its own;
+    anything else goes to ``device``, by default CUDA) over the sorted bin
+    lattice, in chunks of ``NEIGHBOR_CHUNK_SLOTS`` candidate slots; the
+    lists come to the host as one CSR copy."""
+    positions = as_device_tensor(positions, device).contiguous()
+    domain = None
+    if isinstance(radius, Aabb3d) or radius is None:
+        domain = radius
+        if search_radius is None:
+            if isinstance(max_neighbors, (int, np.integer)):
+                raise TypeError("search_radius required with a domain AABB")
+            search_radius, max_neighbors = max_neighbors, 256
+        radius = search_radius
+    return lists_from_device_csr(
+        *neighbor_search_csr(positions, float(radius), max_neighbors, domain)
+    )
+
+
+def particle_neighbor_lists(positions: torch.Tensor, parameters):
+    """``SurfaceReconstruction.particle_neighbors`` of a route: the lists
+    within the compact support radius when
+    ``parameters.global_neighborhood_list`` asks for them, else None."""
+    if not parameters.global_neighborhood_list:
+        return None
+    return neighborhood_search_spatial_hashing_parallel(
+        positions, parameters.compact_support_radius
+    )
+
+
+@dataclasses.dataclass
+class NeighborhoodStats:
+    """Neighbour-count statistics (neighborhood_search.rs:604-646)."""
+
+    histogram: np.ndarray  # histogram[k] = number of particles with k neighbours
+    particles_with_neighbors: int
+    max_neighbors: int
+    avg_neighbors: float  # mean over the particles with at least one neighbour
+
+    def __str__(self) -> str:
+        lines = [
+            f"Max neighbors: {self.max_neighbors}, avg neighbors: "
+            f"{self.avg_neighbors:.3f}, particles with neighbors: "
+            f"{self.particles_with_neighbors}",
+            "Histogram:",
+        ]
+        lines += [f"{i:2d} neighbors: {int(c):10d}" for i, c in enumerate(self.histogram)]
+        return "\n".join(lines)
+
+
+def compute_neighborhood_stats(neighborhood_lists) -> NeighborhoodStats:
+    """Histogram, maximum and mean of the per-particle neighbour counts, of
+    ragged lists (as ``neighborhood_search_spatial_hashing_parallel``
+    returns them) or of a flat array of counts (``compute_neigborhood_stats``,
+    neighborhood_search.rs:604-646)."""
+    if isinstance(neighborhood_lists, (list, tuple)):
+        counts = np.asarray([len(a) for a in neighborhood_lists], np.int64)
+    else:
+        counts = np.asarray(neighborhood_lists, np.int64)
+    hist = np.bincount(counts) if len(counts) else np.zeros(1, np.int64)
+    with_n = int(np.count_nonzero(counts))
+    return NeighborhoodStats(
+        histogram=hist,
+        particles_with_neighbors=with_n,
+        max_neighbors=int(counts.max()) if len(counts) else 0,
+        avg_neighbors=float(counts.sum() / with_n) if with_n else 0.0,
+    )
+
+
+def neighborhood_search_naive(positions: np.ndarray, radius: float):
+    """O(N^2) oracle on the host (neighborhood_search.rs:72-91)."""
+    p = np.asarray(positions, dtype=np.float64)
+    d2 = np.sum((p[:, None, :] - p[None, :, :]) ** 2, axis=-1)
+    within = (d2 < radius * radius) & ~np.eye(len(p), dtype=bool)
+    return [np.nonzero(row)[0] for row in within]

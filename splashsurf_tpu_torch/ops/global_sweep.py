@@ -11,8 +11,13 @@ Pipeline:
      densities;
   2. ``sweep_global`` - the level set on every grid point: the stencil sweep
      over the rasters (kernel K1) plus a scatter splat of the overflow;
-  3. ``mc_global_cells`` - marching cubes over the active points, building
-     vertices and triangles on the device.
+  3. ``mc_global_cells`` - marching cubes: the active points with their
+     words and edge parameters (``mc_point_words``), then vertices and
+     triangles on the device (``mc_mesh_from_points``).
+
+The slab route (``ops.slab_sweep``) runs steps 1-2 and the first half of 3
+per x-slab of the grid (the functions' slab arguments) and the second half
+once over the merged active points.
 
 Every intermediate has its exact size: eager PyTorch reads counts back where
 it needs them, so no capacities, buckets or retries are planned.
@@ -20,7 +25,7 @@ it needs them, so no capacities, buckets or retries are planned.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,7 +45,8 @@ def _cell_of(px: torch.Tensor, mn: float, cs: float, n: int) -> torch.Tensor:
 
 
 def rasterize_global(positions, values, grid: UniformGrid, slots: int, hsc: int,
-                     with_meta: bool = False):
+                     with_meta: bool = False, slab_ncx: Optional[int] = None,
+                     slab_x0: int = 0):
     """Rasterize particles into per-cell slot tables over the whole grid.
 
     Returns ``(fx, fy, fz, fv), (opx, opy, opz, oval)``: four (slots, Xp, Yp,
@@ -56,6 +62,13 @@ def rasterize_global(positions, values, grid: UniformGrid, slots: int, hsc: int,
     and its cell, int64 (``rasterize_global(..., with_meta=True)`` of the
     reference).
 
+    The table covers the global cells [x0 - pad, x0 + W + pad) in x, halo
+    bands included, so Xp = W + 2*pad: W = ``slab_ncx`` from x0 =
+    ``slab_x0`` (one slab of the slab route, ``ops.slab_sweep``), by default
+    the whole grid (W = ncx, x0 = 0). Cells and fracs are computed against
+    the global grid origin, so a particle's fraction has the same bits
+    whichever slab rasterizes it.
+
     Slot ranks follow ascending particle index within each cell: ``slots``
     rounds of a scatter-max of (n - index) per cell pick the next-smallest
     index each round. The accumulation order is thereby a pure function of
@@ -66,7 +79,8 @@ def rasterize_global(positions, values, grid: UniformGrid, slots: int, hsc: int,
     n = positions.shape[0]
     ncx, ncy, ncz = grid.n_cells
     pad = hsc + 1
-    Xp, Yp, Zp = ncx + 2 * pad, ncy + 2 * pad, ncz + 2 * pad
+    W = ncx if slab_ncx is None else slab_ncx
+    Xp, Yp, Zp = W + 2 * pad, ncy + 2 * pad, ncz + 2 * pad
     cs = kernels.rounded(grid.cell_size, dtype)
     mn = [kernels.rounded(grid.min[d], dtype) for d in range(3)]
     px = [positions[:, d] for d in range(3)]
@@ -74,8 +88,10 @@ def rasterize_global(positions, values, grid: UniformGrid, slots: int, hsc: int,
     valid = torch.ones(n, dtype=torch.bool, device=dev)
     for d, nc in enumerate(grid.n_cells):
         valid &= (cell[d] >= 0) & (cell[d] < nc)
-    ncells = ncx * ncy * ncz
-    cflat = torch.where(valid, (cell[0] * ncy + cell[1]) * ncz + cell[2], ncells)
+    tx = cell[0] - slab_x0 + pad  # x in the table
+    valid &= (tx >= 0) & (tx < Xp)  # the band, halos included (the whole grid by default)
+    ncells = Xp * ncy * ncz  # the rank space covers the band
+    cflat = torch.where(valid, (tx * ncy + cell[1]) * ncz + cell[2], ncells)
 
     rank = torch.full((n,), slots, dtype=torch.int64, device=dev)
     remaining = valid
@@ -91,7 +107,7 @@ def rasterize_global(positions, values, grid: UniformGrid, slots: int, hsc: int,
 
     ok = valid & (rank < slots)
     total = slots * Xp * Yp * Zp
-    dest = ((rank * Xp + cell[0] + pad) * Yp + cell[1] + pad) * Zp + cell[2] + pad
+    dest = ((rank * Xp + tx) * Yp + cell[1] + pad) * Zp + cell[2] + pad
     dest = torch.where(ok, dest, total)
 
     shape = (slots, Xp, Yp, Zp)
@@ -150,14 +166,21 @@ def density_weights_from_rasters(
     return fv, rho
 
 
-def _scatter_splat_points(opx, opy, opz, oval, grid: UniformGrid, h, hsc, out_flat):
-    """Scatter-add splat of the (few) overflow particles onto the grid
-    points. ``index_add_`` runs with atomics on CUDA, so the order of the
-    sums at a point, and its last bits, change from run to run."""
+def _scatter_splat_points(opx, opy, opz, oval, grid: UniformGrid, h, hsc,
+                          out: torch.Tensor, x0: int):
+    """Scatter-add splat of the (few) overflow particles onto ``out``, the
+    (PX, PY, PZ) grid points from global x plane ``x0`` on (the whole grid,
+    or one slab). Point coordinates stay global, only the flat index is
+    relative to ``out``. ``index_add_`` runs with atomics on CUDA, so the
+    order of the sums at a point, and its last bits, change from run to
+    run."""
     dtype = opx.dtype
     dev = opx.device
     npts = grid.n_points
+    local = out.shape
+    origin = (x0, 0, 0)
     strides = (npts[1] * npts[2], npts[2], 1)
+    out_flat = out.reshape(-1)
     cs = kernels.rounded(grid.cell_size, dtype)
     mn = [kernels.rounded(grid.min[d], dtype) for d in range(3)]
     pxs = (opx, opy, opz)
@@ -171,49 +194,61 @@ def _scatter_splat_points(opx, opy, opz, oval, grid: UniformGrid, h, hsc, out_fl
         flat = 0
         in_grid = True
         for d in range(3):
-            p = cell[d][sl, None] + offs[None, :, d]
+            p = cell[d][sl, None] + offs[None, :, d]  # global point index
             delta = kernels.grid_coord(p, grid.min[d], cs, dtype) - pxs[d][sl, None]
             d2 = d2 + delta * delta
-            in_grid = in_grid & (p >= 0) & (p < npts[d])
+            p = p - origin[d]
+            in_grid = in_grid & (p >= 0) & (p < local[d])
             flat = flat + p * strides[d]
         w = kernels.cubic_kernel(torch.sqrt(d2), h) * oval[sl, None]
         out_flat.index_add_(0, flat[in_grid], w[in_grid])
-    return out_flat
+    return out
 
 
-def sweep_global(rasters, overflow, grid: UniformGrid, compact_support_radius, hsc: int):
+def sweep_global(rasters, overflow, grid: UniformGrid, compact_support_radius, hsc: int,
+                 slab_npx: Optional[int] = None, slab_x0: int = 0):
     """Level set phi on the (PX, PY, PZ) grid points: the dense stencil
     sweep over the rasters (kernel K1 on CUDA, its plain version on the
-    CPU) plus the scatter splat of the overflow particles."""
+    CPU) plus the scatter splat of the overflow particles. On one slab (the
+    rasters of ``rasterize_global(..., slab_ncx=W, slab_x0=x0)``, and
+    ``slab_npx`` = W + 1) the points are the slab's (W + 1, PY, PZ) from
+    global plane x0 on; by default all of them."""
+    PX, PY, PZ = grid.n_points
+    n_points = (PX if slab_npx is None else slab_npx, PY, PZ)
     acc = sweep_global_cuda(
-        *rasters, grid.cell_size, compact_support_radius, hsc, grid.n_points
+        *rasters, grid.cell_size, compact_support_radius, hsc, n_points
     )
     if overflow[0].shape[0] == 0:
         return acc
-    return _scatter_splat_points(
-        *overflow, grid, compact_support_radius, hsc, acc.reshape(-1)
-    ).reshape(acc.shape)
+    return _scatter_splat_points(*overflow, grid, compact_support_radius, hsc, acc, slab_x0)
 
 
-def mc_global_cells(ls: torch.Tensor, grid: UniformGrid, iso) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Cell-list marching cubes over the level set on the grid points.
+def mc_point_words(ls: torch.Tensor, grid: UniformGrid, iso, x0: int = 0,
+                   own_px: Optional[int] = None):
+    """Marching cubes, part (a): the active points of a level set on grid
+    points, with their words and edge parameters.
 
-    Each grid point owns its three origin edges (+x/+y/+z) and, when it is
-    not on a far boundary plane, the cell with the same ijk. An 11-bit word
-    per point packs the cell's case (bits 0-7, 0 when there is no cell or
-    the cell is all inside/outside) and the three edges' activity (bits
-    8-10). Active points (word != 0) are compacted in ascending flat order;
-    vertices are axis-major (all x-edge vertices in active-point order, then
-    y, then z) and triangles follow the active points, then the case-table
-    slots. Returns vertices (V, 3) and triangles (T, 3) int32 on the device:
-    the lists of the reference package's unencoded output.
-    """
+    ``ls`` holds the (PX, PY, PZ) points from global x plane ``x0`` on: the
+    whole grid (x0 = 0), or one slab. Each grid point owns its three origin
+    edges (+x/+y/+z) and, when it is not on a far boundary plane of the
+    global grid, the cell with the same ijk. An 11-bit word per point packs
+    the cell's case (bits 0-7, 0 when there is no cell or the cell is all
+    inside/outside) and the three edges' activity (bits 8-10). The cell and
+    the x edge are tested against the global x, so a slab's words equal the
+    whole grid's. With ``own_px``, points of local x >= ``own_px`` are not
+    this call's to emit (a slab's far plane: the next slab owns it) and get
+    word 0.
+
+    Returns (points, words, t): the active points' global flat ids, int64
+    and ascending, their words (int64), and t (3, n_active), the parameter
+    of each active point's edge along each axis (meaningless where that
+    edge is inactive): computed for every point so that nothing is read
+    back here."""
     dtype = ls.dtype
     dev = ls.device
     PX, PY, PZ = ls.shape
     n_pts = PX * PY * PZ
     iso = kernels.rounded(iso, dtype)
-    cs = kernels.rounded(grid.cell_size, dtype)
     inside = ls >= iso
     insp = torch.nn.functional.pad(inside.to(torch.uint8), (0, 1, 0, 1, 0, 1))
 
@@ -225,33 +260,57 @@ def mc_global_cells(ls: torch.Tensor, grid: UniformGrid, iso) -> Tuple[torch.Ten
     for c8 in range(8):
         case |= win((c8 >> 2) & 1, (c8 >> 1) & 1, c8 & 1).to(torch.int32) << c8
     # the cell bits are dropped on far-boundary points (they own no cell)
-    ii = torch.arange(PX, device=dev)[:, None, None]
+    ii = torch.arange(x0, x0 + PX, device=dev)[:, None, None]  # global x
     jj = torch.arange(PY, device=dev)[None, :, None]
     kk = torch.arange(PZ, device=dev)[None, None, :]
-    has_cell = (ii < PX - 1) & (jj < PY - 1) & (kk < PZ - 1)
+    ends = (grid.n_points[0] - 1, PY - 1, PZ - 1)
+    has_cell = (ii < ends[0]) & (jj < ends[1]) & (kk < ends[2])
     word = torch.where(has_cell & (case != 0) & (case != 255), case, 0)
     for a, bit in ((0, 8), (1, 9), (2, 10)):
         nbr = win(int(a == 0), int(a == 1), int(a == 2))
-        in_rng = (ii, jj, kk)[a] < (PX, PY, PZ)[a] - 1
+        in_rng = (ii, jj, kk)[a] < ends[a]
         word |= ((base != nbr) & in_rng).to(torch.int32) << bit
+    if own_px is not None:
+        word = torch.where(ii < x0 + own_px, word, 0)
     word_flat = word.reshape(-1)
     points_c = torch.nonzero(word_flat).squeeze(1)  # ascending flat id
     words_c = word_flat[points_c].long()
-    total_c = points_c.shape[0]
 
-    # --- vertex stream: one vertex per active origin edge, axis-major -----
-    emask = torch.cat([(words_c >> b) & 1 for b in (8, 9, 10)]) == 1
-    vidx_pos = torch.cumsum(emask, 0) - 1  # vertex id of (axis, rank)
-    vslot = torch.nonzero(emask).squeeze(1)
-    vaxis = vslot // max(total_c, 1)
-    p0 = points_c[vslot - vaxis * total_c]
-    step = torch.where(vaxis == 0, PY * PZ, torch.where(vaxis == 1, PZ, 1))
     ls_flat = ls.reshape(-1)
-    v0 = ls_flat[p0]
-    denom = ls_flat[torch.clamp_max(p0 + step, n_pts - 1)] - v0
+    v0 = ls_flat[points_c]
+    step = torch.tensor([PY * PZ, PZ, 1], device=dev)[:, None]
+    denom = ls_flat[torch.clamp_max(points_c + step, n_pts - 1)] - v0
     t = torch.clamp(
         (iso - v0) / torch.where(denom == 0, torch.ones_like(denom), denom), 0.0, 1.0
     )
+    return points_c + x0 * PY * PZ, words_c, t
+
+
+def mc_mesh_from_points(points: torch.Tensor, words: torch.Tensor, t: torch.Tensor,
+                        grid: UniformGrid):
+    """Marching cubes, part (b): vertices and triangles from the active
+    points of the whole grid (``mc_point_words``, or the merge of every
+    slab's, in ascending global id).
+
+    Vertices are axis-major (all x-edge vertices in active-point order, then
+    y, then z) and triangles follow the active points, then the case-table
+    slots. A triangle corner's vertex belongs to a neighbour point, whose
+    rank comes from a binary search over ``points``. Returns vertices (V, 3)
+    and triangles (T, 3) int32 on the device: the lists of the reference
+    package's unencoded output."""
+    dev = points.device
+    dtype = t.dtype
+    _, PY, PZ = grid.n_points
+    cs = kernels.rounded(grid.cell_size, dtype)
+    total_c = points.shape[0]
+
+    # --- vertex stream: one vertex per active origin edge, axis-major -----
+    emask = torch.cat([(words >> b) & 1 for b in (8, 9, 10)]) == 1
+    vidx_pos = torch.cumsum(emask, 0) - 1  # vertex id of (axis, rank)
+    vslot = torch.nonzero(emask).squeeze(1)
+    vaxis = vslot // max(total_c, 1)
+    p0 = points[vslot - vaxis * total_c]
+    t = t.reshape(-1)[vslot]
     vijk = (p0 // (PY * PZ), (p0 // PZ) % PY, p0 % PZ)
     verts = []
     for d in range(3):
@@ -261,9 +320,7 @@ def mc_global_cells(ls: torch.Tensor, grid: UniformGrid, iso) -> Tuple[torch.Ten
 
     # --- triangle stream --------------------------------------------------
     count_t, tab_t = lut_tensors(dev)
-    rank_map = torch.zeros(n_pts, dtype=torch.int32, device=dev)
-    rank_map[points_c] = torch.arange(total_c, dtype=torch.int32, device=dev)
-    cases_c = words_c & 0xFF
+    cases_c = words & 0xFF
     counts = count_t[cases_c]
     total_t = int(counts.sum())
     slot_map = torch.repeat_interleave(
@@ -272,17 +329,23 @@ def mc_global_cells(ls: torch.Tensor, grid: UniformGrid, iso) -> Tuple[torch.Ten
     offsets = torch.cumsum(counts, 0) - counts
     slot_in_cell = torch.arange(total_t, device=dev) - offsets[slot_map]
     acase = cases_c[slot_map]
-    tpoint = points_c[slot_map]
+    tpoint = points[slot_map]
     eb = lut.EDGE_BASE_OFFSET.astype(np.int64)
     edge_delta = torch.as_tensor(eb[:, 0] * PY * PZ + eb[:, 1] * PZ + eb[:, 2], device=dev)
     edge_axis = torch.as_tensor(lut.EDGE_AXIS.astype(np.int64), device=dev)
     cols = []
     for corner in range(3):
         local = tab_t[acase, slot_in_cell, corner]
-        nrank = rank_map[tpoint + edge_delta[local]].long()
+        nrank = torch.searchsorted(points, tpoint + edge_delta[local])
         cols.append(vidx_pos[edge_axis[local] * total_c + nrank])
     triangles = torch.stack(cols, dim=1).to(torch.int32)
     return vertices, triangles
+
+
+def mc_global_cells(ls: torch.Tensor, grid: UniformGrid, iso) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cell-list marching cubes over the level set on the whole grid's
+    points: ``mc_point_words`` then ``mc_mesh_from_points``."""
+    return mc_mesh_from_points(*mc_point_words(ls, grid, iso), grid)
 
 
 class EmptyFieldError(RuntimeError):

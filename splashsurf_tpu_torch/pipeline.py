@@ -34,12 +34,9 @@ from splashsurf_tpu_torch.mesh import (
     vertex_normals,
 )
 from splashsurf_tpu_torch.params import Parameters
+from splashsurf_tpu_torch.placement import as_device_tensor
 from splashsurf_tpu_torch.profiling import profile
-from splashsurf_tpu_torch.reconstruction import (
-    SurfaceReconstruction,
-    as_device_tensor,
-    reconstruct_surface,
-)
+from splashsurf_tpu_torch.reconstruction import SurfaceReconstruction, reconstruct_surface
 from splashsurf_tpu_torch.sph_interpolation import SphInterpolator, smooth_step
 
 

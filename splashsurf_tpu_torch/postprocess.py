@@ -23,7 +23,7 @@ from splashsurf_tpu_torch.mesh import (
     vertex_vertex_connectivity_csr,
 )
 from splashsurf_tpu_torch.profiling import profile
-from splashsurf_tpu_torch.reconstruction import as_device_tensor
+from splashsurf_tpu_torch.placement import as_device_tensor
 from splashsurf_tpu_torch.uniform_grid import UniformGrid
 
 

@@ -135,6 +135,28 @@ def enable(on: bool = True):
     _PROFILER.enabled = on
 
 
+class StageClock:
+    """Seconds per stage of one run, the device synchronised at each stage
+    boundary (the routes read counts back to the host anyway, so the few
+    extra waits cost next to nothing). ``times`` maps each stage to its
+    seconds, summed over the laps of that name."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.times: Dict[str, float] = {}
+        self.t = self._now()
+
+    def _now(self) -> float:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+    def lap(self, name: str) -> None:
+        now = self._now()
+        self.times[name] = self.times.get(name, 0.0) + now - self.t
+        self.t = now
+
+
 def block_on_devices(tensors) -> None:
     """Wait for the work queued on every CUDA device that holds one of
     ``tensors`` (a tensor, or a list, tuple or dict of them); CPU tensors

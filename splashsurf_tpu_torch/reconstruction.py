@@ -4,11 +4,12 @@
 The entry points run on the card unless the caller asks for the CPU: a
 tensor input runs on its own device; any other input goes to ``device=``,
 by default CUDA, and where CUDA is absent that raises RuntimeError, never
-falling back to the CPU. The dense global route and the subdomain-grid
-route are ported, and the route is chosen as the reference package chooses
-it; inputs that it would send down the slab route raise
-NotImplementedError. ``reconstruct_sequence`` runs frames in order, each
-frame's mesh copy overlapping the next frame's first stages.
+falling back to the CPU. The dense global route, the x-slab route
+(grids past the dense gate) and the subdomain-grid route are ported, and
+the route is chosen as the reference package chooses it; every route fills
+``particle_neighbors`` when ``global_neighborhood_list`` asks for it.
+``reconstruct_sequence`` runs frames in order, each frame's mesh copy
+overlapping the next frame's first stages.
 """
 
 from __future__ import annotations
@@ -22,7 +23,9 @@ import torch
 
 from splashsurf_tpu_torch.aabb import Aabb3d
 from splashsurf_tpu_torch.mesh import TriMesh3d
+from splashsurf_tpu_torch.neighbors import NeighborhoodLists
 from splashsurf_tpu_torch.params import Parameters, SpatialDecomposition
+from splashsurf_tpu_torch.placement import as_device_tensor
 from splashsurf_tpu_torch.uniform_grid import UniformGrid, kernel_extents
 
 # The dense route's guard: the largest grid it materializes
@@ -41,17 +44,12 @@ def global_dense_max_cells() -> int:
     return _env_int("SPLASHSURF_TPU_GLOBAL_DENSE_MAX_CELLS", 160_000_000)
 
 
-def slab_cells_budget() -> int:
-    """Cells per slab of the slab route (``SPLASHSURF_TPU_SLAB_CELLS_BUDGET``,
-    default 48M; ops/slab_sweep.py:450-460 of the reference)."""
-    return _env_int("SPLASHSURF_TPU_SLAB_CELLS_BUDGET", 48_000_000)
-
-
 @dataclasses.dataclass
 class SurfaceReconstruction:
     """Result of a surface reconstruction (lib.rs:246-277): the grid, the
-    host mesh, the per-particle densities (a device tensor) and the AABB
-    filter mask, if one was applied.
+    host mesh, the per-particle densities (a device tensor), the particle
+    neighbour lists (with ``global_neighborhood_list``) and the AABB filter
+    mask, if one was applied.
 
     With a deferred mesh pull (``reconstruct_surface(..., _defer_pull=True)``,
     used by ``reconstruct_sequence``) ``mesh`` is None until ``resolve()``
@@ -62,6 +60,7 @@ class SurfaceReconstruction:
     mesh: Optional[TriMesh3d]
     subdomain_grid: Optional[UniformGrid] = None
     particle_densities: Optional[torch.Tensor] = None
+    particle_neighbors: Optional[NeighborhoodLists] = None
     particle_inside_aabb: Optional[np.ndarray] = None
     _pending_mesh: Optional[object] = dataclasses.field(default=None, repr=False, compare=False)
 
@@ -71,28 +70,6 @@ class SurfaceReconstruction:
             pull, self._pending_mesh = self._pending_mesh, None
             self.mesh = pull.resolve()
         return self
-
-
-def as_device_tensor(x, device=None, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """A tensor stays on its own device (``device``, if given, must agree);
-    anything else becomes a tensor on ``device``, by default CUDA, which
-    raises RuntimeError where CUDA is absent."""
-    if isinstance(x, torch.Tensor):
-        if device is not None:
-            want = torch.device(device)
-            if want.type != x.device.type or (
-                want.index is not None and want.index != x.device.index
-            ):
-                raise ValueError(f"tensor on {x.device} but device={want}")
-        return x if dtype is None else x.to(dtype)
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the entry points run on the card by default; "
-                'pass device="cpu" (or a CPU tensor) to run on the CPU'
-            )
-        device = torch.device("cuda")
-    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
 
 def grid_for_reconstruction(
@@ -134,19 +111,10 @@ def _bucket_grid(grid: UniformGrid) -> UniformGrid:
     return UniformGrid(min=grid.min, cell_size=grid.cell_size, n_cells=dims)
 
 
-def slab_width_cells(grid: UniformGrid, max_cells: int) -> int:
-    """The reference's slab width in cells (ops/slab_sweep.py:51): one
-    slab's cells stay within ``max_cells``; at least 8 cells, at most the
-    whole grid."""
-    _, ncy, ncz = grid.n_cells
-    return int(max(8, min(grid.n_cells[0], max_cells // max(1, ncy * ncz))))
-
-
 def choose_route(parameters: Parameters, grid: UniformGrid) -> str:
     """The route the reference package takes for this grid
-    (reconstruction.py:330-411): "dense" or "subdomain"; raises
-    NotImplementedError where it would take the slab route, and ValueError
-    where the dense route would materialize too large a grid.
+    (reconstruction.py:330-411): "dense", "slab" or "subdomain"; raises
+    ValueError where the dense route would materialize too large a grid.
 
     The switches are read at each call, with the reference's defaults:
     ``SPLASHSURF_TPU_GLOBAL_DENSE_MAX_CELLS`` (the dense gate),
@@ -154,15 +122,16 @@ def choose_route(parameters: Parameters, grid: UniformGrid) -> str:
     ``SPLASHSURF_TPU_SLAB_MAX_SLABS`` and ``SPLASHSURF_TPU_SLAB_CELLS_BUDGET``.
     The port runs on one device, so the reference's single-device condition
     for slabs always holds."""
+    from splashsurf_tpu_torch.ops.slab_sweep import slab_cells_budget, slab_width_cells
+
     route = "dense"
     if parameters.spatial_decomposition == SpatialDecomposition.UNIFORM_GRID:
         gd = parameters.grid_decomposition
         route = "subdomain"
         if gd.auto_disable:
-            gate = global_dense_max_cells()
             if max(grid.n_cells) <= 1.2 * gd.subdomain_num_cubes_per_dim:
                 route = "dense"  # hardly larger than one subdomain
-            elif grid.total_cells <= gate:
+            elif grid.total_cells <= global_dense_max_cells():
                 route = "dense"
             elif (
                 os.environ.get("SPLASHSURF_TPU_SLAB_DENSE", "1") == "1"
@@ -170,12 +139,7 @@ def choose_route(parameters: Parameters, grid: UniformGrid) -> str:
             ):
                 n_slabs = -(-grid.n_cells[0] // slab_width_cells(grid, slab_cells_budget()))
                 if n_slabs <= _env_int("SPLASHSURF_TPU_SLAB_MAX_SLABS", 64):
-                    raise NotImplementedError(
-                        f"grid {grid.n_cells} ({grid.total_cells} cells) is past the "
-                        f"dense gate of {gate} cells and fits {n_slabs} slabs: the "
-                        "reference takes the slab route there, which is not ported "
-                        "yet; see ROADMAP.md"
-                    )
+                    route = "slab"
     if route == "dense" and grid.total_cells > GLOBAL_DENSE_GUARD_CELLS:
         raise ValueError(
             f"global reconstruction would materialize a dense {grid.n_cells} "
@@ -196,10 +160,11 @@ def reconstruct_surface(
 
     ``_defer_pull`` (used by ``reconstruct_sequence``): on the dense route,
     start the mesh copy and return with ``mesh`` None; ``resolve()`` waits
-    for it. The subdomain route pulls its mesh in its stitch, so there it
-    changes nothing.
+    for it. The slab and subdomain routes pull their mesh before they
+    return, so there it changes nothing.
     """
     from splashsurf_tpu_torch.global_pipeline import reconstruct_surface_global
+    from splashsurf_tpu_torch.ops.slab_sweep import reconstruct_surface_slabbed
     from splashsurf_tpu_torch.subdomains import reconstruct_surface_subdomain_grid
 
     positions = as_device_tensor(
@@ -211,10 +176,6 @@ def reconstruct_surface(
         )
     if positions.shape[0] == 0:
         raise ValueError("cannot reconstruct a surface from zero particles")
-    if parameters.global_neighborhood_list:
-        raise NotImplementedError(
-            "global_neighborhood_list is not ported yet; see ROADMAP.md"
-        )
 
     inside_aabb = None
     if parameters.particle_aabb is not None:
@@ -231,8 +192,13 @@ def reconstruct_surface(
             parameters.particle_aabb,
         )
     )
-    if choose_route(parameters, grid) == "subdomain":
+    route = choose_route(parameters, grid)
+    if route == "subdomain":
         return reconstruct_surface_subdomain_grid(
+            positions, parameters, grid, particle_inside_aabb=inside_aabb
+        )
+    if route == "slab":
+        return reconstruct_surface_slabbed(
             positions, parameters, grid, particle_inside_aabb=inside_aabb
         )
     return reconstruct_surface_global(

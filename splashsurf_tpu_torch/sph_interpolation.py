@@ -35,7 +35,7 @@ from splashsurf_tpu_torch.neighbors import (
     bin_stats,
     build_cell_list,
 )
-from splashsurf_tpu_torch.reconstruction import as_device_tensor
+from splashsurf_tpu_torch.placement import as_device_tensor
 
 # Candidate slots (queries x bin capacity) of one offset step in one chunk.
 CHUNK_ELEMENTS = 1 << 23

@@ -31,7 +31,6 @@ result is independent of the chunk it lands in.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -41,10 +40,12 @@ from splashsurf_tpu_torch import kernels
 from splashsurf_tpu_torch.density import supported_point_offsets
 from splashsurf_tpu_torch.mc.dense import _local_edge_coeffs, edge_layout, lut_tensors
 from splashsurf_tpu_torch.mesh import TriMesh3d
-from splashsurf_tpu_torch.neighbors import compute_particle_densities
+from splashsurf_tpu_torch.neighbors import compute_particle_densities, particle_neighbor_lists
 from splashsurf_tpu_torch.ops.global_sweep import check_empty_field
 from splashsurf_tpu_torch.ops.splat_kernels import splat_sweep_cuda
 from splashsurf_tpu_torch.params import Parameters
+from splashsurf_tpu_torch.profiling import StageClock
+from splashsurf_tpu_torch.reconstruction import SurfaceReconstruction
 from splashsurf_tpu_torch.uniform_grid import UniformGrid, kernel_extents
 
 # Largest resident level-set store, (B + 1) * P^3 * itemsize bytes (the
@@ -501,27 +502,6 @@ def splat_plan(counts: np.ndarray, sd: SubdomainGridParams, itemsize: int, chunk
     return _chunks(np.argsort(counts, kind="stable"), per_sub + 64 * counts, chunk_bytes)
 
 
-class _StageClock:
-    """Seconds per stage, the device synchronised at each boundary (the
-    stages read counts back to the host anyway, so the few extra waits
-    cost next to nothing)."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.times = {}
-        self.t = self._now()
-
-    def _now(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter()
-
-    def lap(self, name: str):
-        now = self._now()
-        self.times[name] = self.times.get(name, 0.0) + now - self.t
-        self.t = now
-
-
 def reconstruct_surface_subdomain_grid(
     positions: torch.Tensor,
     parameters: Parameters,
@@ -534,8 +514,6 @@ def reconstruct_surface_subdomain_grid(
     single-device resident branch). The mesh comes back to the host; the
     per-particle densities stay a device tensor. ``chunk_bytes`` bounds each
     chunk's working set; the result does not depend on it."""
-    from splashsurf_tpu_torch.reconstruction import SurfaceReconstruction
-
     dev = positions.device
     dtype = positions.dtype
     itemsize = torch.finfo(dtype).bits // 8
@@ -545,7 +523,7 @@ def reconstruct_surface_subdomain_grid(
     iso = parameters.iso_surface_threshold
     P = sd.points_per_dim
     LAST_RUN.clear()
-    clock = _StageClock(dev)
+    clock = StageClock(dev)
 
     rho = compute_particle_densities(positions, h, parameters.particle_rest_mass)
     values = kernels.rounded(parameters.particle_rest_mass, dtype) / rho
@@ -563,7 +541,9 @@ def reconstruct_surface_subdomain_grid(
     def result(mesh):
         return SurfaceReconstruction(
             grid=sd.global_grid, subdomain_grid=sd.subdomain_grid, mesh=mesh,
-            particle_densities=rho, particle_inside_aabb=particle_inside_aabb,
+            particle_densities=rho,
+            particle_neighbors=particle_neighbor_lists(positions, parameters),
+            particle_inside_aabb=particle_inside_aabb,
         )
 
     if B == 0:

@@ -2,9 +2,9 @@
 reference on a small synthetic dam break: in f64 the vertex and triangle
 lists equal the reference's, in f32 the counts are equal and vertices lie
 within 1e-4; the mesh is closed. Plus the port's entry-point contract:
-arrays run on CUDA unless the caller asks for the CPU, the routes it does
-not have yet, and forced
-decomposition taking the subdomain route."""
+arrays run on CUDA unless the caller asks for the CPU, the slab route past
+the dense gate, the neighbour lists, and forced decomposition taking the
+subdomain route."""
 
 import numpy as np
 import pytest
@@ -16,6 +16,7 @@ from splashsurf_tpu import neighbors as jn
 from splashsurf_tpu.reconstruction import clear_grid_plan
 
 import splashsurf_tpu_torch as pt
+from splashsurf_tpu_torch.ops import slab_sweep as tslab
 
 RADIUS = 0.011
 
@@ -89,20 +90,38 @@ def test_tensor_input_runs_on_its_device(scene, monkeypatch):
         pt.reconstruct_surface(scene[:, :2], params, device="cpu")
 
 
-def test_grid_past_the_dense_gate_is_not_ported():
-    # two particles ~10 m apart at a 1.65 cm cube: ~600^3 = 216M cells in 5
-    # slabs, where the reference takes the slab route
+def test_grid_past_the_dense_gate_is_not_ported(monkeypatch):
+    """Past the dense gate, default parameters take the slab route (the
+    name predates the port of that route). Two particles ~10 m apart at a
+    1.65 cm cube: a bucketed 640^3 = 262M-cell grid in 6 slabs of 117
+    cells, where the reference takes the slab route too; a spy stands in
+    for the route, so the 262M-cell reconstruction does not run here."""
     pts = np.asarray([[0.0, 0.0, 0.0], [10.0, 10.0, 10.0]], np.float32)
     params = pt.Parameters.new_relative(RADIUS, 4.0, 1.5)
-    with pytest.raises(NotImplementedError, match="dense gate"):
-        pt.reconstruct_surface(pts, params, device="cpu")
+    entered = []
+    monkeypatch.setattr(
+        tslab, "reconstruct_surface_slabbed",
+        lambda positions, parameters, grid, **kw: entered.append(grid),
+    )
+    pt.reconstruct_surface(pts, params, device="cpu")
+    (grid,) = entered
+    assert grid.total_cells > 160_000_000
+    assert -(-grid.n_cells[0] // tslab.slab_width_cells(grid, tslab.slab_cells_budget())) == 6
 
 
 @pytest.mark.parametrize("kw", [dict(global_neighborhood_list=True)])
 def test_other_routes_are_not_ported(scene, kw):
+    """``global_neighborhood_list`` (once not ported) fills the particle
+    neighbour lists and leaves the mesh as it is."""
     params = pt.Parameters.new_relative(RADIUS, 4.0, 1.5, **kw)
-    with pytest.raises(NotImplementedError):
-        pt.reconstruct_surface(scene, params, device="cpu")
+    rec = pt.reconstruct_surface(scene, params, device="cpu")
+    plain = pt.reconstruct_surface(scene, pt.Parameters.new_relative(RADIUS, 4.0, 1.5), device="cpu")
+    assert plain.particle_neighbors is None
+    assert isinstance(rec.particle_neighbors, pt.NeighborhoodLists)
+    assert len(rec.particle_neighbors) == len(scene)
+    assert 10 < np.mean([len(a) for a in rec.particle_neighbors]) < 100
+    np.testing.assert_array_equal(rec.mesh.triangles, plain.mesh.triangles)
+    np.testing.assert_array_equal(rec.mesh.vertices, plain.mesh.vertices)
 
 
 def test_forced_decomposition_takes_the_subdomain_route(scene):

@@ -18,6 +18,7 @@ from splashsurf_tpu.reconstruction import _bucket_grid, grid_for_reconstruction
 
 import splashsurf_tpu_torch as pt
 from splashsurf_tpu_torch import neighbors as tn
+from splashsurf_tpu_torch import reconstruction as tr
 from splashsurf_tpu_torch import subdomains as ts
 
 
@@ -143,10 +144,11 @@ def test_routes():
     # a small domain auto-disables the decomposition: the dense route
     small = pt.reconstruct_surface(np.zeros((1, 3)), default, device="cpu")
     assert small.subdomain_grid is None
-    # 216M cells in 5 slabs: the reference's slab route, not ported
+    # 262M cells (bucketed) in 6 slabs: the slab route, as in the reference
+    # (its choice is asserted without running the reconstruction)
     two = np.asarray([[0.0, 0.0, 0.0], [10.0, 10.0, 10.0]])
-    with pytest.raises(NotImplementedError, match="slab route"):
-        pt.reconstruct_surface(two, default, device="cpu")
+    grid = pt.grid_for_reconstruction(torch.as_tensor(two), 0.011, 0.044, default.cube_size)
+    assert tr.choose_route(default, tr._bucket_grid(grid)) == "slab"
     # past 2^31 grid points the reference leaves slabs for the subdomain route
     far = np.asarray([[0.0, 0.0, 0.0], [30.0, 30.0, 30.0]])
     grid = pt.grid_for_reconstruction(torch.as_tensor(far), 0.011, 0.044, default.cube_size)

@@ -27,6 +27,7 @@ import splashsurf_tpu_torch as pt
 from splashsurf_tpu_torch import global_pipeline as tgp
 from splashsurf_tpu_torch import reconstruction as tr
 from splashsurf_tpu_torch import subdomains as tsub
+from splashsurf_tpu_torch.ops import slab_sweep as tslab
 
 SWITCHES = (
     "SPLASHSURF_TPU_GLOBAL_DENSE_MAX_CELLS",
@@ -57,11 +58,7 @@ def _port_route(grid, n_sub=64):
     params = pt.Parameters.new_relative(
         0.011, 4.0, 1.5, grid_decomposition=pt.GridDecompositionParameters(n_sub)
     )
-    try:
-        return tr.choose_route(params, grid)
-    except NotImplementedError as e:
-        assert "slab route" in str(e)
-        return "slab"
+    return tr.choose_route(params, grid)
 
 
 CUBE = pt.UniformGrid(min=(0.0, 0.0, 0.0), cell_size=0.0165, n_cells=(500, 500, 500))  # 125M
@@ -89,7 +86,7 @@ def test_choose_route_follows_the_switches(monkeypatch, env, grid, want):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     assert tr.global_dense_max_cells() == jr._global_dense_max_cells()
-    assert tr.slab_cells_budget() == jslab.gs_dense_gate()
+    assert tslab.slab_cells_budget() == jslab.gs_dense_gate()
     assert _port_route(grid) == want
 
 
@@ -141,10 +138,17 @@ def test_past_a_shrunk_gate_without_slabs_both_take_the_subdomain_route(dam, mon
     )
     assert rec.mesh.num_triangles == ref.mesh.num_triangles > 500
     assert _soup(rec.mesh, rec.grid.cell_size) == _soup(ref.mesh, rec.grid.cell_size)
-    # with slabs on (the default), the port names the slab route it lacks
+    # with slabs on (the default), the port takes the slab route: the same
+    # surface as the subdomain route's, as the reference's routing test holds
     monkeypatch.delenv("SPLASHSURF_TPU_SLAB_DENSE")
-    with pytest.raises(NotImplementedError, match="slab route"):
-        pt.reconstruct_surface(pts, pt.Parameters.from_reference(jp), device="cpu")
+    tslab.LAST_RUN.clear()
+    slab = pt.reconstruct_surface(pts, pt.Parameters.from_reference(jp), device="cpu")
+    assert slab.subdomain_grid is None and tslab.LAST_RUN["slabbed"]
+    assert (slab.mesh.num_vertices, slab.mesh.num_triangles) == (
+        rec.mesh.num_vertices, rec.mesh.num_triangles
+    )
+    vs, vd = slab.mesh.vertices, rec.mesh.vertices
+    np.testing.assert_allclose(vs[np.lexsort(vs.T)], vd[np.lexsort(vd.T)], rtol=0, atol=1e-9)
 
 
 def test_grid_bucket_off_gives_the_reference_grid(dam, monkeypatch):
@@ -182,9 +186,6 @@ def _route_entered(run):
         run()
     except _Entered as e:
         return e.args
-    except NotImplementedError as e:  # the port, where the reference takes slabs
-        assert "slab route" in str(e)
-        return "slab", None
     raise AssertionError("no route was entered")
 
 
@@ -207,9 +208,9 @@ def _route_entered(run):
 def test_both_packages_enter_the_same_route(dam, monkeypatch, env, want):
     """Each package's route entry points are replaced by spies: the route
     the JAX package's ``reconstruct_surface`` enters, and its grid, are the
-    port's (where the reference enters its slab route, the port raises
-    NotImplementedError naming it). The reference takes slabs on one device
-    only; the port has one, so the reference is shown one."""
+    port's. The reference takes slabs on one device only; the port has one,
+    so the reference is shown one (under the suite's 8 virtual devices it
+    would never enter its slab route)."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     devices = jax.devices
@@ -219,6 +220,7 @@ def test_both_packages_enter_the_same_route(dam, monkeypatch, env, want):
     _spy(monkeypatch, jslab, "reconstruct_surface_slabbed", "slab")
     _spy(monkeypatch, tgp, "reconstruct_surface_global", "dense")
     _spy(monkeypatch, tsub, "reconstruct_surface_subdomain_grid", "subdomain")
+    _spy(monkeypatch, tslab, "reconstruct_surface_slabbed", "slab")
     jp = st.Parameters.new_relative(0.011, 4.0, 1.5, grid_decomposition=JGrid(16)).try_convert(
         "float64"
     )
@@ -229,7 +231,6 @@ def test_both_packages_enter_the_same_route(dam, monkeypatch, env, want):
         lambda: pt.reconstruct_surface(pts, pt.Parameters.from_reference(jp), device="cpu")
     )
     assert route == want
-    if grid is not None:
-        assert grid.n_cells == tuple(ref_grid.n_cells)
-        np.testing.assert_array_equal(grid.min, np.asarray(ref_grid.min))
-        assert grid.cell_size == ref_grid.cell_size
+    assert grid.n_cells == tuple(ref_grid.n_cells)
+    np.testing.assert_array_equal(grid.min, np.asarray(ref_grid.min))
+    assert grid.cell_size == ref_grid.cell_size
