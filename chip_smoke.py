@@ -75,7 +75,20 @@ Phases (each prints progress; any failure raises and exits non-zero):
      break from a CPU input against a CUDA input through
      ``reconstruct_surface``, then the 2M dam break's search on the card
      (seconds apart from the host lists' build, peak device memory,
-     ``compute_neighborhood_stats``) against the same search on the CPU.
+     ``compute_neighborhood_stats``) against the same search on the CPU;
+ 15. the subdomain route's streamed mode (run after phase 13, while the
+     canyon is on the card): one resident frame of the 8M canyon with
+     decomposition forced, then one cold and two warm frames with
+     ``SPLASHSURF_TPU_STREAM=1``, with both modes' stage seconds and device
+     memory peaks per stage, the shell table's bytes, the chunks (K3
+     launches) and the raster overflow count; the streamed mesh closed, K3
+     launched once per chunk, and the mesh equal to phase 7's resident mesh
+     (bit for bit where no sum ran with atomics: the splat's overflow
+     scatter and the binned densities' overflow correction use them;
+     otherwise equal triangle lists and vertices within 1e-6); then the
+     auto gate on the 100K canyon of phase 8: with the switch unset it
+     stays resident under the default budget and streams under a budget
+     one byte below its level sets, with the same mesh.
 
 Each kernel's line carries its bound: the larger of the bytes it must move
 (rasters read once, output written once) over 3.35 TB/s and the float
@@ -556,10 +569,12 @@ def canyon_params(pt):
     )
 
 
-def k3_chunk(pt, pts, params, last_chunk=True):
+def k3_chunk(pt, pts, params, last_chunk=True, streamed=False):
     """The rasters of one splat chunk of ``pts`` as the subdomain route
-    builds them: the fullest chunk of the route's own plan, or with
-    ``last_chunk`` False every occupied subdomain in one chunk."""
+    builds them: the fullest chunk of the route's own plan (the last of the
+    resident plan, which sorts by occupancy; with ``streamed``, the streamed
+    plan's chunk of most pairs), or with ``last_chunk`` False every occupied
+    subdomain in one chunk."""
     from splashsurf_tpu_torch import neighbors as N
     from splashsurf_tpu_torch import subdomains as S
     from splashsurf_tpu_torch.reconstruction import _bucket_grid
@@ -571,8 +586,12 @@ def k3_chunk(pt, pts, params, last_chunk=True):
     values = params.particle_rest_mass / rho
     targets, pids, cells, ranks = S.decompose(pts, sd)
     _, starts, counts = S.occupied_segments(targets)
-    plan = S.splat_plan(counts, sd, pts.element_size(), S.CHUNK_BYTES)
-    rows_np = plan[-1] if last_chunk else np.arange(len(counts))
+    if streamed:
+        plan = S.stream_plan(counts, sd, pts.element_size(), S.CHUNK_BYTES)
+        rows_np = max(plan, key=lambda rows: int(counts[rows].sum()))
+    else:
+        plan = S.splat_plan(counts, sd, pts.element_size(), S.CHUNK_BYTES)
+        rows_np = plan[-1] if last_chunk else np.arange(len(counts))
     rows = torch.as_tensor(rows_np, device=pts.device)
     idx, row = S._gather_pairs(
         torch.as_tensor(starts, device=pts.device), torch.as_tensor(counts, device=pts.device),
@@ -1415,6 +1434,145 @@ def k1_windows(pt, pts):
         k1_window(pts, values, g, hsc, params.compact_support_radius, 8, x0, name)
 
 
+def subdomain_frames(pt, pts, params, n):
+    """``n`` frames of ``reconstruct_surface`` on the subdomain route:
+    (last result, seconds of each frame, a copy of ``subdomains.LAST_RUN``
+    after each frame, with "atomics": whether a sum of the frame ran with
+    atomics, the overflow scatter of the splat or the binned densities'
+    overflow correction past 8 particles in a bin)."""
+    from splashsurf_tpu_torch import neighbors as N
+    from splashsurf_tpu_torch import subdomains as S
+
+    secs, runs = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = pt.reconstruct_surface(pts, params)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        run = dict(S.LAST_RUN)
+        run["stage_s"] = dict(run["stage_s"])
+        run["peak_bytes"] = dict(run.get("peak_bytes", {}))
+        gate = N.LAST_GATE
+        run["atomics"] = run["raster_overflow"] > 0 or (
+            gate["kind"] == "binned8" and gate["max_occ"] > 8)
+        runs.append(run)
+        if rec.subdomain_grid is None:
+            raise AssertionError("the frame did not take the subdomain route")
+    return rec, secs, runs
+
+
+def stage_line(run):
+    return ", ".join(
+        f"{k} {v:.4f} s / {run['peak_bytes'].get(k, 0) / 1e9:.3f} GB"
+        for k, v in run["stage_s"].items()
+    )
+
+
+def check_streamed_mesh(name, mesh, resident, atomics):
+    """The streamed mesh is the resident one: bit for bit when no sum ran
+    with atomics (which reorder it from run to run), otherwise equal
+    triangle lists and vertices within 1e-6. Returns the largest vertex
+    difference."""
+    same_t = mesh.triangles.shape == resident.triangles.shape and bool(
+        (mesh.triangles == resident.triangles).all())
+    same_v = mesh.vertices.shape == resident.vertices.shape
+    vdiff = float(np.abs(mesh.vertices - resident.vertices).max()) if same_v else math.inf
+    if not (same_t and (vdiff <= 1e-6 if atomics else vdiff == 0.0)):
+        raise AssertionError(
+            f"{name}: streamed mesh differs from the resident one: triangle lists equal "
+            f"{same_t}, max vertex diff {vdiff} (atomics {atomics})")
+    return vdiff
+
+
+def phase_streaming(pt, canyon, resident_mesh, ident):
+    """Phase 15: the streamed mode of the subdomain route on the 8M canyon
+    against phase 7's resident mesh, and the auto gate on a 100K canyon."""
+    import bench
+    from splashsurf_tpu_torch import subdomains as S
+    from splashsurf_tpu_torch.ops import splat_kernels as sk
+
+    params = canyon_params(pt)
+    n = canyon.shape[0]
+    saved = {k: os.environ.get(k) for k in (S.STREAM_ENV, S.STREAM_BUDGET_ENV)}
+    os.environ.pop(S.STREAM_BUDGET_ENV, None)
+    S.STAGE_PEAKS = True
+    try:
+        log(f"phase 15: the streamed subdomain route, {n}-particle canyon, 64-cell subdomains")
+        os.environ[S.STREAM_ENV] = "0"
+        _, res_s, (res_run,) = subdomain_frames(pt, canyon, params, 1)
+        log(f"  resident frame {res_s[0]:.4f} s; stage seconds / peak device memory: "
+            + stage_line(res_run))
+        os.environ[S.STREAM_ENV] = "1"
+        reset_launches(sk)
+        rec, secs, runs = subdomain_frames(pt, canyon, params, 3)
+        launches = sk.splat_sweep_cuda.launches
+        check_mask_launches(sk, launches)
+        run = runs[-1]
+        chunks = [r["splat_chunks"] for r in runs]
+        if not all(r["streamed"] for r in runs):
+            raise AssertionError("SPLASHSURF_TPU_STREAM=1 did not stream")
+        if launches == 0 or launches != sum(chunks):
+            raise AssertionError(f"{launches} K3 launches for {chunks} streamed chunks")
+        mesh = rec.mesh
+        check_closed(pt, "streamed canyon", mesh)
+        over = run["raster_overflow"]
+        atomics = run["atomics"] or res_run["atomics"]
+        vdiff = check_streamed_mesh("the 8M canyon", mesh, resident_mesh, atomics)
+        # K3 against its plain version at the streamed plan's fullest chunk
+        rasters, sd, _, n_chunks = k3_chunk(pt, canyon, params, streamed=True)
+        h, m, P = params.compact_support_radius, sd.margin_cells, sd.points_per_dim
+        cs = sd.global_grid.cell_size
+        compare(f"K3 f32, fullest of {n_chunks} streamed chunks {tuple(rasters[0].shape)}",
+                sk.splat_sweep_cuda(*rasters, cs, h, m, m, P),
+                sk.splat_sweep_plain(*rasters, cs, h, m, m, P), K3_F32_TOL)
+        del rasters
+        peak = max(run["peak_bytes"].values(), default=0)
+        res_peak = max(res_run["peak_bytes"].values(), default=1)
+        log(f"  B {run['B']}, raster overflow {over} pairs; shell table {run['shell_bytes']} "
+            f"bytes in place of {run['ls_bytes']} resident; {run['splat_chunks']} chunks "
+            f"(K3 launches {launches} in 3 frames, each after its mask pre-pass)")
+        log(f"  mesh {mesh.num_vertices} vertices, {mesh.num_triangles} triangles, closed; "
+            f"equal to phase 7's resident mesh ({'within 1e-6' if atomics else 'bit for bit'}"
+            f": triangle lists equal, max vertex diff {vdiff:.3e})")
+        for i, r in enumerate(runs):
+            log(f"  streamed frame {i} ({'cold' if i == 0 else 'warm'}) {secs[i]:.4f} s; stage "
+                "seconds / peak device memory: " + stage_line(r))
+        warm = statistics.median(secs[1:])
+        log(f"  frame seconds: resident {res_s[0]:.4f}, streamed cold {secs[0]:.4f}, warm "
+            f"{[round(x, 4) for x in secs[1:]]}; warm median {warm:.4f} s = "
+            f"{n / warm / 1e6:.3f} Mparticles/s, {warm / res_s[0]:.3f}x the resident frame; "
+            f"peak device memory streamed {peak} bytes, resident {res_peak} bytes "
+            f"({peak / res_peak:.3f}x) ({ident})")
+
+        # the auto gate: default budget resident, a budget below the level sets streams
+        cross = torch.as_tensor(bench.make_canyon(N_CROSS, RADIUS, seed=3), device=canyon.device)
+        os.environ.pop(S.STREAM_ENV)
+        stay, _, (r0,) = subdomain_frames(pt, cross, params, 1)
+        os.environ[S.STREAM_BUDGET_ENV] = str(r0["ls_bytes"] - 1)
+        reset_launches(sk)
+        auto, _, (r1,) = subdomain_frames(pt, cross, params, 1)
+        if r0["streamed"] or not r1["streamed"]:
+            raise AssertionError(f"auto gate: streamed {r0['streamed']} under the default "
+                                 f"budget, {r1['streamed']} under {r0['ls_bytes'] - 1} bytes")
+        if sk.splat_sweep_cuda.launches != r1["splat_chunks"]:
+            raise AssertionError("the auto-gated streamed frame did not launch K3 per chunk")
+        atomics = r0["atomics"] or r1["atomics"]
+        vdiff = check_streamed_mesh("the 100K canyon", auto.mesh, stay.mesh, atomics)
+        log(f"  auto gate, {len(cross)}-particle canyon: {r0['ls_bytes']} bytes of level sets "
+            f"resident under the default budget, streamed under {r0['ls_bytes'] - 1} "
+            f"({r1['splat_chunks']} chunks, raster overflow {r1['raster_overflow']}, atomics "
+            f"{atomics}); the same mesh, {auto.mesh.num_triangles} triangles, max vertex diff "
+            f"{vdiff:.3e}")
+    finally:
+        S.STAGE_PEAKS = False
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def csr_sets(offsets, indices):
     """The CSR lists with each row's indices sorted: per-particle sets."""
     offsets, indices = np.asarray(offsets), np.asarray(indices)
@@ -1642,8 +1800,9 @@ def main() -> int:
     phase_cli(pt, pts_np, ident)
     phase_pipeline_cross(pt, dev)
 
-    # --- 13-14. the slab route and the neighbour lists -----------------------
+    # --- 13-15. the slab route, the streamed subdomain route, the lists -------
     phase_slab(pt, dev, canyon, canyon_mesh, pts_np, dense_mesh, ident)
+    phase_streaming(pt, canyon, canyon_mesh, ident)
     del canyon, canyon_mesh
     phase_neighbors(pt, dev, cross, pts_np, ident)
 

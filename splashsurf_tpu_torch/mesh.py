@@ -68,6 +68,10 @@ class TriMesh3d:
     def par_vertex_normals(self, device=None):
         return self.vertex_normals(device=device)
 
+    def vertex_normals_parallel(self, device=None):
+        """pysplashsurf.pyi:267 name parity for :meth:`vertex_normals`."""
+        return self.vertex_normals(device=device)
+
     def vertex_vertex_connectivity(self) -> "VertexVertexConnectivity":
         """Adjacent-vertex lists per vertex (mesh.rs:290).
 
@@ -168,6 +172,29 @@ class MixedTriQuadMesh3d:
         from splashsurf_tpu_torch import io as _io
 
         _io.write_mesh(str(path), self)
+
+
+@dataclasses.dataclass
+class HexMesh3d:
+    """Hexahedral cell mesh (mesh.rs:241), used for debug density output."""
+
+    vertices: np.ndarray
+    cells: np.ndarray  # (H, 8) int32
+
+    @property
+    def num_vertices(self) -> int:
+        return int(self.vertices.shape[0])
+
+
+@dataclasses.dataclass
+class PointCloud3d:
+    """Point cloud "mesh" (mesh.rs:250)."""
+
+    vertices: np.ndarray
+
+    @property
+    def num_vertices(self) -> int:
+        return int(self.vertices.shape[0])
 
 
 class VertexVertexConnectivity(list):
@@ -464,6 +491,40 @@ def vertex_cell_connectivity(triangles: np.ndarray, num_vertices: int):
     starts = np.searchsorted(v_sorted, np.arange(num_vertices))
     ends = np.searchsorted(v_sorted, np.arange(num_vertices) + 1)
     return [t_sorted[s:e] for s, e in zip(starts, ends)]
+
+
+def density_map_to_hex_mesh(levelset: np.ndarray, grid, threshold: float):
+    """Debug output, host numpy: one hexahedral cell per grid point above
+    ``threshold`` (density_map.rs:741-827, ``sparse_density_map_to_hex_mesh``).
+
+    Returns (vertices (V, 3) f32, hex cells (H, 8) int32, point values (H,)).
+    """
+    values = np.asarray(levelset)
+    pts = np.argwhere(values > threshold)
+    if len(pts) == 0:
+        return (
+            np.zeros((0, 3), np.float32),
+            np.zeros((0, 8), np.int32),
+            np.zeros((0,), values.dtype),
+        )
+    mn = np.asarray(grid.min)
+    cs = grid.cell_size
+    corner_offsets = np.array(
+        [
+            [0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0],
+            [0, 0, 1], [1, 0, 1], [1, 1, 1], [0, 1, 1],
+        ]
+    )
+    corners = pts[:, None, :] + corner_offsets[None, :, :] - 0.5
+    verts_all = (mn + corners * cs).reshape(-1, 3).astype(np.float32)
+    keyed = corners.reshape(-1, 3)
+    _, first, inverse = np.unique(
+        keyed.view([("", keyed.dtype)] * 3), return_index=True, return_inverse=True
+    )
+    vertices = verts_all[first]
+    cells = inverse.reshape(-1, 8).astype(np.int32)
+    vals = values[pts[:, 0], pts[:, 1], pts[:, 2]]
+    return vertices, cells, vals
 
 
 def edge_information(triangles: np.ndarray):

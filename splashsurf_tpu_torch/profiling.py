@@ -139,11 +139,18 @@ class StageClock:
     """Seconds per stage of one run, the device synchronised at each stage
     boundary (the routes read counts back to the host anyway, so the few
     extra waits cost next to nothing). ``times`` maps each stage to its
-    seconds, summed over the laps of that name."""
+    seconds, summed over the laps of that name. With ``track_peaks`` on a
+    CUDA device, ``peaks`` maps each stage to the most device memory
+    allocated during any of its laps (the allocator's peak statistics are
+    reset at every boundary); otherwise it is None."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, track_peaks: bool = False):
         self.device = device
         self.times: Dict[str, float] = {}
+        self.peaks: Optional[Dict[str, int]] = None
+        if track_peaks and device.type == "cuda":
+            self.peaks = {}
+            torch.cuda.reset_peak_memory_stats(device)
         self.t = self._now()
 
     def _now(self) -> float:
@@ -154,6 +161,10 @@ class StageClock:
     def lap(self, name: str) -> None:
         now = self._now()
         self.times[name] = self.times.get(name, 0.0) + now - self.t
+        if self.peaks is not None:
+            peak = torch.cuda.max_memory_allocated(self.device)
+            self.peaks[name] = max(self.peaks.get(name, 0), peak)
+            torch.cuda.reset_peak_memory_stats(self.device)
         self.t = now
 
 

@@ -1,5 +1,5 @@
-"""Subdomain-grid reconstruction (PyTorch port of the resident,
-single-device route of ``splashsurf_tpu.subdomains``; reference
+"""Subdomain-grid reconstruction (PyTorch port of the single-device route
+of ``splashsurf_tpu.subdomains``, resident and streamed; reference
 dense_subdomains.rs).
 
 The background grid is tiled into cubic subdomains of ``n_sub``^3 cells.
@@ -23,14 +23,36 @@ margin, get a level set: a (P, P, P) block of point values, P = n_sub + 1.
 
 Eager PyTorch reads counts back where it needs them, so the pair list and
 the overflow lists have their exact sizes: the reference's capacity retries,
-jit shape buckets and overflow caps have no counterpart here. Chunks follow
-ascending occupancy and are bounded by a byte budget; every subdomain's
-result is independent of the chunk it lands in.
+jit shape buckets and overflow caps have no counterpart here. Every
+subdomain's result is independent of the chunk it lands in.
+
+Two modes, chosen per call by the reference's switches (``use_stream``):
+
+  * resident: every level set is kept in one (B, P, P, P) store; the splat
+    runs in chunks of ascending occupancy, the halo and marching cubes over
+    the store;
+  * streamed: no store. Chunks of subdomains run in ascending id, each
+    splatted, its raw (pre-halo) boundary faces written into a (6, B, P*P)
+    shell table, its halo taken from that table (``halo_from_shells``) and
+    its marching cubes run before the next chunk. In ascending-id order
+    every donor of a point (a holder with a smaller id) has its faces in
+    the table before the receiver's halo reads them, same-chunk donors
+    included, since a chunk writes its faces before it reads: one pass
+    gives the final halo. The reference makes a second pass only to give
+    jit static marching-cubes capacities, and retries a chunk whose raster
+    overflow passes its cap; eager PyTorch with exact sizes needs neither.
+    The mesh is the resident mode's, bit for bit where the splat is
+    deterministic (on CUDA the overflow scatter's atomics are not): the
+    same raw values, the same smallest-id winner at each shared point,
+    triangles in ascending subdomain id and vertices in edge-key order in
+    both.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import os
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -48,15 +70,13 @@ from splashsurf_tpu_torch.profiling import StageClock
 from splashsurf_tpu_torch.reconstruction import SurfaceReconstruction
 from splashsurf_tpu_torch.uniform_grid import UniformGrid, kernel_extents
 
-# Largest resident level-set store, (B + 1) * P^3 * itemsize bytes (the
-# reference's own measure). Half of the 80 GB card: the other half holds
-# what lives beside it at the peak, which is the particle side (positions,
-# densities and the int64 pair arrays, about 0.3 KB per particle: 2.5 GB at
-# 8M particles), one chunk's working set (at most CHUNK_BYTES, or twice it
-# while a chunk's level sets are copied into the store) and the caching
-# allocator's slack. Past it the reference streams level sets chunk by
-# chunk, which is not ported yet (ROADMAP.md, queue 1).
-RESIDENT_LS_BYTES = 40 * 10**9
+# The reference's streaming switches, read at each call: "0" keeps every
+# level set resident at any size, "1" streams, anything else streams past
+# the budget of resident level-set bytes, (B + 1) * P^3 * itemsize (the
+# reference's own measure and default).
+STREAM_ENV = "SPLASHSURF_TPU_STREAM"
+STREAM_BUDGET_ENV = "SPLASHSURF_TPU_STREAM_BUDGET_BYTES"
+STREAM_BUDGET_BYTES = 3_000_000_000
 
 # Working-set budget of one splat, halo or marching-cubes chunk.
 CHUNK_BYTES = 1 << 30
@@ -69,9 +89,16 @@ _ABSENT = torch.iinfo(torch.int64).max  # no neighbour subdomain
 
 # Facts about the last run, read by tests and chip_smoke.py, never by the
 # pipeline (the reference keeps the same record): occupied subdomains "B",
-# resident level-set bytes "ls_bytes", pair and chunk counts, and
-# "stage_s", the seconds of each stage.
+# resident level-set bytes "ls_bytes", "streamed", the streamed mode's
+# "shell_bytes", pair, raster-overflow and chunk counts, "stage_s", the
+# seconds of each stage, and, where STAGE_PEAKS is set on a CUDA run,
+# "peak_bytes", each stage's peak of allocated device memory.
 LAST_RUN: dict = {}
+
+# Per-stage device memory peaks: the clock resets the allocator's peak
+# statistics at every stage boundary, which would hide a caller's own
+# reading of the frame's peak, so it is off unless a caller asks.
+STAGE_PEAKS = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -367,6 +394,73 @@ def halo_overwrite(ls, own_flat, nb_idx, nb_flat, chunk: Optional[int] = None):
     return ls
 
 
+def _face_index(o) -> Tuple[int, int]:
+    """(axis, donor face) of the receiver-to-donor direction ``o``: the
+    donor's mirrored region lies in its plane x_a = 0 when o[a] == +1 and
+    x_a = P - 1 when -1, a the first axis with o[a] != 0; faces are stored
+    [x0, xP, y0, yP, z0, zP]."""
+    a = next(ax for ax in range(3) if o[ax] != 0)
+    return a, 2 * a + (0 if o[a] == 1 else 1)
+
+
+def extract_faces(ls: torch.Tensor) -> torch.Tensor:
+    """(C, P, P, P) level sets -> (6, C, P * P) boundary faces [x0, xP, y0,
+    yP, z0, zP]."""
+    C, P = ls.shape[0], ls.shape[1]
+    faces = (ls[:, 0], ls[:, P - 1], ls[:, :, 0], ls[:, :, P - 1], ls[:, :, :, 0], ls[:, :, :, P - 1])
+    return torch.stack([f.reshape(C, P * P) for f in faces])
+
+
+@functools.lru_cache(maxsize=8)
+def _shell_table(P: int, device: torch.device):
+    """The (receiver point, donor) entries of the 26 directions: for entry
+    e, direction ``d[e]``, the boundary point ``u[e]`` (an index into
+    ``points``, the block's flat boundary point ids, ascending) and the
+    donor's face ``face[e]`` and flat index ``fidx[e]`` in it. A point in
+    the region of several directions (edges, corners) has one entry per
+    direction, each a different holder."""
+    d_l, r_l, f_l, i_l = [], [], [], []
+    for d, o in enumerate(_DIRS26):
+        rng = [np.arange(P)[_region(int(c), P)] for c in o]
+        g = np.stack(np.meshgrid(*rng, indexing="ij"), axis=-1).reshape(-1, 3)
+        a, face = _face_index(o)
+        uv = [np.where(o[ax] == 0, g[:, ax], 0 if o[ax] == 1 else P - 1) for ax in range(3) if ax != a]
+        d_l.append(np.full(len(g), d))
+        r_l.append((g[:, 0] * P + g[:, 1]) * P + g[:, 2])
+        f_l.append(np.full(len(g), face))
+        i_l.append(uv[0] * P + uv[1])
+    recv = np.concatenate(r_l)
+    points, u = np.unique(recv, return_inverse=True)
+    return tuple(
+        torch.as_tensor(x, dtype=torch.int64, device=device)
+        for x in (np.concatenate(d_l), u, points, np.concatenate(f_l), np.concatenate(i_l))
+    )
+
+
+def halo_from_shells(ls, own_flat, nb_idx, nb_flat, shells):
+    """``halo_overwrite`` for one chunk, in place on ``ls`` (C, P, P, P),
+    the candidates gathered from ``shells`` (6, B, P * P), the subdomains'
+    raw boundary faces; ``own_flat`` (C,) and ``nb_idx`` / ``nb_flat`` (26,
+    C) are the chunk's columns of the neighbour tables.
+
+    ``halo_overwrite`` leaves at every shared point the raw value of its
+    smallest-id holder; this pass takes that value from the table for all
+    26 directions at once: the smallest donor id per point (a min, so the
+    order of the reduction does not matter), and the one entry holding it
+    where it is below the receiver's own id. An absent neighbour gathers
+    row 0 in range and never wins (its id is ``_ABSENT``)."""
+    C, P = ls.shape[0], ls.shape[1]
+    d, u, points, face, fidx = _shell_table(P, ls.device)
+    cand_flat = nb_flat[d]  # (M, C)
+    best = own_flat[None].expand(points.shape[0], C).clone()
+    best.scatter_reduce_(0, u[:, None].expand(-1, C), cand_flat, "amin")
+    take = (cand_flat == best[u]) & (cand_flat < own_flat[None])
+    e, c = torch.nonzero(take, as_tuple=True)
+    flat = ls.view(C, P * P * P)
+    flat[c, points[u[e]]] = shells[face[e], nb_idx[d[e], c], fidx[e]]
+    return ls
+
+
 # ---------------------------------------------------------------------------
 # batched marching cubes and stitching
 # ---------------------------------------------------------------------------
@@ -493,13 +587,43 @@ def _chunks(order: np.ndarray, per_row: np.ndarray, budget: int) -> List[np.ndar
     return out
 
 
+# Working set of marching cubes per level-set point (``chunk_mc``'s masks,
+# case indices and cumulative sums).
+MC_POINT_BYTES = 48
+
+
+def _splat_bytes(sd: SubdomainGridParams, itemsize: int) -> int:
+    """A subdomain's splat working set: its 4 rasters and its level set."""
+    Rp = sd.n_sub + 2 * sd.margin_cells + 2
+    return (4 * SLOTS * Rp**3 + sd.points_per_dim**3) * itemsize
+
+
 def splat_plan(counts: np.ndarray, sd: SubdomainGridParams, itemsize: int, chunk_bytes: int):
     """The splat's chunks: occupied-subdomain rows in ascending occupancy,
     cut so that each chunk's rasters, level sets and pair arrays stay
     within ``chunk_bytes``."""
-    Rp = sd.n_sub + 2 * sd.margin_cells + 2
-    per_sub = (4 * SLOTS * Rp**3 + sd.points_per_dim**3) * itemsize  # 4 rasters, level set
-    return _chunks(np.argsort(counts, kind="stable"), per_sub + 64 * counts, chunk_bytes)
+    per_row = _splat_bytes(sd, itemsize) + 64 * counts
+    return _chunks(np.argsort(counts, kind="stable"), per_row, chunk_bytes)
+
+
+def use_stream(ls_bytes: int) -> bool:
+    """The reference's streaming gate, its switches read at each call:
+    ``SPLASHSURF_TPU_STREAM`` "0" never streams, "1" always, anything else
+    (default "auto") past ``SPLASHSURF_TPU_STREAM_BUDGET_BYTES`` of resident
+    level sets."""
+    env = os.environ.get(STREAM_ENV, "auto")
+    budget = int(os.environ.get(STREAM_BUDGET_ENV, STREAM_BUDGET_BYTES))
+    return env != "0" and (env == "1" or ls_bytes > budget)
+
+
+def stream_plan(counts: np.ndarray, sd: SubdomainGridParams, itemsize: int, chunk_bytes: int):
+    """The streamed mode's chunks: rows in ascending subdomain id (the halo
+    reads its donors' faces from the table, so they must come first), cut so
+    that each chunk's splat (as in ``splat_plan``) and marching-cubes working
+    set stay within ``chunk_bytes``."""
+    mc = MC_POINT_BYTES * sd.points_per_dim**3
+    per_row = _splat_bytes(sd, itemsize) + mc + 64 * counts
+    return _chunks(np.arange(len(counts)), per_row, chunk_bytes)
 
 
 def reconstruct_surface_subdomain_grid(
@@ -509,9 +633,9 @@ def reconstruct_surface_subdomain_grid(
     particle_inside_aabb: Optional[np.ndarray] = None,
     chunk_bytes: int = CHUNK_BYTES,
 ):
-    """Subdomain-grid reconstruction on the positions' device, one device,
-    every level set resident (reference subdomains.py:1885, its
-    single-device resident branch). The mesh comes back to the host; the
+    """Subdomain-grid reconstruction on the positions' device, one device
+    (reference subdomains.py:1885, its single-device branches), resident or
+    streamed as ``use_stream`` decides. The mesh comes back to the host; the
     per-particle densities stay a device tensor. ``chunk_bytes`` bounds each
     chunk's working set; the result does not depend on it."""
     dev = positions.device
@@ -523,7 +647,7 @@ def reconstruct_surface_subdomain_grid(
     iso = parameters.iso_surface_threshold
     P = sd.points_per_dim
     LAST_RUN.clear()
-    clock = StageClock(dev)
+    clock = StageClock(dev, track_peaks=STAGE_PEAKS)
 
     rho = compute_particle_densities(positions, h, parameters.particle_rest_mass)
     values = kernels.rounded(parameters.particle_rest_mass, dtype) / rho
@@ -534,8 +658,12 @@ def reconstruct_surface_subdomain_grid(
     del targets
     B = len(occ_ids)
     ls_bytes = (B + 1) * P**3 * itemsize
-    LAST_RUN.update(B=B, ls_bytes=ls_bytes, n_pairs=int(pids.shape[0]),
+    streamed = use_stream(ls_bytes)
+    LAST_RUN.update(B=B, ls_bytes=ls_bytes, streamed=streamed, n_pairs=int(pids.shape[0]),
+                    raster_overflow=int((ranks >= SLOTS).sum()),
                     n_subdomains=sd.num_subdomains, stage_s=clock.times)
+    if clock.peaks is not None:
+        LAST_RUN["peak_bytes"] = clock.peaks
     clock.lap("decomposition")
 
     def result(mesh):
@@ -546,14 +674,11 @@ def reconstruct_surface_subdomain_grid(
             particle_inside_aabb=particle_inside_aabb,
         )
 
+    def empty():
+        return TriMesh3d(np.zeros((0, 3), kernels.np_dtype(dtype)), np.zeros((0, 3), np.int32))
+
     if B == 0:
-        return result(TriMesh3d(np.zeros((0, 3), kernels.np_dtype(dtype)), np.zeros((0, 3), np.int32)))
-    if ls_bytes > RESIDENT_LS_BYTES:
-        raise NotImplementedError(
-            f"{B} occupied subdomains need {ls_bytes} bytes of resident level "
-            f"sets, past the {RESIDENT_LS_BYTES}-byte budget: the streaming "
-            "mode of the subdomain route is not ported yet (ROADMAP.md, queue 1)"
-        )
+        return result(empty())
 
     ns = sd.num_subdomains
     sub_ijk_np = np.stack(
@@ -562,45 +687,69 @@ def reconstruct_surface_subdomain_grid(
     sub_ijk = torch.as_tensor(sub_ijk_np, device=dev)
     starts_d = torch.as_tensor(starts, device=dev)
     counts_d = torch.as_tensor(counts, device=dev)
+    nb_idx, nb_flat = _neighbor_tables(occ_ids, sub_ijk_np, sd)
+    own_flat = torch.as_tensor(occ_ids, device=dev)
+    nb_idx = torch.as_tensor(nb_idx, device=dev)
+    nb_flat = torch.as_tensor(nb_flat, device=dev)
 
-    # level sets, chunk by chunk in ascending occupancy
-    ls_all = torch.empty((B, P, P, P), dtype=dtype, device=dev)
-    plan = splat_plan(counts, sd, itemsize, chunk_bytes)
-    for rows_np in plan:
+    def splat(rows_np):
         rows = torch.as_tensor(rows_np, device=dev)
         idx, row = _gather_pairs(starts_d, counts_d, rows, int(counts[rows_np].sum()))
-        ls_all[rows] = chunk_levelset_raster(
-            positions, values, pids[idx], row, cells[idx], ranks[idx],
-            sub_ijk[rows], sd, h, hsc,
+        return chunk_levelset_raster(
+            positions, values, pids[idx], row, cells[idx], ranks[idx], sub_ijk[rows], sd, h, hsc,
         )
-    del pids, cells, ranks
-    LAST_RUN["splat_chunks"] = len(plan)
-    clock.lap("splat")
 
-    nb_idx, nb_flat = _neighbor_tables(occ_ids, sub_ijk_np, sd)
-    halo_overwrite(
-        ls_all, torch.as_tensor(occ_ids, device=dev),
-        torch.as_tensor(nb_idx, device=dev), torch.as_tensor(nb_flat, device=dev),
-        chunk=max(1, chunk_bytes // (8 * P**3)),
-    )
-    clock.lap("halo")
-
-    # marching cubes in ascending subdomain id, so that the triangle order
-    # does not depend on the chunking either
-    mc_rows = max(1, chunk_bytes // (48 * P**3))
     verts, keys, tris = [], [], []
-    for b0 in range(0, B, mc_rows):
-        v, k, t = chunk_mc(ls_all[b0 : b0 + mc_rows], sub_ijk[b0 : b0 + mc_rows], sd, iso)
+
+    def mc(ls, b0, b1):
+        v, k, t = chunk_mc(ls, sub_ijk[b0:b1], sd, iso)
         verts.append(v)
         keys.append(k)
         tris.append(t)
-    clock.lap("marching cubes")
 
-    if sum(t.shape[0] for t in tris) == 0:
-        check_empty_field(0, float(ls_all.max()), float(iso))
-        mesh = TriMesh3d(np.zeros((0, 3), kernels.np_dtype(dtype)), np.zeros((0, 3), np.int32))
+    if streamed:
+        # chunks in ascending subdomain id: splat, raw faces into the shell
+        # table, halo from the table, marching cubes
+        shells = torch.empty((6, B, P * P), dtype=dtype, device=dev)
+        LAST_RUN["shell_bytes"] = shells.numel() * itemsize
+        plan = stream_plan(counts, sd, itemsize, chunk_bytes)
+        ls_max = torch.full((), -torch.inf, dtype=dtype, device=dev)
+        for rows_np in plan:
+            b0, b1 = int(rows_np[0]), int(rows_np[-1]) + 1
+            ls = splat(rows_np)
+            clock.lap("splat")
+            shells[:, b0:b1] = extract_faces(ls)
+            halo_from_shells(ls, own_flat[b0:b1], nb_idx[:, b0:b1], nb_flat[:, b0:b1], shells)
+            ls_max = torch.maximum(ls_max, ls.max())
+            clock.lap("halo")
+            mc(ls, b0, b1)
+            del ls
+            clock.lap("marching cubes")
+        del shells, pids, cells, ranks
     else:
+        # level sets, chunk by chunk in ascending occupancy
+        ls_all = torch.empty((B, P, P, P), dtype=dtype, device=dev)
+        plan = splat_plan(counts, sd, itemsize, chunk_bytes)
+        for rows_np in plan:
+            ls_all[torch.as_tensor(rows_np, device=dev)] = splat(rows_np)
+        del pids, cells, ranks
+        clock.lap("splat")
+        halo_overwrite(ls_all, own_flat, nb_idx, nb_flat, chunk=max(1, chunk_bytes // (8 * P**3)))
+        clock.lap("halo")
+        # marching cubes in ascending subdomain id, so that the triangle
+        # order does not depend on the chunking either
+        mc_rows = max(1, chunk_bytes // (MC_POINT_BYTES * P**3))
+        for b0 in range(0, B, mc_rows):
+            mc(ls_all[b0 : b0 + mc_rows], b0, min(b0 + mc_rows, B))
+        ls_max = ls_all.max() if all(t.shape[0] == 0 for t in tris) else None
         del ls_all
+        clock.lap("marching cubes")
+    LAST_RUN["splat_chunks"] = len(plan)
+
+    if all(t.shape[0] == 0 for t in tris):
+        check_empty_field(0, float(ls_max), float(iso))
+        mesh = empty()
+    else:
         v, t = stitch(verts, keys, tris)
         mesh = TriMesh3d(vertices=v.cpu().numpy(), triangles=t.cpu().numpy())
     clock.lap("stitch")

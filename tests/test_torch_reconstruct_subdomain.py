@@ -158,8 +158,3 @@ def test_routes():
     assert rec.mesh.num_triangles > 0 and _closed(rec.mesh)
     assert ts.LAST_RUN["B"] >= 2
 
-
-def test_resident_budget_points_to_streaming(dam, monkeypatch):
-    monkeypatch.setattr(ts, "RESIDENT_LS_BYTES", 1000)
-    with pytest.raises(NotImplementedError, match="streaming"):
-        pt.reconstruct_surface(dam, _forced(0.011), device="cpu")

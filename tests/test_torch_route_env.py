@@ -3,7 +3,9 @@ environment at each call, with the reference's defaults: the dense gate
 (``SPLASHSURF_TPU_GLOBAL_DENSE_MAX_CELLS``), the slab route's switch, slab
 count and slab budget (``SPLASHSURF_TPU_SLAB_DENSE``,
 ``SPLASHSURF_TPU_SLAB_MAX_SLABS``, ``SPLASHSURF_TPU_SLAB_CELLS_BUDGET``) and
-the grid bucketing (``SPLASHSURF_TPU_GRID_BUCKET``). The readers are held
+the grid bucketing (``SPLASHSURF_TPU_GRID_BUCKET``), and the subdomain
+route's streaming gate (``SPLASHSURF_TPU_STREAM``,
+``SPLASHSURF_TPU_STREAM_BUDGET_BYTES``). The readers are held
 against the JAX package's own; the routes taken are held, end to end,
 against the route its ``reconstruct_surface`` enters, and the meshes
 against its meshes."""
@@ -234,3 +236,58 @@ def test_both_packages_enter_the_same_route(dam, monkeypatch, env, want):
     assert grid.n_cells == tuple(ref_grid.n_cells)
     np.testing.assert_array_equal(grid.min, np.asarray(ref_grid.min))
     assert grid.cell_size == ref_grid.cell_size
+
+
+def _gate_reached(name, block_on=None):
+    """Stands in for the reference subdomain route's ``profile``: its first
+    scope after the streaming gate ends the run there."""
+    if name == "level set splat":
+        raise _Entered("subdomain", None)
+    return _profile(name, block_on=block_on)
+
+
+_profile = jsub.profile
+
+
+@pytest.mark.parametrize(
+    "stream, below, want",
+    [
+        ("0", None, False),
+        ("1", None, True),
+        (None, None, False),  # auto, the 3 GB default budget
+        (None, 0, False),  # auto, a budget equal to the level-set bytes
+        ("auto", 1, True),  # auto, a budget one byte below them
+        ("0", 1, False),
+    ],
+)
+def test_streaming_gate_follows_the_reference(dam, monkeypatch, stream, below, want):
+    """``SPLASHSURF_TPU_STREAM`` and ``SPLASHSURF_TPU_STREAM_BUDGET_BYTES``
+    take the port's subdomain route down the reference's branch: its
+    ``LAST_RUN["streamed"]`` and level-set bytes are the reference's (the
+    reference run stops right after its gate)."""
+    jp = st.Parameters.new_relative(
+        0.011, 4.0, 1.5, grid_decomposition=JGrid(16, auto_disable=False)
+    ).try_convert("float64")
+    params = pt.Parameters.from_reference(jp)
+    pts = dam.astype(np.float64)
+    grid = tr._bucket_grid(pt.grid_for_reconstruction(
+        torch.as_tensor(pts), jp.particle_radius, jp.compact_support_radius, jp.cube_size))
+    sd = tsub.initialize_parameters(params, grid)
+    B = len(tsub.occupied_segments(tsub.decompose(torch.as_tensor(pts), sd)[0])[0])
+    ls_bytes = (B + 1) * sd.points_per_dim**3 * 8
+    monkeypatch.delenv(tsub.STREAM_ENV, raising=False)
+    monkeypatch.delenv(tsub.STREAM_BUDGET_ENV, raising=False)
+    if stream is not None:
+        monkeypatch.setenv(tsub.STREAM_ENV, stream)
+    if below is not None:
+        monkeypatch.setenv(tsub.STREAM_BUDGET_ENV, str(ls_bytes - below))
+
+    monkeypatch.setattr(jsub, "profile", _gate_reached)
+    jn.clear_density_plan()
+    jgrid = st.UniformGrid(min=grid.min, cell_size=grid.cell_size, n_cells=grid.n_cells)
+    _route_entered(lambda: jsub.reconstruct_surface_subdomain_grid(pts, jp, jgrid, sharded=False))
+    rec = tsub.reconstruct_surface_subdomain_grid(torch.as_tensor(pts), params, grid)
+    assert jsub.LAST_RUN["streamed"] == tsub.LAST_RUN["streamed"] == want
+    assert jsub.LAST_RUN["ls_bytes"] == tsub.LAST_RUN["ls_bytes"] == ls_bytes
+    assert jsub.LAST_RUN["B"] == B > 1
+    assert rec.mesh.num_triangles > 500
