@@ -89,6 +89,22 @@ Phases (each prints progress; any failure raises and exits non-zero):
      auto gate on the 100K canyon of phase 8: with the switch unset it
      stays resident under the default budget and streams under a budget
      one byte below its level sets, with the same mesh.
+ 16. several shards in one process (run after phase 15, before phase 14):
+     four virtual shards on the card (``parallel.mesh.set_devices``), or
+     one shard per card where there are several; the default list is
+     restored after. (a) ``compute_particle_densities_sharded`` on the 2M
+     dam break (geoslot, slabs of the bin lattice) against the single-device
+     densities: bit for bit, K2 launched once per shard, both timed (median
+     of 5); (b) three canyon frames of phase 7's parameters, sharded: the
+     sharded decomposition, per-shard B, pairs, K3 launches and stage
+     seconds, stage peaks, the mesh closed and equal to phase 7's resident
+     mesh (bit for bit, or within 1e-6 with equal triangle lists where a sum
+     ran with atomics), the warm frame against phase 7's; (c)
+     ``reconstruct_surface`` on the canyon with default parameters: the
+     subdomain route, sharded, not the slab route, its mesh equal to (b)'s
+     and its counts within 1e-4 of phase 13's slab mesh; (d) the JAX
+     package's dry-run scene (a sheet and a dense clump, 8-cell subdomains)
+     on 8 virtual shards against one device: the same mesh.
 
 Each kernel's line carries its bound: the larger of the bytes it must move
 (rasters read once, output written once) over 3.35 TB/s and the float
@@ -658,7 +674,7 @@ def phase_k3(pt, dev, canyon, kernels):
 
 def phase_canyon(pt, canyon, kernels, ident):
     """Phase 7: the subdomain route at full size, the main path of K3.
-    Returns the mesh of its last frame."""
+    Returns the mesh of its last frame and its warm median seconds."""
     from splashsurf_tpu_torch import neighbors as N
     from splashsurf_tpu_torch import subdomains as S
     from splashsurf_tpu_torch.ops import splat_kernels as sk
@@ -704,7 +720,7 @@ def phase_canyon(pt, canyon, kernels, ident):
     log(f"  frame seconds {[round(x, 4) for x in frame_s]}; warm median {warm:.4f} s = "
         f"{n / warm / 1e6:.3f} Mparticles/s ({ident}); K3 launches {launches}, each "
         f"after its mask pre-pass")
-    return mesh
+    return mesh, warm
 
 
 def phase_cross_subdomain(pt, dev, dam):
@@ -1297,14 +1313,16 @@ def phase_slab(pt, dev, canyon, sub_mesh, pts_np, dense_mesh, ident):
     plain version on the canyon's fullest and last slab windows and on
     8-cell windows."""
     log("phase 13: the slab route")
-    slab_canyon(pt, canyon, sub_mesh, ident, expect=(8, 340))
+    counts = slab_canyon(pt, canyon, sub_mesh, ident, expect=(8, 340))
     pts = torch.as_tensor(pts_np, device=dev)
     slab_dam(pt, pts, dense_mesh, ident, expect=(7, 63))
     k1_windows(pt, pts)
+    return counts
 
 
 def slab_canyon(pt, canyon, sub_mesh, ident, expect):
-    """The canyon with default parameters: ``expect`` = (slabs, width)."""
+    """The canyon with default parameters: ``expect`` = (slabs, width).
+    Returns the mesh's (vertices, triangles)."""
     from splashsurf_tpu_torch import neighbors as N
     from splashsurf_tpu_torch.ops import splat_kernels as sk
     from splashsurf_tpu_torch.reconstruction import _bucket_grid, choose_route
@@ -1335,6 +1353,7 @@ def slab_canyon(pt, canyon, sub_mesh, ident, expect):
         f"differences {dv} vertices, {dt} triangles, {rel:.3e} relative")
     if rel > 1e-4:
         raise AssertionError(f"slab and subdomain canyon counts differ by {rel:.3e} relative")
+    counts = (mesh.num_vertices, mesh.num_triangles)
     del rec, mesh
     _, warm_s = timed_frames(pt, canyon, params, 3)
     warm = statistics.median(warm_s)
@@ -1353,6 +1372,7 @@ def slab_canyon(pt, canyon, sub_mesh, ident, expect):
                     (last, f"the canyon's ragged last slab ({grid.n_cells[0] - last * W} "
                            f"of {W} cells in the grid)")):
         k1_window(canyon, values, grid, hsc, params.compact_support_radius, W, s * W, name)
+    return counts
 
 
 def slab_dam(pt, pts, dense_mesh, ident, expect, cells=1_000_000):
@@ -1470,17 +1490,17 @@ def stage_line(run):
 
 
 def check_streamed_mesh(name, mesh, resident, atomics):
-    """The streamed mesh is the resident one: bit for bit when no sum ran
-    with atomics (which reorder it from run to run), otherwise equal
-    triangle lists and vertices within 1e-6. Returns the largest vertex
-    difference."""
+    """The mesh (streamed or sharded) is the resident one: bit for bit when
+    no sum ran with atomics (which reorder it from run to run), otherwise
+    equal triangle lists and vertices within 1e-6. Returns the largest
+    vertex difference."""
     same_t = mesh.triangles.shape == resident.triangles.shape and bool(
         (mesh.triangles == resident.triangles).all())
     same_v = mesh.vertices.shape == resident.vertices.shape
     vdiff = float(np.abs(mesh.vertices - resident.vertices).max()) if same_v else math.inf
     if not (same_t and (vdiff <= 1e-6 if atomics else vdiff == 0.0)):
         raise AssertionError(
-            f"{name}: streamed mesh differs from the resident one: triangle lists equal "
+            f"{name}: the mesh differs from the resident one: triangle lists equal "
             f"{same_t}, max vertex diff {vdiff} (atomics {atomics})")
     return vdiff
 
@@ -1571,6 +1591,209 @@ def phase_streaming(pt, canyon, resident_mesh, ident):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def dryrun_scene(pt):
+    """The multi-device validation scene of the JAX package's dry run
+    (``__graft_entry__.dryrun_scene``), rebuilt here with numpy: a jittered
+    sheet and a dense clump on one corner, 8-cell subdomains, over 64
+    occupied with uneven occupancy. Returns (points, parameters, grid)."""
+    import dataclasses
+
+    params = dataclasses.replace(
+        pt.Parameters.new_relative(0.025, 4.0, 1.0),
+        grid_decomposition=pt.GridDecompositionParameters(8, auto_disable=False),
+    )
+    r = params.particle_radius
+    rng = np.random.default_rng(0)
+
+    def block(nx, ny, nz, spacing, jitter):
+        g = np.mgrid[0:nx, 0:ny, 0:nz].reshape(3, -1).T.astype(np.float32)
+        pts = g * np.float32(spacing)
+        pts += rng.uniform(-jitter, jitter, pts.shape).astype(np.float32) * spacing
+        return pts
+
+    sheet = block(48, 4, 24, 2 * r, 0.2)
+    clump = block(12, 12, 12, 1.6 * r, 0.3) + np.float32([4 * r, 4 * 2 * r, 4 * r])
+    pts = np.concatenate([sheet, clump]).astype(np.float32)
+    grid = pt.grid_for_reconstruction(
+        torch.as_tensor(pts), params.particle_radius, params.compact_support_radius,
+        params.cube_size)
+    return pts, params, grid
+
+
+def median_s(fn, reps=5):
+    """Median host seconds of ``fn`` over ``reps`` calls after one warm-up,
+    the card synchronised around each."""
+    fn()
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return statistics.median(out)
+
+
+def phase_sharded(pt, dev, canyon, resident, slab_counts, pts_np, kernels, ident):
+    """Phase 16: several shards in one process: four virtual shards on the
+    card (or the real cards, where there are several): (a) the sharded
+    densities on the 2M dam break against the single-device ones, (b) the
+    sharded subdomain route on the 8M canyon against phase 7's resident
+    mesh, (c) the route default parameters take with several devices, (d)
+    the dry-run scene on 8 virtual shards against one device. Returns the
+    K2 and K3 launches of its main paths."""
+    from splashsurf_tpu_torch import neighbors as N
+    from splashsurf_tpu_torch import subdomains as S
+    from splashsurf_tpu_torch.ops import splat_kernels as sk
+    from splashsurf_tpu_torch.parallel import mesh as pm
+    from splashsurf_tpu_torch.parallel.density import compute_particle_densities_sharded
+
+    mesh_dev, resident_warm = resident
+    n_cards = torch.cuda.device_count()
+    devs = [f"cuda:{i}" for i in range(n_cards)] if n_cards > 1 else ["cuda:0"] * 4
+    D = len(devs)
+    log(f"phase 16: {D} shards in one process, "
+        + (f"one on each of {n_cards} cards" if n_cards > 1 else "virtual shards on one card")
+        + f" ({ident})")
+    launches = {"density_sweep": 0, "splat_sweep": 0}
+    pm.set_devices(devs)
+    S.STAGE_PEAKS = True
+    try:
+        # (a) K2 on each slab of the 2M dam break's geoslot lattice
+        params = pt.Parameters.new_relative(RADIUS, 4.0, 1.5)
+        h, mass = params.compact_support_radius, params.particle_rest_mass
+        pts = torch.as_tensor(pts_np, device=dev)
+        single = N.compute_particle_densities(pts, h, mass)
+        if N.LAST_GATE["kind"] != "geoslot":
+            raise AssertionError(f"the dam break took {N.LAST_GATE['kind']}, not geoslot")
+        mesh = pm.make_mesh()
+        reset_launches(sk)
+        rho = compute_particle_densities_sharded(pts, h, mass, mesh=mesh)
+        k2 = sk.density_sweep_cuda.launches
+        check_mask_launches(sk, 0)
+        gate = N.LAST_GATE["sharded"]
+        if gate["kind"] != "geoslot" or k2 != D:
+            raise AssertionError(f"sharded densities took {gate['kind']} with {k2} K2 launches")
+        if not torch.equal(rho, single):
+            raise AssertionError(f"sharded densities differ from one device's by "
+                                 f"{float((rho - single).abs().max())}")
+        launches["density_sweep"] += k2
+        t_sh = median_s(lambda: compute_particle_densities_sharded(pts, h, mass, mesh=mesh))
+        t_1 = median_s(lambda: N.compute_particle_densities(pts, h, mass))
+        log(f"  (a) sharded densities, {len(pts_np)}-particle dam break: geoslot lattice "
+            f"{gate['dims']}, slabs of {gate['slab_w']} x-planes, rows per shard "
+            f"{gate['rows']}; K2 launched {k2} times (once per shard); equal to one device's "
+            f"bit for bit; median of 5: sharded {t_sh * 1e3:.3f} ms, one device "
+            f"{t_1 * 1e3:.3f} ms ({ident})")
+        del pts, single, rho
+
+        # (b) the sharded subdomain route on the canyon, decomposition forced
+        n = canyon.shape[0]
+        reset_launches(sk)
+        rec, secs, runs = subdomain_frames(pt, canyon, canyon_params(pt), 3)
+        k3 = sk.splat_sweep_cuda.launches
+        check_mask_launches(sk, k3)
+        run = runs[-1]
+        if not all(r["sharded"] and r["sharded_pairs"] and not r["streamed"] for r in runs):
+            raise AssertionError("the canyon frames did not run sharded")
+        if k3 != sum(r["splat_chunks"] for r in runs) or any(
+                sh["B"] and not sh["splat_chunks"] for sh in run["shards"]):
+            raise AssertionError(f"{k3} K3 launches for the shards' chunks")
+        launches["splat_sweep"] += k3
+        check_closed(pt, "sharded canyon", rec.mesh)
+        atomics = any(r["atomics"] for r in runs)
+        vdiff = check_streamed_mesh("the sharded 8M canyon", rec.mesh, mesh_dev, atomics)
+        sharded_mesh = rec.mesh
+        del rec
+        log(f"  (b) reconstruct_surface, {n}-particle canyon, 64-cell subdomains: sharded "
+            f"pairs {run['sharded_pairs']}, devices {run['devices']}; densities: sharded "
+            f"wrapper {N.LAST_GATE['sharded']['kind']} ({N.LAST_GATE['sharded'].get('reason')}), "
+            f"formulation {N.LAST_GATE['kind']}; B {run['B']}, pairs {run['n_pairs']}, raster "
+            f"overflow {run['raster_overflow']}; shell table {run['shell_bytes']} bytes")
+        for i, sh in enumerate(run["shards"]):
+            log(f"    shard {i} ({sh['device']}): B {sh['B']}, pairs {sh['n_pairs']}, K3 "
+                f"launches {sh['splat_chunks']} per frame; seconds "
+                + ", ".join(f"{k} {v:.4f}" for k, v in sh["stage_s"].items()))
+        log(f"  mesh {sharded_mesh.num_vertices} vertices, {sharded_mesh.num_triangles} "
+            f"triangles, closed; equal to phase 7's resident mesh "
+            f"({'within 1e-6' if atomics else 'bit for bit'}: triangle lists equal, max vertex "
+            f"diff {vdiff:.3e})")
+        for i, r in enumerate(runs):
+            log(f"  frame {i} ({'cold' if i == 0 else 'warm'}) {secs[i]:.4f} s; stage seconds "
+                "/ peak device memory: " + stage_line(r))
+        warm = statistics.median(secs[1:])
+        peak = max(max(r["peak_bytes"].values(), default=0) for r in runs)
+        log(f"  frame seconds: cold {secs[0]:.4f}, warm {[round(x, 4) for x in secs[1:]]}; "
+            f"warm median {warm:.4f} s = {n / warm / 1e6:.3f} Mparticles/s, "
+            f"{warm / resident_warm:.3f}x phase 7's {resident_warm:.4f} s; K3 launches {k3} in "
+            f"3 frames; peak device memory {peak} bytes ({peak / 1e9:.3f} GB) ({ident})")
+
+        # (c) default parameters with several devices: no slabs, the sharded subdomains
+        from splashsurf_tpu_torch.reconstruction import _bucket_grid, choose_route
+
+        params = pt.Parameters.new_relative(RADIUS, 4.0, 1.5)
+        grid = _bucket_grid(pt.grid_for_reconstruction(
+            canyon, RADIUS, params.compact_support_radius, params.cube_size))
+        route = choose_route(params, grid, len(pm.devices("cuda")))
+        reset_launches(sk)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = pt.reconstruct_surface(canyon, params)
+        torch.cuda.synchronize()
+        t_c = time.perf_counter() - t0
+        k3c = sk.splat_sweep_cuda.launches
+        check_mask_launches(sk, k3c)
+        launches["splat_sweep"] += k3c
+        if route != "subdomain" or rec.subdomain_grid is None or not S.LAST_RUN["sharded"]:
+            raise AssertionError(f"default parameters took {route}, sharded "
+                                 f"{S.LAST_RUN.get('sharded')}")
+        atomics_c = atomics or S.LAST_RUN["raster_overflow"] > 0
+        vdiff_c = check_streamed_mesh("the default-parameter canyon", rec.mesh, sharded_mesh,
+                                      atomics_c)
+        dv = rec.mesh.num_vertices - slab_counts[0]
+        dt = rec.mesh.num_triangles - slab_counts[1]
+        rel = max(abs(dv) / slab_counts[0], abs(dt) / slab_counts[1])
+        if rel > 1e-4:
+            raise AssertionError(f"sharded and slab canyon counts differ by {rel:.3e} relative")
+        log(f"  (c) default parameters on {D} devices: route {route}, sharded, "
+            f"{S.LAST_RUN['n_subdomains']} subdomains, B {S.LAST_RUN['B']}; {t_c:.4f} s, K3 "
+            f"launches {k3c}; mesh equal to (b)'s "
+            f"({'within 1e-6' if atomics_c else 'bit for bit'}, max vertex diff "
+            f"{vdiff_c:.3e}); against phase 13's slab mesh {slab_counts}: differences {dv} "
+            f"vertices, {dt} triangles, {rel:.3e} relative")
+        del rec, sharded_mesh
+
+        # (d) the dry-run scene on 8 virtual shards against one device
+        pts_d, params_d, grid_d = dryrun_scene(pt)
+        pts_d = torch.as_tensor(pts_d, device=dev)
+        pm.set_devices(None)
+        one = S.reconstruct_surface_subdomain_grid(pts_d, params_d, grid_d, sharded=False)
+        over1 = S.LAST_RUN["raster_overflow"]
+        pm.set_devices(["cuda:0"] * 8)
+        reset_launches(sk)
+        eight = S.reconstruct_surface_subdomain_grid(pts_d, params_d, grid_d, sharded=True)
+        k3d = sk.splat_sweep_cuda.launches
+        check_mask_launches(sk, k3d)
+        launches["splat_sweep"] += k3d
+        run = S.LAST_RUN
+        if not run["sharded"] or run["B"] < 64 or k3d != run["splat_chunks"]:
+            raise AssertionError(f"dry-run scene: sharded {run['sharded']}, B {run['B']}, "
+                                 f"{k3d} K3 launches")
+        check_closed(pt, "dry-run scene", eight.mesh)
+        atomics_d = over1 > 0 or run["raster_overflow"] > 0 or (
+            N.LAST_GATE["kind"] == "binned8" and N.LAST_GATE["max_occ"] > 8)
+        vdiff_d = check_streamed_mesh("the dry-run scene", eight.mesh, one.mesh, atomics_d)
+        log(f"  (d) dry-run scene, {len(pts_d)} particles: 8 virtual shards (B per shard "
+            f"{[sh['B'] for sh in run['shards']]}, K3 launches {k3d}) against one device: "
+            f"{eight.mesh.num_vertices} vertices, {eight.mesh.num_triangles} triangles, "
+            f"{'within 1e-6' if atomics_d else 'bit for bit'} (raster overflow "
+            f"{run['raster_overflow']}, max vertex diff {vdiff_d:.3e})")
+    finally:
+        S.STAGE_PEAKS = False
+        pm.set_devices(None)
+    return launches
 
 
 def csr_sets(offsets, indices):
@@ -1788,7 +2011,7 @@ def main() -> int:
     # --- 6-8. the subdomain route -------------------------------------------
     canyon = torch.as_tensor(bench.make_canyon(N_CANYON, RADIUS), device=dev)
     phase_k3(pt, dev, canyon, kernels)
-    canyon_mesh = phase_canyon(pt, canyon, kernels, ident)
+    canyon_mesh, canyon_warm = phase_canyon(pt, canyon, kernels, ident)
     phase_cross_subdomain(pt, dev, cross)
 
     # --- 9-10. the cell-raster densities and the sequence --------------------
@@ -1801,8 +2024,16 @@ def main() -> int:
     phase_pipeline_cross(pt, dev)
 
     # --- 13-15. the slab route, the streamed subdomain route, the lists -------
-    phase_slab(pt, dev, canyon, canyon_mesh, pts_np, dense_mesh, ident)
+    slab_counts = phase_slab(pt, dev, canyon, canyon_mesh, pts_np, dense_mesh, ident)
     phase_streaming(pt, canyon, canyon_mesh, ident)
+
+    # --- 16. several shards in one process -----------------------------------
+    more = phase_sharded(pt, dev, canyon, (canyon_mesh, canyon_warm), slab_counts, pts_np,
+                         kernels, ident)
+    for name, n in more.items():
+        kernels[name]["launches"] += n
+    log(f"  launches of phases 4 and 7 with phase 16's added: "
+        + ", ".join(f"{k} {kernels[k]['launches']}" for k in more))
     del canyon, canyon_mesh
     phase_neighbors(pt, dev, cross, pts_np, ident)
 

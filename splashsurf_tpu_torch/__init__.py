@@ -9,7 +9,8 @@ through the post-processing recipe of the reference's CLI
 with file IO in ``io``). The dense global route (with the legacy or the
 cell-raster densities), the x-slab route past the dense gate and the
 subdomain-grid route of the reference package, resident or streamed, are
-ported, and so is its neighbour search
+ported, the subdomain route also sharded over several devices or virtual
+shards of one (``parallel``), and so is its neighbour search
 (``neighborhood_search_spatial_hashing_parallel``); their four TPU kernels
 are hand-written CUDA for Hopper (``csrc/``), each beside a plain PyTorch
 version that runs on the CPU. The top-level names are the reference's
@@ -70,11 +71,10 @@ from splashsurf_tpu_torch.reconstruction import (
 from splashsurf_tpu_torch.sph_interpolation import SphInterpolator
 from splashsurf_tpu_torch.uniform_grid import UniformGrid, kernel_extents
 
-# submodules loaded on first access, as the reference's; its ``parallel``
-# (multi-device) is not ported yet
+# submodules loaded on first access, as the reference's
 _SUBMODULES = (
     "io", "mesh", "profiling", "postprocess", "pipeline", "mc", "neighbors", "density",
-    "subdomains", "sph_interpolation", "sequence", "cli", "studio",
+    "subdomains", "sph_interpolation", "sequence", "parallel", "cli", "studio",
 )
 
 

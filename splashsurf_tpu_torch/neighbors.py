@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -154,10 +155,15 @@ def gather_candidates(query, grid: BinGrid, cell_list: CellList, capacity: int, 
 
     Returns (idx (M, 27*capacity) into the original order, mask (M,
     27*capacity)), stencil offset major and bin-sorted order minor."""
+    return stencil_candidates(grid.bin_ijk(query), grid, cell_list, capacity, tables)
+
+
+def stencil_candidates(q_ijk, grid: BinGrid, cell_list: CellList, capacity: int, tables):
+    """``gather_candidates`` for queries given by their (M, 3) bin indices."""
     starts_table, counts_table = tables
-    dev = query.device
+    dev = q_ijk.device
     dims = torch.tensor(grid.dims, device=dev)
-    nb = grid.bin_ijk(query)[:, None, :] + torch.as_tensor(_STENCIL, device=dev)[None]
+    nb = q_ijk[:, None, :] + torch.as_tensor(_STENCIL, device=dev)[None]
     valid = torch.all((nb >= 0) & (nb < dims), dim=-1)
     nb_flat = grid.flatten(torch.minimum(torch.clamp_min(nb, 0), dims - 1))
     starts = starts_table[nb_flat]
@@ -167,14 +173,17 @@ def gather_candidates(query, grid: BinGrid, cell_list: CellList, capacity: int, 
     gather_pos = torch.clamp(starts[:, :, None] + slot, 0, max(n - 1, 0))
     mask = slot < counts[:, :, None]
     idx = cell_list.order[gather_pos]
-    return idx.reshape(idx.shape[0], -1), mask.reshape(mask.shape[0], -1)
+    return idx.flatten(1), mask.flatten(1)
 
 
 def _overflow_correction(positions, grid, cell_list, K, capacity, h, rho):
     """Exact correction for particles of within-bin rank >= K, which the
     dense tables leave out: their own density is summed over full candidate
     gathers (self term included), and their contribution is added into the
-    table particles. Lists are compacted to their exact sizes.
+    table particles. Lists are compacted to their exact sizes. The queries'
+    stencils come from their sorted bin ids, never from their positions, so
+    the cell list may be that of one x-slab of a larger lattice (``grid``
+    then has the slab's dims).
 
     The index_add_ sums run with atomics on CUDA, so their order, and the
     last bits of the corrected densities, change from run to run."""
@@ -190,9 +199,10 @@ def _overflow_correction(positions, grid, cell_list, K, capacity, h, rho):
     opos = [cell_list.sorted_positions[d][osid] for d in range(3)]
     oidx = cell_list.order[osid]
 
-    idx, cmask = gather_candidates(
-        torch.stack(opos, dim=1), grid, cell_list, capacity, tables
-    )
+    ob = cell_list.sorted_bins[osid]
+    _, dy, dz = grid.dims
+    q_ijk = torch.stack([ob // (dy * dz), (ob // dz) % dy, ob % dz], dim=1)
+    idx, cmask = stencil_candidates(q_ijk, grid, cell_list, capacity, tables)
     d2o = torch.zeros(idx.shape, dtype=dtype, device=dev)
     for d in range(3):
         diff = positions[:, d][idx] - opos[d][:, None]
@@ -207,11 +217,11 @@ def _overflow_correction(positions, grid, cell_list, K, capacity, h, rho):
     return rho.index_add(0, oidx, rho_over)
 
 
-def _sweep_readback(rasters, slot, bx, by, bz, ok, grid, h):
-    """Bin sweep (kernel K2) and per-particle read-back of its sums."""
-    LX, _, _ = grid.dims
+def _sweep_readback(rasters, slot, bx, by, bz, ok, LX, bin_size, h):
+    """Bin sweep (kernel K2) over ``LX`` x-planes and per-particle read-back
+    of its sums."""
     Zp = rasters[0].shape[3]
-    acc = density_sweep_cuda(*rasters, LX, grid.bin_size, h)
+    acc = density_sweep_cuda(*rasters, LX, bin_size, h)
     width = acc.shape[2]
     src = torch.where(ok, (slot * LX + bx) * width + by * Zp + bz, 0)
     return torch.where(ok, acc.reshape(-1)[src], 0.0)
@@ -220,11 +230,15 @@ def _sweep_readback(rasters, slot, bx, by, bz, ok, grid, h):
 def compute_particle_densities_raster(
     positions, grid: BinGrid, cell_list: CellList, compact_support_radius,
     particle_rest_mass, slots: int = 8, overflow: bool = False,
-    candidate_capacity: int = 0,
+    candidate_capacity: int = 0, x0: int = 0,
 ):
     """SPH densities via the dense bin-raster sweep, slots from the
     within-bin rank of the bin-sorted order; with ``overflow`` the rank >=
-    ``slots`` particles go through the exact overflow correction."""
+    ``slots`` particles go through the exact overflow correction.
+
+    ``grid`` may be an x-slab of a larger lattice: its bin x = 0 is the
+    lattice's bin ``x0``, and the bin corners, hence the fractions, are the
+    lattice's (the sharded densities, ``parallel.density``)."""
     dtype = positions.dtype
     dev = positions.device
     n = positions.shape[0]
@@ -243,12 +257,12 @@ def compute_particle_densities_raster(
     dest = torch.where(ok, ((slot * Xp + bx + 1) * Yp + by + 1) * Zp + bz + 1, total)
     far = kernels.far_fill(dtype)
     rasters = []
-    for d, bc in enumerate((bx, by, bz)):
+    for d, bc in enumerate((bx + x0, by, bz)):
         corner = kernels.grid_coord(bc, grid.min[d], grid.bin_size, dtype)
         frac = cell_list.sorted_positions[d] - corner
         rasters.append(kernels.scatter_table(dest, frac, total, far, (slots, Xp, Yp, Zp)))
     rho_sorted = _sweep_readback(
-        rasters, slot, bx, by, bz, ok, grid, compact_support_radius
+        rasters, slot, bx, by, bz, ok, LX, grid.bin_size, compact_support_radius
     )
     rho = torch.empty_like(rho_sorted)
     rho[cell_list.order] = rho_sorted
@@ -300,7 +314,7 @@ def _phase_aligned_bingrid(aabb_min, aabb_max, bin_size: float, phases) -> BinGr
     )
 
 
-def geoslot_rasters(positions, grid: BinGrid):
+def geoslot_rasters(positions, grid: BinGrid, x_lo: int = 0, nx: Optional[int] = None):
     """The geoslot bin rasters: slot = half-bin octant of the particle.
 
     Returns ``(rasters, (slot, bx, by, bz), ok)``: three (8, LX+2, LY+2,
@@ -309,10 +323,14 @@ def geoslot_rasters(positions, grid: BinGrid):
     in its octant. The flag is computed from the slot counts alone: on a
     collision the frac scatters see duplicate indices and their values are
     unspecified, but the flag discards them.
+
+    With ``x_lo`` and ``nx`` the rasters hold the lattice's x-planes
+    [x_lo, x_lo + nx) only, and ``bx`` counts from x_lo: every particle
+    given must lie in them (the sharded densities' slabs).
     """
     dtype = positions.dtype
     LX, LY, LZ = grid.dims
-    Xp, Yp, Zp = LX + 2, LY + 2, LZ + 2
+    Xp, Yp, Zp = (LX if nx is None else nx) + 2, LY + 2, LZ + 2
     bs_np = kernels.np_dtype(dtype).type(grid.bin_size)
     bs, half = float(bs_np), float(bs_np * bs_np.dtype.type(0.5))
 
@@ -329,6 +347,7 @@ def geoslot_rasters(positions, grid: BinGrid):
         frac.append(f)
         octant.append((f >= half).to(torch.int64))
     bx, by, bz = bcoord
+    bx = bx - x_lo
     slot = (octant[0] << 2) | (octant[1] << 1) | octant[2]
 
     total = 8 * Xp * Yp * Zp
@@ -343,14 +362,18 @@ def geoslot_rasters(positions, grid: BinGrid):
 
 
 def compute_particle_densities_geoslot(
-    positions, grid: BinGrid, compact_support_radius, particle_rest_mass
+    positions, grid: BinGrid, compact_support_radius, particle_rest_mass,
+    x_lo: int = 0, nx: Optional[int] = None,
 ):
     """Sort-free SPH densities on a phase-aligned lattice (see
-    :func:`geoslot_rasters`). Returns ``(rho, ok)``; ``rho`` holds only
-    when the device bool ``ok`` is true."""
-    rasters, (slot, bx, by, bz), ok = geoslot_rasters(positions, grid)
+    :func:`geoslot_rasters`, also for ``x_lo`` and ``nx``). Returns ``(rho,
+    ok)``; ``rho`` holds only when the device bool ``ok`` is true."""
+    rasters, (slot, bx, by, bz), ok = geoslot_rasters(positions, grid, x_lo, nx)
     every = torch.ones_like(slot, dtype=torch.bool)
-    rho = _sweep_readback(rasters, slot, bx, by, bz, every, grid, compact_support_radius)
+    LX = grid.dims[0] if nx is None else nx
+    rho = _sweep_readback(
+        rasters, slot, bx, by, bz, every, LX, grid.bin_size, compact_support_radius
+    )
     return kernels.rounded(particle_rest_mass, positions.dtype) * rho, ok
 
 
@@ -493,25 +516,56 @@ def phase_shifted_bingrid(grid: BinGrid, compact_support_radius: float) -> BinGr
     )
 
 
-def density_gate(n: int, lattice: int, n_bins: int, max_occ: int, over8: int) -> dict:
+# The reference's geoslot switch, read at each call: "0" skips the geoslot
+# attempt (the sorted formulations run instead).
+GEOSLOT_ENV = "SPLASHSURF_TPU_DENSITY_GEOSLOT"
+
+
+def density_gate(
+    n: int, lattice: int, n_bins: int, max_occ: int, over8: int, which: str = "single"
+) -> dict:
     """Pick the density formulation from the binning statistics, as the
     reference package does: ``try_geoslot`` (still subject to the octant
-    check), ``use_raster`` (with the overflow correction capacity ``ccap``
-    when max_occ > 8); otherwise the sparse binned formulation."""
+    check; off when ``SPLASHSURF_TPU_DENSITY_GEOSLOT`` is not "1"),
+    ``use_raster`` (with the overflow correction capacity ``ccap`` when
+    max_occ > 8); otherwise the sparse binned formulation. The single-device
+    and the sharded wrappers share it, so that both take the same
+    formulation on the same scene; the decision and its statistics are
+    recorded as ``LAST_GATE[which]``."""
     dense_enough = lattice <= GATE_LATTICE_MAX and n_bins >= lattice // 4
     use_raster = dense_enough and (max_occ <= 8 or over8 <= density_over_budget(n))
-    return dict(
-        try_geoslot=dense_enough,
+    decision = dict(
+        try_geoslot=dense_enough and os.environ.get(GEOSLOT_ENV, "1") == "1",
         use_raster=use_raster,
         overflow=use_raster and max_occ > 8,
         ccap=_round_up(max_occ + 8) if use_raster and max_occ > 8 else 0,
     )
+    LAST_GATE[which] = dict(
+        decision, n=n, lattice=lattice, n_bins=n_bins, max_occ=max_occ, over8=over8
+    )
+    return decision
 
 
-# The formulation the last compute_particle_densities call took ("geoslot",
-# "raster", "binned8" or "binned") and the statistics it was chosen from.
-# Read by tests and chip_smoke.py; never by the pipeline.
+# The last density call: the formulation it took ("geoslot", "raster",
+# "binned8" or "binned"; "cellraster" for the dense route's cell-raster
+# frames) under "kind", and the statistics it was chosen from ("n",
+# "lattice", "n_bins", "max_occ", "over8"). "single" and "sharded" hold each
+# wrapper's last gate decision with its "kind" ("replicated" where the
+# sharded wrapper handed the call to the single-device one). Read by tests
+# and chip_smoke.py; never by the pipeline.
 LAST_GATE: dict = {}
+
+_GATE_STATS = ("n", "lattice", "n_bins", "max_occ", "over8")
+
+
+def note_formulation(which: str, kind: str) -> None:
+    """Record that the ``which`` wrapper took the formulation ``kind``; a
+    formulation that ran ("replicated" hands over and records nothing more)
+    also becomes the top-level record."""
+    LAST_GATE[which]["kind"] = kind
+    if kind != "replicated":
+        LAST_GATE["kind"] = kind
+        LAST_GATE.update({k: LAST_GATE[which][k] for k in _GATE_STATS})
 
 
 def compute_particle_densities(
@@ -535,10 +589,6 @@ def compute_particle_densities(
             max_occ, n_bins, over8 = stats2
 
     gate = density_gate(n, grid.lattice, n_bins, max_occ, over8)
-    LAST_GATE.clear()
-    LAST_GATE.update(
-        n=n, lattice=grid.lattice, n_bins=n_bins, max_occ=max_occ, over8=over8
-    )
     if gate["try_geoslot"]:
         phases = _octant_phase(positions, compact_support_radius / 2.0)
         agrid = _phase_aligned_bingrid(mn, mx, compact_support_radius, phases)
@@ -547,18 +597,18 @@ def compute_particle_densities(
                 positions, agrid, compact_support_radius, particle_rest_mass
             )
             if bool(ok):
-                LAST_GATE["kind"] = "geoslot"
+                note_formulation("single", "geoslot")
                 return rho
         # octant collisions: the sorted formulations below
     if gate["use_raster"]:
-        LAST_GATE["kind"] = "raster"
+        note_formulation("single", "raster")
         return compute_particle_densities_raster(
             positions, grid, cl, compact_support_radius, particle_rest_mass,
             slots=8, overflow=gate["overflow"],
             candidate_capacity=gate["ccap"],
         )
     plan = binned_plan(n, grid.lattice, n_bins, max_occ, over8)
-    LAST_GATE["kind"] = plan["kind"]
+    note_formulation("single", plan["kind"])
     return compute_particle_densities_binned(
         positions, grid, cl, compact_support_radius, particle_rest_mass,
         capacity=plan["capacity"], u_cap=plan["u_cap"],

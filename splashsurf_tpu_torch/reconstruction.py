@@ -5,8 +5,9 @@ The entry points run on the card unless the caller asks for the CPU: a
 tensor input runs on its own device; any other input goes to ``device=``,
 by default CUDA, and where CUDA is absent that raises RuntimeError, never
 falling back to the CPU. The dense global route, the x-slab route
-(grids past the dense gate) and the subdomain-grid route are ported, and
-the route is chosen as the reference package chooses it; every route fills
+(grids past the dense gate on one device) and the subdomain-grid route
+(sharded over the process's devices where there are several) are ported,
+and the route is chosen as the reference package chooses it; every route fills
 ``particle_neighbors`` when ``global_neighborhood_list`` asks for it.
 ``reconstruct_sequence`` runs frames in order, each frame's mesh copy
 overlapping the next frame's first stages.
@@ -111,7 +112,7 @@ def _bucket_grid(grid: UniformGrid) -> UniformGrid:
     return UniformGrid(min=grid.min, cell_size=grid.cell_size, n_cells=dims)
 
 
-def choose_route(parameters: Parameters, grid: UniformGrid) -> str:
+def choose_route(parameters: Parameters, grid: UniformGrid, n_devices: int = 1) -> str:
     """The route the reference package takes for this grid
     (reconstruction.py:330-411): "dense", "slab" or "subdomain"; raises
     ValueError where the dense route would materialize too large a grid.
@@ -120,8 +121,9 @@ def choose_route(parameters: Parameters, grid: UniformGrid) -> str:
     ``SPLASHSURF_TPU_GLOBAL_DENSE_MAX_CELLS`` (the dense gate),
     ``SPLASHSURF_TPU_SLAB_DENSE`` ("1": slabs past the gate),
     ``SPLASHSURF_TPU_SLAB_MAX_SLABS`` and ``SPLASHSURF_TPU_SLAB_CELLS_BUDGET``.
-    The port runs on one device, so the reference's single-device condition
-    for slabs always holds."""
+    As in the reference, slabs need a single device: with ``n_devices`` > 1
+    (the process's devices of the positions' type, ``parallel.mesh.devices``)
+    a grid past the dense gate takes the subdomain route, which shards."""
     from splashsurf_tpu_torch.ops.slab_sweep import slab_cells_budget, slab_width_cells
 
     route = "dense"
@@ -135,6 +137,7 @@ def choose_route(parameters: Parameters, grid: UniformGrid) -> str:
                 route = "dense"
             elif (
                 os.environ.get("SPLASHSURF_TPU_SLAB_DENSE", "1") == "1"
+                and n_devices == 1
                 and int(np.prod(np.asarray(grid.n_points, np.int64))) < 2**31
             ):
                 n_slabs = -(-grid.n_cells[0] // slab_width_cells(grid, slab_cells_budget()))
@@ -165,6 +168,7 @@ def reconstruct_surface(
     """
     from splashsurf_tpu_torch.global_pipeline import reconstruct_surface_global
     from splashsurf_tpu_torch.ops.slab_sweep import reconstruct_surface_slabbed
+    from splashsurf_tpu_torch.parallel.mesh import devices
     from splashsurf_tpu_torch.subdomains import reconstruct_surface_subdomain_grid
 
     positions = as_device_tensor(
@@ -192,7 +196,7 @@ def reconstruct_surface(
             parameters.particle_aabb,
         )
     )
-    route = choose_route(parameters, grid)
+    route = choose_route(parameters, grid, len(devices(positions.device.type)))
     if route == "subdomain":
         return reconstruct_surface_subdomain_grid(
             positions, parameters, grid, particle_inside_aabb=inside_aabb

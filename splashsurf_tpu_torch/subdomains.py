@@ -1,5 +1,5 @@
-"""Subdomain-grid reconstruction (PyTorch port of the single-device route
-of ``splashsurf_tpu.subdomains``, resident and streamed; reference
+"""Subdomain-grid reconstruction (PyTorch port of
+``splashsurf_tpu.subdomains``: resident, streamed and sharded; reference
 dense_subdomains.rs).
 
 The background grid is tiled into cubic subdomains of ``n_sub``^3 cells.
@@ -14,8 +14,11 @@ margin, get a level set: a (P, P, P) block of point values, P = n_sub + 1.
   3. per chunk of subdomains, ``chunk_levelset_raster``: two-slot rasters
      swept by kernel K3, plus a scatter splat of the particles that found
      both slots of their cell taken;
-  4. ``halo_overwrite``: every point shared by several subdomains takes the
-     value of the one with the smallest id;
+  4. the halo: every point shared by several subdomains takes the value of
+     the one with the smallest id, read by ``halo_from_shells`` from a
+     (6, B, P * P) table of the subdomains' raw boundary faces
+     (``halo_overwrite``, the reference's in-place pass, is what it is held
+     against);
   5. ``chunk_mc``: marching cubes per chunk of subdomains, each vertex keyed
      by its global edge;
   6. ``stitch``: one sort-unique over the global edge keys merges the
@@ -28,9 +31,10 @@ subdomain's result is independent of the chunk it lands in.
 
 Two modes, chosen per call by the reference's switches (``use_stream``):
 
-  * resident: every level set is kept in one (B, P, P, P) store; the splat
-    runs in chunks of ascending occupancy, the halo and marching cubes over
-    the store;
+  * resident: every level set is kept in a (B, P, P, P) store; the splat
+    runs in chunks of ascending occupancy, then the halo from the faces of
+    the whole store and marching cubes in ascending id. It is the sharded
+    route's per-device step (``parallel.mesh``) on one device;
   * streamed: no store. Chunks of subdomains run in ascending id, each
     splatted, its raw (pre-halo) boundary faces written into a (6, B, P*P)
     shell table, its halo taken from that table (``halo_from_shells``) and
@@ -46,6 +50,10 @@ Two modes, chosen per call by the reference's switches (``use_stream``):
     same raw values, the same smallest-id winner at each shared point,
     triangles in ascending subdomain id and vertices in edge-key order in
     both.
+
+On several devices (``shard_mesh``) the route is sharded: each device holds
+the resident store of its x-slab of subdomains, and the mesh is the
+one-device mesh (``reconstruct_surface_subdomain_grid``).
 """
 
 from __future__ import annotations
@@ -156,11 +164,19 @@ def decompose(positions: torch.Tensor, sd: SubdomainGridParams):
     Returns int64 (n_pairs,) tensors (targets, particle ids, raster cells,
     ranks), sorted by (target, raster cell, particle id): target is the flat
     subdomain id, raster cell the flat index in the (R, R, R) raster, R =
-    n_sub + 2 * margin, and rank the position within its raster cell. The
-    expansion table is laid out particle-major, so its compaction lists
-    particle ids in ascending order and one stable sort on the combined
-    (target, raster cell) key gives the three-key order.
+    n_sub + 2 * margin, and rank the position within its raster cell.
     """
+    pid, target, cell = expand_pairs(positions, sd)
+    return sort_pairs(target, cell, pid, sd)
+
+
+def expand_pairs(positions: torch.Tensor, sd: SubdomainGridParams,
+                 valid: Optional[torch.Tensor] = None):
+    """The unsorted pairs of ``decompose``: int64 (particle row, target,
+    raster cell) tensors, particle-major, so particle rows ascend. Rows
+    where ``valid`` is False make no pair. The sharded decomposition
+    (``parallel.decompose``) expands each shard's block of particles with
+    this same arithmetic."""
     dev = positions.device
     g = sd.global_grid
     n_sub, m = sd.n_sub, sd.margin_cells
@@ -189,20 +205,30 @@ def decompose(positions: torch.Tensor, sd: SubdomainGridParams):
         t = own[:, None] + o
         cond = torch.all(((o != -1) | lo) & ((o != 1) | hi), dim=-1)
     cond &= torch.all((t >= 0) & (t < num_sub), dim=-1)
+    if valid is not None:
+        cond &= valid[:, None]
 
     pid, e = torch.nonzero(cond, as_tuple=True)  # particle-major
     ts = t[pid, e]
     target = sd.subdomain_grid.flatten_cell_index(ts)
     rc = gc[pid] - ts * n_sub + m
-    cell = (rc[:, 0] * R + rc[:, 1]) * R + rc[:, 2]
+    return pid, target, (rc[:, 0] * R + rc[:, 1]) * R + rc[:, 2]
+
+
+def sort_pairs(target, cell, pid, sd: SubdomainGridParams):
+    """Sort pairs by (target, raster cell, particle id) and rank each in its
+    raster cell: (targets, particle ids, raster cells, ranks). The particle
+    ids must ascend on input (``expand_pairs`` order), so one stable sort on
+    the combined (target, raster cell) key gives the three-key order."""
+    R = sd.n_sub + 2 * sd.margin_cells
     key, order = torch.sort(target * (R * R * R) + cell, stable=True)
     target, cell, pid = target[order], cell[order], pid[order]
 
     n_pairs = key.shape[0]
-    is_start = torch.ones(n_pairs, dtype=torch.bool, device=dev)
+    is_start = torch.ones(n_pairs, dtype=torch.bool, device=key.device)
     is_start[1:] = key[1:] != key[:-1]
     run_first = torch.nonzero(is_start).squeeze(1)
-    rank = torch.arange(n_pairs, device=dev) - run_first[torch.cumsum(is_start, 0) - 1]
+    rank = torch.arange(n_pairs, device=key.device) - run_first[torch.cumsum(is_start, 0) - 1]
     return target, pid, cell, rank
 
 
@@ -327,6 +353,21 @@ def chunk_levelset_raster(
             compact_support_radius, hsc, out=ls,
         )
     return ls
+
+
+def splat_rows(positions, values, pids, cells, ranks, starts, counts, counts_np, sub_ijk,
+               rows_np, sd: SubdomainGridParams, compact_support_radius, hsc: int):
+    """Level sets (C, P, P, P) of the occupied subdomains ``rows_np`` (host
+    row numbers): their pair segments (``starts`` / ``counts`` on the
+    device, ``counts_np`` on the host) gathered from the sorted pair
+    arrays, and ``chunk_levelset_raster`` over them."""
+    dev = pids.device
+    rows = torch.as_tensor(rows_np, device=dev)
+    idx, row = _gather_pairs(starts, counts, rows, int(counts_np[rows_np].sum()))
+    return chunk_levelset_raster(
+        positions, values, pids[idx], row, cells[idx], ranks[idx], sub_ijk[rows], sd,
+        compact_support_radius, hsc,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -626,42 +667,109 @@ def stream_plan(counts: np.ndarray, sd: SubdomainGridParams, itemsize: int, chun
     return _chunks(np.arange(len(counts)), per_row, chunk_bytes)
 
 
+# The reference's sharding switches, read at each call: with more than one
+# device, ``sharded=None`` shards from SHARD_MIN_N particles on; "0" for
+# SHARD_DECOMP_ENV decomposes on one device and splits the pairs into the
+# shards' slabs (the same mesh).
+SHARD_MIN_N_ENV = "SPLASHSURF_TPU_SHARD_MIN_N"
+SHARD_MIN_N = 262144
+SHARD_DECOMP_ENV = "SPLASHSURF_TPU_SHARD_DECOMP"
+
+
+def shard_mesh(sharded: Optional[bool], n: int, device: torch.device):
+    """The mesh the route shards over, or None for one device: the
+    process's devices of the positions' type (``parallel.mesh.devices``)
+    when they are more than one and ``sharded`` is True, or None and ``n``
+    reaches ``SPLASHSURF_TPU_SHARD_MIN_N`` (default 262144)."""
+    from splashsurf_tpu_torch.parallel.mesh import make_mesh
+
+    if sharded is False:
+        return None
+    mesh = make_mesh(device=device)
+    if mesh.size <= 1:
+        return None
+    if sharded is None and n < int(os.environ.get(SHARD_MIN_N_ENV, SHARD_MIN_N)):
+        return None
+    return mesh
+
+
 def reconstruct_surface_subdomain_grid(
     positions: torch.Tensor,
     parameters: Parameters,
     grid: UniformGrid,
     particle_inside_aabb: Optional[np.ndarray] = None,
     chunk_bytes: int = CHUNK_BYTES,
+    sharded: Optional[bool] = None,
+    n_valid: Optional[int] = None,
 ):
-    """Subdomain-grid reconstruction on the positions' device, one device
-    (reference subdomains.py:1885, its single-device branches), resident or
-    streamed as ``use_stream`` decides. The mesh comes back to the host; the
-    per-particle densities stay a device tensor. ``chunk_bytes`` bounds each
-    chunk's working set; the result does not depend on it."""
+    """Subdomain-grid reconstruction on the positions' device (reference
+    subdomains.py:1885). The mesh comes back to the host; the per-particle
+    densities stay a device tensor. ``chunk_bytes`` bounds each chunk's
+    working set; the result does not depend on it. Rows past ``n_valid``
+    are count-padding dummies: they make no pair and get density 0.
+
+    On one device the route is resident or streamed, as ``use_stream``
+    decides. Where ``shard_mesh`` gives a mesh of several devices (real
+    cards, or virtual shards of one), it runs sharded and never streams:
+    the sharded densities (``parallel.density``), the sharded decomposition
+    (``parallel.decompose``; with ``SPLASHSURF_TPU_SHARD_DECOMP=0`` the
+    single-device one, its rows split into the same slabs), then per shard,
+    on its device, the splat of its x-slab of subdomains with kernel K3 into
+    a resident store, the halo across shards and marching cubes in ascending
+    id (``parallel.mesh.sharded_levelset_step``), and one stitch on the
+    mesh's first device. The shards' patches, concatenated in device order,
+    are in the single-device order, so the mesh is the single-device mesh."""
+    from splashsurf_tpu_torch.parallel.decompose import decompose_sharded, split_decomposition
+    from splashsurf_tpu_torch.parallel.density import compute_particle_densities_sharded
+    from splashsurf_tpu_torch.parallel.mesh import DeviceMesh, _levelset_mc_step
+
     dev = positions.device
     dtype = positions.dtype
     itemsize = torch.finfo(dtype).bits // 8
+    n = positions.shape[0]
+    nv = n if n_valid is None else min(int(n_valid), n)
     sd = initialize_parameters(parameters, grid)
     h = parameters.compact_support_radius
     hsc = sd.margin_cells
     iso = parameters.iso_surface_threshold
     P = sd.points_per_dim
+    mesh = shard_mesh(sharded, n, dev)
     LAST_RUN.clear()
     clock = StageClock(dev, track_peaks=STAGE_PEAKS)
 
-    rho = compute_particle_densities(positions, h, parameters.particle_rest_mass)
+    if mesh is None:
+        rho = compute_particle_densities(positions[:nv], h, parameters.particle_rest_mass)
+        rho = torch.cat([rho, rho.new_zeros(n - nv)]) if nv < n else rho
+    else:
+        rho = compute_particle_densities_sharded(
+            positions, h, parameters.particle_rest_mass, mesh=mesh, n_valid=nv
+        )
     values = kernels.rounded(parameters.particle_rest_mass, dtype) / rho
     clock.lap("densities")
 
-    targets, pids, cells, ranks = decompose(positions, sd)
-    occ_ids, starts, counts = occupied_segments(targets)
-    del targets
+    sharded_pairs = mesh is not None and os.environ.get(SHARD_DECOMP_ENV, "1") == "1"
+    if sharded_pairs:
+        shards = decompose_sharded(positions, sd, mesh, n_valid=nv)["shards"]
+    else:
+        targets, pids, cells, ranks = decompose(positions[:nv], sd)
+        occ_ids, starts, counts = occupied_segments(targets)
+        shards = [dict(pids=pids, cells=cells, ranks=ranks, occ_ids=occ_ids, starts=starts,
+                       counts=counts)]
+        del targets, pids, cells, ranks
+        if mesh is not None:
+            shards = split_decomposition(shards[0], sd, mesh)
+    occ_ids = np.concatenate([s["occ_ids"] for s in shards])
     B = len(occ_ids)
     ls_bytes = (B + 1) * P**3 * itemsize
-    streamed = use_stream(ls_bytes)
-    LAST_RUN.update(B=B, ls_bytes=ls_bytes, streamed=streamed, n_pairs=int(pids.shape[0]),
-                    raster_overflow=int((ranks >= SLOTS).sum()),
-                    n_subdomains=sd.num_subdomains, stage_s=clock.times)
+    streamed = mesh is None and use_stream(ls_bytes)
+    LAST_RUN.update(
+        B=B, ls_bytes=ls_bytes, streamed=streamed,
+        n_pairs=sum(int(s["pids"].shape[0]) for s in shards),
+        raster_overflow=sum(int((s["ranks"] >= SLOTS).sum()) for s in shards),
+        n_subdomains=sd.num_subdomains, stage_s=clock.times,
+        sharded=mesh is not None, sharded_pairs=sharded_pairs,
+        devices=[str(d) for d in (mesh.devices if mesh is not None else (dev,))],
+    )
     if clock.peaks is not None:
         LAST_RUN["peak_bytes"] = clock.peaks
     clock.lap("decomposition")
@@ -680,72 +788,74 @@ def reconstruct_surface_subdomain_grid(
     if B == 0:
         return result(empty())
 
+    if not streamed:
+        # resident, on one device or sharded: each device's store of level
+        # sets, the halo across them, marching cubes in ascending id
+        dmesh = mesh if mesh is not None else DeviceMesh((dev,))
+        out = _levelset_mc_step(dmesh, positions, values, shards, sd, h, iso, chunk_bytes, clock)
+        del shards
+        if mesh is not None:
+            LAST_RUN["shards"] = [
+                dict(device=str(d), B=o["B"], n_pairs=o["n_pairs"],
+                     splat_chunks=o["splat_chunks"], stage_s=o["stage_s"])
+                for d, o in zip(mesh.devices, out)
+            ]
+            LAST_RUN["shell_bytes"] = 6 * B * P * P * itemsize
+        LAST_RUN["splat_chunks"] = sum(o["splat_chunks"] for o in out)
+        # stitched on the mesh's first device, the patches in device order
+        dev = dmesh.devices[0]
+        verts, keys, tris = ([x.to(dev) for o in out for x in o[k]]
+                             for k in ("vertices", "keys", "triangles"))
+        ls_max = max(o.get("ls_max", -np.inf) for o in out)
+        del out
+        return result(_stitched(verts, keys, tris, ls_max, iso, empty, clock))
+
+    # streamed, one device: chunks in ascending subdomain id, each splatted,
+    # its raw faces written into the shell table, its halo taken from the
+    # table, its marching cubes run
+    (s,) = shards
+    del shards
+    counts = s["counts"]
     ns = sd.num_subdomains
     sub_ijk_np = np.stack(
         [occ_ids // (ns[1] * ns[2]), (occ_ids // ns[2]) % ns[1], occ_ids % ns[2]], axis=1
     )
     sub_ijk = torch.as_tensor(sub_ijk_np, device=dev)
-    starts_d = torch.as_tensor(starts, device=dev)
+    starts_d = torch.as_tensor(s["starts"], device=dev)
     counts_d = torch.as_tensor(counts, device=dev)
     nb_idx, nb_flat = _neighbor_tables(occ_ids, sub_ijk_np, sd)
     own_flat = torch.as_tensor(occ_ids, device=dev)
     nb_idx = torch.as_tensor(nb_idx, device=dev)
     nb_flat = torch.as_tensor(nb_flat, device=dev)
-
-    def splat(rows_np):
-        rows = torch.as_tensor(rows_np, device=dev)
-        idx, row = _gather_pairs(starts_d, counts_d, rows, int(counts[rows_np].sum()))
-        return chunk_levelset_raster(
-            positions, values, pids[idx], row, cells[idx], ranks[idx], sub_ijk[rows], sd, h, hsc,
-        )
-
+    shells = torch.empty((6, B, P * P), dtype=dtype, device=dev)
+    LAST_RUN["shell_bytes"] = shells.numel() * itemsize
+    plan = stream_plan(counts, sd, itemsize, chunk_bytes)
+    ls_max = torch.full((), -torch.inf, dtype=dtype, device=dev)
     verts, keys, tris = [], [], []
-
-    def mc(ls, b0, b1):
+    for rows_np in plan:
+        b0, b1 = int(rows_np[0]), int(rows_np[-1]) + 1
+        ls = splat_rows(positions, values, s["pids"], s["cells"], s["ranks"], starts_d, counts_d,
+                        counts, sub_ijk, rows_np, sd, h, hsc)
+        clock.lap("splat")
+        shells[:, b0:b1] = extract_faces(ls)
+        halo_from_shells(ls, own_flat[b0:b1], nb_idx[:, b0:b1], nb_flat[:, b0:b1], shells)
+        ls_max = torch.maximum(ls_max, ls.max())
+        clock.lap("halo")
         v, k, t = chunk_mc(ls, sub_ijk[b0:b1], sd, iso)
         verts.append(v)
         keys.append(k)
         tris.append(t)
-
-    if streamed:
-        # chunks in ascending subdomain id: splat, raw faces into the shell
-        # table, halo from the table, marching cubes
-        shells = torch.empty((6, B, P * P), dtype=dtype, device=dev)
-        LAST_RUN["shell_bytes"] = shells.numel() * itemsize
-        plan = stream_plan(counts, sd, itemsize, chunk_bytes)
-        ls_max = torch.full((), -torch.inf, dtype=dtype, device=dev)
-        for rows_np in plan:
-            b0, b1 = int(rows_np[0]), int(rows_np[-1]) + 1
-            ls = splat(rows_np)
-            clock.lap("splat")
-            shells[:, b0:b1] = extract_faces(ls)
-            halo_from_shells(ls, own_flat[b0:b1], nb_idx[:, b0:b1], nb_flat[:, b0:b1], shells)
-            ls_max = torch.maximum(ls_max, ls.max())
-            clock.lap("halo")
-            mc(ls, b0, b1)
-            del ls
-            clock.lap("marching cubes")
-        del shells, pids, cells, ranks
-    else:
-        # level sets, chunk by chunk in ascending occupancy
-        ls_all = torch.empty((B, P, P, P), dtype=dtype, device=dev)
-        plan = splat_plan(counts, sd, itemsize, chunk_bytes)
-        for rows_np in plan:
-            ls_all[torch.as_tensor(rows_np, device=dev)] = splat(rows_np)
-        del pids, cells, ranks
-        clock.lap("splat")
-        halo_overwrite(ls_all, own_flat, nb_idx, nb_flat, chunk=max(1, chunk_bytes // (8 * P**3)))
-        clock.lap("halo")
-        # marching cubes in ascending subdomain id, so that the triangle
-        # order does not depend on the chunking either
-        mc_rows = max(1, chunk_bytes // (MC_POINT_BYTES * P**3))
-        for b0 in range(0, B, mc_rows):
-            mc(ls_all[b0 : b0 + mc_rows], b0, min(b0 + mc_rows, B))
-        ls_max = ls_all.max() if all(t.shape[0] == 0 for t in tris) else None
-        del ls_all
+        del ls
         clock.lap("marching cubes")
+    del shells, s
     LAST_RUN["splat_chunks"] = len(plan)
+    return result(_stitched(verts, keys, tris, ls_max, iso, empty, clock))
 
+
+def _stitched(verts, keys, tris, ls_max, iso, empty, clock: StageClock):
+    """The stitched host mesh of the marching-cubes patches, or the empty
+    mesh (after the reference's empty-field check) when they hold no
+    triangle; laps "stitch"."""
     if all(t.shape[0] == 0 for t in tris):
         check_empty_field(0, float(ls_max), float(iso))
         mesh = empty()
@@ -753,4 +863,4 @@ def reconstruct_surface_subdomain_grid(
         v, t = stitch(verts, keys, tris)
         mesh = TriMesh3d(vertices=v.cpu().numpy(), triangles=t.cpu().numpy())
     clock.lap("stitch")
-    return result(mesh)
+    return mesh

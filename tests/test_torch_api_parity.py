@@ -1,11 +1,13 @@
 """The port's pysplashsurf-parity surface: every name of the JAX package's
 ``__all__`` and every submodule it loads on access resolves on
-``splashsurf_tpu_torch`` to the port's counterpart (``parallel``, the
-multi-device package, is the one exception); the debug outputs
+``splashsurf_tpu_torch`` to the port's counterpart, ``parallel`` with the
+reference's ``__all__``; the debug outputs
 (``density_map_to_hex_mesh``) and the meshio BGEO plugin give the JAX
 package's results; and the thin pysplashsurf methods behave as the JAX
 package's parity tests hold them, on the CPU."""
 
+import pathlib
+import subprocess
 import sys
 import types
 
@@ -27,7 +29,8 @@ REFERENCE_SUBMODULES = (
     "io", "mesh", "profiling", "postprocess", "pipeline", "mc", "neighbors", "density",
     "subdomains", "sph_interpolation", "sequence", "parallel", "cli", "studio",
 )
-NOT_PORTED = {"parallel"}
+NOT_PORTED: set = set()
+ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
 @pytest.mark.parametrize("name", st.__all__)
@@ -53,6 +56,24 @@ def test_reference_submodule_resolves_on_the_port(name):
     mod = getattr(pt, name)
     assert isinstance(mod, types.ModuleType)
     assert mod.__name__ == f"splashsurf_tpu_torch.{name}"
+
+
+def test_parallel_loads_lazily_with_the_reference_names():
+    from splashsurf_tpu import parallel as jpar
+
+    probe = (
+        "import sys, splashsurf_tpu_torch as pt; "
+        "assert 'splashsurf_tpu_torch.parallel' not in sys.modules; "
+        "pt.parallel; assert 'splashsurf_tpu_torch.parallel' in sys.modules; "
+        "assert 'splashsurf_tpu' not in sys.modules"
+    )
+    subprocess.run([sys.executable, "-c", probe], check=True, cwd=ROOT)
+    mod = pt.parallel
+    assert mod.__all__ == jpar.__all__ == [
+        "make_mesh", "sharded_levelset_step", "sharded_reconstruction_demo"]
+    for name in jpar.__all__:
+        assert callable(getattr(mod, name))
+        assert getattr(mod, name).__module__ == "splashsurf_tpu_torch.parallel.mesh"
 
 
 def test_unknown_names_raise():

@@ -214,7 +214,7 @@ class TestIsolation:
         for f in files:
             for mod in _imported_modules(f):
                 top = mod.split(".")[0]
-                assert top not in ("jax", "jaxlib", "splashsurf_tpu"), (f, mod)
+                assert top not in ("jax", "jaxlib", "splashsurf_tpu", "__graft_entry__"), (f, mod)
 
     @pytest.mark.parametrize("root", ["splashsurf_tpu_torch", "chip_smoke.py"])
     def test_nothing_is_loaded_or_built_from_the_reference_package(self, root):
