@@ -105,6 +105,23 @@ Phases (each prints progress; any failure raises and exits non-zero):
      and its counts within 1e-4 of phase 13's slab mesh; (d) the JAX
      package's dry-run scene (a sheet and a dense clump, 8-cell subdomains)
      on 8 virtual shards against one device: the same mesh.
+ 17. the rest of the JAX package's API on phase 4's 2M dam break and grid
+     (run after phase 4): (a) v = m / rho from the geoslot densities (K2),
+     the dense route's level set (K1), and ``density.splat_level_set`` (4
+     slots) and ``splat_level_set_scatter`` against it within rtol 2e-5,
+     atol 1e-4, each timed (plain PyTorch, as the reference's are plain
+     JAX); ``splat_level_set_auto`` on a 100K cloud with a 2000-particle
+     clump, which must retry; (b) ``mc.marching_cubes_padded`` on that level
+     set with exact capacities: equal to ``mc.marching_cubes``, the dense
+     route's triangle count, and ``decode_edge_flat`` inverting
+     ``edge_layout``; (c) the geoslot hysteresis: three colliding density
+     calls, then the dam break takes the raster densities (K2) with
+     ``try_geoslot`` off, and geoslot again after
+     ``reset_geoslot_hysteresis()``, both within rtol 2e-5 of the f64
+     densities; (d) ``cubic_kernel_gradient`` and
+     ``DiscreteSquaredDistanceCubicKernel`` on the card against float64.
+     Phases whose densities must take geoslot (2, 4, 16, 17) first reset
+     the process-global hysteresis.
 
 Each kernel's line carries its bound: the larger of the bytes it must move
 (rasters read once, output written once) over 3.35 TB/s and the float
@@ -1622,6 +1639,166 @@ def dryrun_scene(pt):
     return pts, params, grid
 
 
+def phase_splat_api(pt, dev, pts, grid, hsc, params, kernels, ident):
+    """Phase 17 (run after phase 4, on its 2M dam break and grid): (a) the
+    density splat API against the dense route's K1 level set, (b) padded
+    marching cubes and the edge decoder, (c) the geoslot hysteresis, (d)
+    the kernel gradient and the table kernel against float64. Returns the
+    K1 and K2 launches of its main paths."""
+    from splashsurf_tpu_torch import density as D
+    from splashsurf_tpu_torch import kernels as K
+    from splashsurf_tpu_torch import mc
+    from splashsurf_tpu_torch import neighbors as N
+    from splashsurf_tpu_torch.mc.dense import _mc_counts, edge_layout
+    from splashsurf_tpu_torch.ops import global_sweep as gs
+    from splashsurf_tpu_torch.ops import splat_kernels as sk
+
+    t_phase = time.perf_counter()
+    h, mass, iso = params.compact_support_radius, params.particle_rest_mass, params.iso_surface_threshold
+    log(f"phase 17: the splat API, padded marching cubes, the geoslot hysteresis and the "
+        f"kernel helpers on the {pts.shape[0]}-particle dam break, grid {grid.n_cells} "
+        f"({ident})")
+    splat_tol = dict(rtol=2e-5, atol=1e-4)  # the reference's splat bar
+
+    # (a) v = m / rho from the geoslot densities (K2), the K1 level set, the splat API
+    N.reset_geoslot_hysteresis()
+    reset_launches(sk)
+    rho = N.compute_particle_densities(pts, h, mass)
+    if N.LAST_GATE["kind"] != "geoslot":
+        raise AssertionError(f"the dam break took {N.LAST_GATE['kind']}, not geoslot")
+    values = mass / rho
+    rasters, overflow = gs.rasterize_global(pts, values, grid, 2, hsc)
+    ls = gs.sweep_global(rasters, overflow, grid, h, hsc)
+    launches = {"sweep_global": sk.sweep_global_cuda.launches,
+                "density_sweep": sk.density_sweep_cuda.launches}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"phase 17 (a) launches {launches}")
+    del rasters, overflow
+    cap = 4096
+    splat = lambda: D.splat_level_set(pts, values, grid, h, hsc, slots=4, overflow_capacity=cap)
+    got, n_over = splat()
+    n_over = int(n_over)
+    if n_over > cap:
+        raise AssertionError(f"{n_over} overflow particles past the capacity {cap}")
+    err_s = compare("(a) splat_level_set (4 slots) vs K1", got, ls, splat_tol)
+    del got
+    scatter = lambda: D.splat_level_set_scatter(pts, values, grid, h, hsc)
+    err_c = compare("(a) splat_level_set_scatter vs K1", scatter(), ls, splat_tol)
+    ms_s, ms_c = cuda_ms(splat, 3), cuda_ms(scatter, 3)
+    log(f"  (a) plain PyTorch, as the reference's are plain JAX: splat_level_set "
+        f"{ms_s:.3f} ms ({n_over} overflow particles), splat_level_set_scatter {ms_c:.3f} ms; "
+        f"max_abs_err {err_s:.3e} / {err_c:.3e} against K1 ({ident})")
+
+    # splat_level_set_auto on a cloud with an overflow clump: it must retry
+    small = pts[:100_000]
+    clump = small[:1] + 1e-4 * torch.rand((2000, 3), device=dev, generator=torch.Generator(
+        device=dev).manual_seed(17))
+    cloud = torch.cat([small, clump])
+    sgrid = pt.grid_for_reconstruction(cloud, RADIUS, h, params.cube_size)
+    v = torch.full((cloud.shape[0],), 1e-3, device=dev)
+    capacities = []
+    splat_fn = D.splat_level_set
+
+    def spy(*args, **kwargs):
+        capacities.append(kwargs["overflow_capacity"])
+        return splat_fn(*args, **kwargs)
+
+    D.splat_level_set = spy
+    try:
+        auto = D.splat_level_set_auto(cloud, v, sgrid, h)
+    finally:
+        D.splat_level_set = splat_fn
+    if len(capacities) < 2:
+        raise AssertionError(f"splat_level_set_auto did not retry: capacities {capacities}")
+    shsc = pt.kernel_extents(h, sgrid.cell_size).half_supported_cells
+    compare("(a) splat_level_set_auto vs the scatter", auto,
+            D.splat_level_set_scatter(cloud, v, sgrid, h, shsc), splat_tol)
+    log(f"  (a) splat_level_set_auto on {cloud.shape[0]} particles (a 2000-particle clump): "
+        f"{len(capacities) - 1} retries, overflow capacities {capacities}")
+    del auto, cloud, clump
+
+    # (b) padded marching cubes on the K1 level set, exact capacities
+    nv, nt = _mc_counts(ls, iso)
+    res = mc.marching_cubes_padded(ls, iso, grid.min, grid.cell_size, nv, nt)
+    if (int(res.num_vertices), int(res.num_triangles)) != (nv, nt):
+        raise AssertionError(f"padded counts {int(res.num_vertices)}, {int(res.num_triangles)} "
+                             f"against {nv}, {nt}")
+    ref = mc.marching_cubes(ls, iso, grid.cell_size, grid.min)
+    if not (np.array_equal(res.vertices.cpu().numpy(), ref.vertices)
+            and np.array_equal(res.triangles.cpu().numpy(), ref.triangles)):
+        raise AssertionError("marching_cubes_padded differs from marching_cubes")
+    _, gtris = gs.mc_global_cells(ls, grid, iso)
+    if gtris.shape[0] != nt:
+        raise AssertionError(f"{nt} triangles against the dense route's {gtris.shape[0]}")
+    axis, ijk = mc.decode_edge_flat(res.vertex_edges, grid.n_points)
+    _, strides, offsets, _ = edge_layout(grid.n_points)
+    again = torch.as_tensor(offsets, device=dev)[axis] + sum(
+        ijk[:, d] * torch.as_tensor([s[d] for s in strides], device=dev)[axis] for d in range(3))
+    if not torch.equal(again, res.vertex_edges):
+        raise AssertionError("decode_edge_flat does not invert edge_layout")
+    log(f"  (b) marching_cubes_padded: {nv} vertices, {nt} triangles (the dense route's MC "
+        f"{gtris.shape[0]}), equal to marching_cubes; decode_edge_flat round-trips "
+        f"{nv} edge ids")
+    del res, ref, gtris, ls
+
+    # (c) the hysteresis: three colliding calls, then the dam break
+    colliding = pts.clone()
+    colliding[1] = colliding[0] + 1e-6  # two particles in one octant
+    for k in range(N._GEOSLOT_MAX_CONSECUTIVE_MISSES):
+        N.compute_particle_densities(colliding, h, mass)
+        if not N.LAST_GATE["single"]["try_geoslot"] or N.LAST_GATE["kind"] != "raster":
+            raise AssertionError(f"colliding call {k}: {N.LAST_GATE['single']}")
+    del colliding
+    reset_launches(sk)
+    rho_off = N.compute_particle_densities(pts, h, mass)
+    k2 = sk.density_sweep_cuda.launches
+    if N.LAST_GATE["single"]["try_geoslot"] or N.LAST_GATE["kind"] != "raster" or k2 == 0:
+        raise AssertionError(f"past the limit: {N.LAST_GATE['single']}, K2 launches {k2}")
+    launches["density_sweep"] += k2
+    N.reset_geoslot_hysteresis()
+    rho_on = N.compute_particle_densities(pts, h, mass)
+    if N.LAST_GATE["kind"] != "geoslot":
+        raise AssertionError(f"after the reset the dam break took {N.LAST_GATE['kind']}")
+    # the two formulations sum in different orders: at metre-scale
+    # coordinates they differ by up to 2.7e-5 relative in f32, each within
+    # 2e-5 of the f64 densities (ROADMAP.md, queue 3), so each is held there
+    rho64 = N.compute_particle_densities(pts.double(), h, mass)
+    if N.LAST_GATE["kind"] != "geoslot":
+        raise AssertionError(f"the f64 dam break took {N.LAST_GATE['kind']}, not geoslot")
+    err_off = compare("(c) raster densities past the limit vs f64", rho_off.double(), rho64, F32_TOL)
+    err_on = compare("(c) geoslot densities after the reset vs f64", rho_on.double(), rho64, F32_TOL)
+    rel = float(((rho_off - rho_on).abs() / rho_on).max())
+    log(f"  (c) after {N._GEOSLOT_MAX_CONSECUTIVE_MISSES} colliding calls: try_geoslot False, "
+        f"raster densities (K2 launched {k2} times); after the reset geoslot again; against "
+        f"f64 max_abs_err {err_off:.3e} (raster) / {err_on:.3e} (geoslot), raster vs geoslot "
+        f"{rel:.3e} relative")
+    del rho_off, rho_on, rho64
+
+    # (d) the kernel gradient and the table kernel against float64 on the host
+    gen = torch.Generator(device=dev).manual_seed(5)
+    dx = (torch.rand((1_000_000, 3), device=dev, generator=gen) - 0.5) * (1.2 * h)
+    dx[:4] = 0.0
+    grad = K.cubic_kernel_gradient(dx, h)
+    want = K.cubic_kernel_gradient(dx.cpu().double(), h)
+    scale = float(want.abs().max())
+    torch.testing.assert_close(grad.cpu().double(), want, rtol=0, atol=1e-5 * scale)
+    if not (grad[:4] == 0).all():
+        raise AssertionError("the gradient at r = 0 is not 0")
+    table = K.DiscreteSquaredDistanceCubicKernel(4096, h)
+    r_sq = (dx * dx).sum(1)
+    got = table.evaluate(r_sq)
+    torch.testing.assert_close(got.cpu(), table.evaluate(r_sq.cpu()), rtol=0, atol=0)
+    exact = K.cubic_kernel_rsq(r_sq.cpu().double(), h)
+    err_t = float((got.cpu().double() - exact).abs().max())
+    if err_t > 1e-2 * float(exact.max()):
+        raise AssertionError(f"table kernel off by {err_t}")
+    log(f"  (d) cubic_kernel_gradient on {dx.shape[0]} offsets within 1e-5 of the largest "
+        f"float64 value ({scale:.4e}); the table kernel equal to its CPU evaluation, within "
+        f"{err_t:.3e} of float64 W ({float(exact.max()):.4e} at 0)")
+    log(f"  phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def median_s(fn, reps=5):
     """Median host seconds of ``fn`` over ``reps`` calls after one warm-up,
     the card synchronised around each."""
@@ -1665,6 +1842,7 @@ def phase_sharded(pt, dev, canyon, resident, slab_counts, pts_np, kernels, ident
         params = pt.Parameters.new_relative(RADIUS, 4.0, 1.5)
         h, mass = params.compact_support_radius, params.particle_rest_mass
         pts = torch.as_tensor(pts_np, device=dev)
+        N.reset_geoslot_hysteresis()
         single = N.compute_particle_densities(pts, h, mass)
         if N.LAST_GATE["kind"] != "geoslot":
             raise AssertionError(f"the dam break took {N.LAST_GATE['kind']}, not geoslot")
@@ -1904,6 +2082,7 @@ def main() -> int:
     kernels = {}
 
     # --- 2. K1 ---------------------------------------------------------------
+    N.reset_geoslot_hysteresis()
     rho = N.compute_particle_densities(pts, h, params.particle_rest_mass)
     values = params.particle_rest_mass / rho
     rasters, overflow = gs.rasterize_global(pts, values, grid, 2, hsc)
@@ -1960,6 +2139,7 @@ def main() -> int:
 
     # --- 4. the main path at full size ---------------------------------------
     log(f"phase 4: reconstruct_surface, {n_main} particles")
+    N.reset_geoslot_hysteresis()  # a geoslot scene: start from no recorded collision
     reset_launches(sk)
     frame_s = []
     for _ in range(4):
@@ -1988,6 +2168,13 @@ def main() -> int:
     log(f"  frame seconds {[round(s, 4) for s in frame_s]}; warm median {warm:.4f} s "
         f"= {n_main / warm / 1e6:.3f} Mparticles/s ({ident}); launches {launches}")
     dense_mesh = mesh
+
+    # --- 17. the splat API, padded MC, the hysteresis, the kernel helpers -----
+    more = phase_splat_api(pt, dev, pts, grid, hsc, params, kernels, ident)
+    for name, n in more.items():
+        kernels[name]["launches"] += n
+    log("  launches of phase 4 with phase 17's added: "
+        + ", ".join(f"{k} {kernels[k]['launches']}" for k in more))
 
     # --- 5. cross-check: plain (CPU) vs kernels (CUDA) ------------------------
     cross = bench.make_dam_break(N_CROSS, RADIUS, seed=3)

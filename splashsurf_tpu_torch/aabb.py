@@ -54,3 +54,9 @@ class Aabb3d:
     def grow_uniformly(self, margin: float) -> "Aabb3d":
         m = float(margin)
         return Aabb3d(tuple(v - m for v in self.min), tuple(v + m for v in self.max))
+
+
+def aabb_from_points(points: torch.Tensor):
+    """(N, 3) -> ((3,), (3,)) min / max corners, reduced on the points'
+    device (no host transfer)."""
+    return torch.aminmax(points, dim=0)

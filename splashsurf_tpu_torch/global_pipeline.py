@@ -34,6 +34,14 @@ from splashsurf_tpu_torch.reconstruction import SurfaceReconstruction
 from splashsurf_tpu_torch.uniform_grid import UniformGrid, kernel_extents
 
 
+
+def compute_densities(positions: torch.Tensor, parameters: Parameters) -> torch.Tensor:
+    """Per-particle SPH densities on the positions' device
+    (``neighbors.compute_particle_densities``)."""
+    return neighbors.compute_particle_densities(
+        positions, parameters.compact_support_radius, parameters.particle_rest_mass
+    )
+
 def use_cellraster(device: torch.device) -> bool:
     """Whether ``SPLASHSURF_TPU_DENSITY_CELLRASTER`` turns the cell-raster
     densities on for tensors on ``device`` (global_pipeline.py:383-389 of

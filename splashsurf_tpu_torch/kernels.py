@@ -103,3 +103,59 @@ def cubic_kernel_gradient_norm(r: torch.Tensor, compact_support_radius) -> torch
     h, sigma = _sigma(r.dtype, compact_support_radius)
     q = (r + r) / float(h)
     return float(sigma) * cubic_function_dq(q) * float(h.dtype.type(2.0) / h)
+
+
+def cubic_kernel_rsq(r_sq: torch.Tensor, compact_support_radius) -> torch.Tensor:
+    """W evaluated from squared distances."""
+    return cubic_kernel(torch.sqrt(r_sq), compact_support_radius)
+
+
+def cubic_kernel_gradient(dx: torch.Tensor, compact_support_radius) -> torch.Tensor:
+    """Gradient of W at offsets ``dx``: (..., 3) -> (..., 3)
+    (kernel.rs:110-130). The gradient at the origin is zero (the reference
+    divides by r and leaves r = 0 to its callers; this guards it)."""
+    h, sigma = _sigma(dx.dtype, compact_support_radius)
+    r = torch.linalg.vector_norm(dx, dim=-1, keepdim=True)
+    drdx = torch.where(r > 0, dx / torch.where(r > 0, r, 1.0), 0.0)
+    q = (r + r) / float(h)
+    return drdx * (float(sigma) * cubic_function_dq(q) * float(h.dtype.type(2.0) / h))
+
+
+def cube_particle_volume(particle_radius):
+    """Volume of a particle modeled as a cube of fluid: (2r)^3 (kernel.rs:28-30)."""
+    return (2.0 * particle_radius) ** 3
+
+
+def sphere_particle_volume(particle_radius):
+    """Volume of a particle modeled as a sphere of fluid (kernel.rs:33-35)."""
+    return (4.0 / 3.0) * math.pi * particle_radius**3
+
+
+class DiscreteSquaredDistanceCubicKernel:
+    """Table kernel over squared distances (kernel.rs:497-545): ``n``
+    samples of W at the midpoints of [0, h^2] / n, built in float64 on the
+    host and stored in ``dtype``; ``evaluate`` is one gather on the input's
+    device, 0 from h^2 on."""
+
+    def __init__(self, n: int, compact_support_radius: float, dtype=np.float32):
+        self.n = int(n)
+        self.compact_support_radius = float(compact_support_radius)
+        h = self.compact_support_radius
+        r = np.sqrt((np.arange(self.n, dtype=np.float64) + 0.5) * (h**2 / self.n))
+        q = 2.0 * r / h
+        a = np.maximum(2.0 - q, 0.0)
+        b = np.maximum(1.0 - q, 0.0)
+        w = (8.0 / h**3) * (a**3 - 4.0 * b**3) / _FOUR_PI
+        self.values = torch.as_tensor(w.astype(np_dtype(dtype)))
+        self._scale = self.n / h**2
+        self._on_device = {self.values.device: self.values}
+
+    def evaluate(self, r_sq: torch.Tensor) -> torch.Tensor:
+        table = self._on_device.get(r_sq.device)
+        if table is None:
+            table = self._on_device[r_sq.device] = self.values.to(r_sq.device)
+        idx = (r_sq * rounded(self._scale, r_sq.dtype)).to(torch.int64).clamp(0, self.n - 1)
+        out = table[idx]
+        return torch.where(
+            r_sq >= rounded(self.compact_support_radius**2, r_sq.dtype), 0.0, out
+        ).to(out.dtype)

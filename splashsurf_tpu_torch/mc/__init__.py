@@ -7,7 +7,12 @@ from splashsurf_tpu_torch.mc.lut import (
     TRI_COUNT,
     TRI_TABLE,
 )
-from splashsurf_tpu_torch.mc.dense import marching_cubes
+from splashsurf_tpu_torch.mc.dense import (
+    MarchingCubesResult,
+    decode_edge_flat,
+    marching_cubes,
+    marching_cubes_padded,
+)
 
 __all__ = [
     "TRI_TABLE",
@@ -16,4 +21,6 @@ __all__ = [
     "EDGE_BASE_OFFSET",
     "NUM_EDGES",
     "marching_cubes",
+    "marching_cubes_padded",
+    "MarchingCubesResult",
 ]

@@ -11,7 +11,7 @@ lists as the reference package.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -85,27 +85,25 @@ def _mc_counts(values: torch.Tensor, iso) -> Tuple[int, int]:
     return n_verts, n_tris
 
 
-def marching_cubes(
-    values,
-    iso: float,
-    cube_size: float = 1.0,
-    translation=(0.0, 0.0, 0.0),
-    device=None,
-):
-    """Dense scalar field (nx, ny, nz) -> ``TriMesh3d`` with host arrays.
+class MarchingCubesResult(NamedTuple):
+    """Capacity-padded marching cubes output (tensors on the field's device)."""
 
-    A tensor runs on its own device; a numpy array on ``device``, by
-    default CUDA (RuntimeError where CUDA is absent).
-    Equivalent of ``pysplashsurf.marching_cubes`` on a raw 3-D array
-    (pysplashsurf/src/marching_cubes.rs:106-178).
-    """
-    from splashsurf_tpu_torch.mesh import TriMesh3d
+    vertices: torch.Tensor  # (Vcap, 3) float, zero past the count
+    triangles: torch.Tensor  # (Tcap, 3) int32 vertex indices, zero past the count
+    num_vertices: torch.Tensor  # () int64, the true count
+    num_triangles: torch.Tensor  # () int64, the true count
+    vertex_edges: torch.Tensor  # (Vcap,) int64 flat edge id of each vertex, -1 past the count
 
-    values = as_device_tensor(values, device)
+
+def _mc_mesh(values: torch.Tensor, iso: float, grid_min, cell_size: float, index_offset=None):
+    """The exact-size mesh of a (nx, ny, nz) field on its device: (vertices
+    (V, 3), triangles (T, 3) int32, vertex edge ids (V,) int64). Point
+    (i, j, k) lies at grid_min + ((i, j, k) + index_offset) * cell_size."""
     dtype, dev = values.dtype, values.device
     iso = rounded(iso, dtype)
-    cs = rounded(cube_size, dtype)
-    mn = [rounded(t, dtype) for t in translation]
+    cs = rounded(cell_size, dtype)
+    mn = [rounded(float(t), dtype) for t in grid_min]
+    off = [0, 0, 0] if index_offset is None else [int(o) for o in index_offset]
     inside = values >= iso
     nx, ny, nz = values.shape
 
@@ -124,11 +122,12 @@ def marching_cubes(
             1.0,
         )
         for d in range(3):
-            pos = mn[d] + ijk[:, d].to(dtype) * cs
+            pos = mn[d] + (ijk[:, d] + off[d]).to(dtype) * cs
             comps[d].append(pos + t * cs if d == a else pos)
         masks.append(m.reshape(-1))
     vertices = torch.stack([torch.cat(c) for c in comps], dim=1)
-    vidx = torch.cumsum(torch.cat(masks), 0) - 1  # vertex id of each edge
+    mask = torch.cat(masks)
+    vidx = torch.cumsum(mask, 0) - 1  # vertex id of each edge
 
     # triangles: cell order, then case-table slot order
     count_t, tab_t = lut_tensors(dev)
@@ -159,6 +158,80 @@ def marching_cubes(
         )
         cols.append(vidx[edge])
     triangles = torch.stack(cols, dim=1).to(torch.int32)
+    return vertices, triangles, torch.nonzero(mask).squeeze(1)
+
+
+def _padded(x: torch.Tensor, capacity: int, fill) -> torch.Tensor:
+    """The first ``capacity`` rows of ``x``, ``fill`` past its end."""
+    out = torch.full((capacity,) + x.shape[1:], fill, dtype=x.dtype, device=x.device)
+    n = min(capacity, x.shape[0])
+    out[:n] = x[:n]
+    return out
+
+
+def marching_cubes_padded(
+    values,
+    iso,
+    grid_min,
+    cell_size,
+    vertex_capacity: int,
+    triangle_capacity: int,
+    index_offset=None,
+    device=None,
+) -> MarchingCubesResult:
+    """Marching cubes on a dense (nx, ny, nz) point-value grid, with
+    capacity-padded outputs: the first ``vertex_capacity`` vertices (and
+    their flat edge ids) and ``triangle_capacity`` triangles, and the true
+    counts even past the capacities. ``grid_min``/``cell_size`` place the
+    grid in space; ``index_offset`` shifts point indices to a global grid
+    (subdomains). A tensor runs on its own device, an array on ``device``
+    (``placement.as_device_tensor``)."""
+    values = as_device_tensor(values, device)
+    vertices, triangles, edges = _mc_mesh(values, iso, grid_min, cell_size, index_offset)
+    count = lambda x: torch.tensor(x.shape[0], device=values.device)
+    return MarchingCubesResult(
+        vertices=_padded(vertices, vertex_capacity, 0.0),
+        triangles=_padded(triangles, triangle_capacity, 0),
+        num_vertices=count(vertices),
+        num_triangles=count(triangles),
+        vertex_edges=_padded(edges, vertex_capacity, -1),
+    )
+
+
+def decode_edge_flat(edge_flat, n_points: Tuple[int, int, int], device=None):
+    """Flat edge ids -> (axis (...,), base point ijk (..., 3)), int64: the
+    inverse of ``edge_layout``'s x, y, z concatenation. Ids < 0 decode to
+    axis 0, ijk 0."""
+    _, strides, offsets, _ = edge_layout(n_points)
+    safe = as_device_tensor(edge_flat, device).long().clamp_min(0)
+    axis = (safe >= offsets[1]).long() + (safe >= offsets[2]).long()
+    local = safe - torch.as_tensor(offsets, device=safe.device)[axis]
+    s0 = torch.as_tensor([s[0] for s in strides], device=safe.device)[axis]
+    s1 = torch.as_tensor([s[1] for s in strides], device=safe.device)[axis]
+    i = local // s0
+    rem = local - i * s0
+    j = rem // s1
+    return axis, torch.stack([i, j, rem - j * s1], dim=-1)
+
+
+def marching_cubes(
+    values,
+    iso: float,
+    cube_size: float = 1.0,
+    translation=(0.0, 0.0, 0.0),
+    device=None,
+):
+    """Dense scalar field (nx, ny, nz) -> ``TriMesh3d`` with host arrays.
+
+    A tensor runs on its own device; a numpy array on ``device``, by
+    default CUDA (RuntimeError where CUDA is absent).
+    Equivalent of ``pysplashsurf.marching_cubes`` on a raw 3-D array
+    (pysplashsurf/src/marching_cubes.rs:106-178).
+    """
+    from splashsurf_tpu_torch.mesh import TriMesh3d
+
+    values = as_device_tensor(values, device)
+    vertices, triangles, _ = _mc_mesh(values, iso, translation, cube_size)
     return TriMesh3d(
         vertices=vertices.cpu().numpy(), triangles=triangles.cpu().numpy()
     )

@@ -125,7 +125,7 @@ def build_cell_list(positions: torch.Tensor, grid: BinGrid) -> CellList:
     )
 
 
-def bin_stats(cell_list: CellList) -> Tuple[int, int, int]:
+def bin_stats_ex(cell_list: CellList) -> Tuple[int, int, int]:
     """(max occupancy, occupied bins, particles with bin rank >= 8), read
     back to the host in one transfer."""
     _, counts = torch.unique_consecutive(cell_list.sorted_bins, return_counts=True)
@@ -135,6 +135,11 @@ def bin_stats(cell_list: CellList) -> Tuple[int, int, int]:
     )
     mx, u, o8 = stats.tolist()
     return int(mx), int(u), int(o8)
+
+
+def bin_stats(cell_list: CellList) -> Tuple[int, int]:
+    """(max occupancy, occupied bins)."""
+    return bin_stats_ex(cell_list)[:2]
 
 
 def _segment_tables(sorted_bins: torch.Tensor, lattice: int):
@@ -526,7 +531,8 @@ def density_gate(
 ) -> dict:
     """Pick the density formulation from the binning statistics, as the
     reference package does: ``try_geoslot`` (still subject to the octant
-    check; off when ``SPLASHSURF_TPU_DENSITY_GEOSLOT`` is not "1"),
+    check; off when ``SPLASHSURF_TPU_DENSITY_GEOSLOT`` is not "1" and after
+    the hysteresis below has seen too many consecutive collisions),
     ``use_raster`` (with the overflow correction capacity ``ccap`` when
     max_occ > 8); otherwise the sparse binned formulation. The single-device
     and the sharded wrappers share it, so that both take the same
@@ -535,7 +541,9 @@ def density_gate(
     dense_enough = lattice <= GATE_LATTICE_MAX and n_bins >= lattice // 4
     use_raster = dense_enough and (max_occ <= 8 or over8 <= density_over_budget(n))
     decision = dict(
-        try_geoslot=dense_enough and os.environ.get(GEOSLOT_ENV, "1") == "1",
+        try_geoslot=(
+            dense_enough and os.environ.get(GEOSLOT_ENV, "1") == "1" and _geoslot_wanted()
+        ),
         use_raster=use_raster,
         overflow=use_raster and max_occ > 8,
         ccap=_round_up(max_occ + 8) if use_raster and max_occ > 8 else 0,
@@ -544,6 +552,30 @@ def density_gate(
         decision, n=n, lattice=lattice, n_bins=n_bins, max_occ=max_occ, over8=over8
     )
     return decision
+
+
+# Geoslot hysteresis (reference ``neighbors.py:1463-1483``): a scene that
+# keeps colliding (a compressed fluid) pays a failed octant attempt on every
+# call. After _GEOSLOT_MAX_CONSECUTIVE_MISSES consecutive collisions the gate
+# stops offering geoslot for the rest of the process; a success resets the
+# count. Both wrappers note an outcome only for an attempt that ran, on a
+# phase-aligned lattice within GATE_LATTICE_MAX. The state is process-global,
+# as in the reference: it decides which formulation runs, so the two packages
+# take the same one after the same calls.
+_GEOSLOT_MISSES = [0]
+_GEOSLOT_MAX_CONSECUTIVE_MISSES = 3
+
+
+def _geoslot_wanted() -> bool:
+    return _GEOSLOT_MISSES[0] < _GEOSLOT_MAX_CONSECUTIVE_MISSES
+
+
+def _note_geoslot_outcome(ok: bool) -> None:
+    _GEOSLOT_MISSES[0] = 0 if ok else _GEOSLOT_MISSES[0] + 1
+
+
+def reset_geoslot_hysteresis() -> None:
+    _GEOSLOT_MISSES[0] = 0
 
 
 # The last density call: the formulation it took ("geoslot", "raster",
@@ -579,11 +611,11 @@ def compute_particle_densities(
     mn, mx = lo.cpu().numpy(), hi.cpu().numpy()
     grid = BinGrid.for_domain(mn, mx, compact_support_radius)
     cl = build_cell_list(positions, grid)
-    max_occ, n_bins, over8 = bin_stats(cl)
+    max_occ, n_bins, over8 = bin_stats_ex(cl)
     if density_phase_retry(n, over8):
         grid2 = phase_shifted_bingrid(grid, compact_support_radius)
         cl2 = build_cell_list(positions, grid2)
-        stats2 = bin_stats(cl2)
+        stats2 = bin_stats_ex(cl2)
         if stats2[2] < over8:
             grid, cl = grid2, cl2
             max_occ, n_bins, over8 = stats2
@@ -596,7 +628,9 @@ def compute_particle_densities(
             rho, ok = compute_particle_densities_geoslot(
                 positions, agrid, compact_support_radius, particle_rest_mass
             )
-            if bool(ok):
+            ok = bool(ok)
+            _note_geoslot_outcome(ok)
+            if ok:
                 note_formulation("single", "geoslot")
                 return rho
         # octant collisions: the sorted formulations below

@@ -51,10 +51,10 @@ from splashsurf_tpu_torch.uniform_grid import UniformGrid, kernel_extents
 LAST_RUN: dict = {}
 
 
-def slab_cells_budget() -> int:
+def gs_dense_gate() -> int:
     """Cells per slab of the slab route (``SPLASHSURF_TPU_SLAB_CELLS_BUDGET``,
-    default 48M; ``gs_dense_gate`` of the reference, ops/slab_sweep.py:450-460),
-    read at each call."""
+    default 48M, as the reference's ops/slab_sweep.py:450-460 reads it), read
+    at each call."""
     return int(os.environ.get("SPLASHSURF_TPU_SLAB_CELLS_BUDGET", 48_000_000))
 
 
@@ -81,11 +81,11 @@ def reconstruct_global_slabbed(
     device: (vertices (V, 3), triangles (T, 3) int32) as device tensors,
     equal to ``gs.reconstruct_global_dense`` at the same ``slots``.
 
-    ``max_cells`` bounds one slab's cells (default ``slab_cells_budget()``).
+    ``max_cells`` bounds one slab's cells (default ``gs_dense_gate()``).
     ``clock`` (a ``StageClock``) takes the stage laps; ``LAST_RUN`` records
     the run."""
     if max_cells is None:
-        max_cells = slab_cells_budget()
+        max_cells = gs_dense_gate()
     if clock is None:
         clock = StageClock(positions.device)
     dtype = positions.dtype

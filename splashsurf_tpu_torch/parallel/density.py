@@ -219,6 +219,7 @@ def compute_particle_densities_sharded(
                 lambda rows, x_lo, nx: N.compute_particle_densities_geoslot(
                     rows, agrid, h, mass, x_lo=x_lo, nx=nx),
             )
+            N._note_geoslot_outcome(ok)
             if ok:
                 N.note_formulation("sharded", "geoslot")
                 return rho

@@ -92,6 +92,18 @@ def laplacian_smoothing(
     return verts if isinstance(vertices, torch.Tensor) else verts.cpu().numpy()
 
 
+
+def par_laplacian_smoothing_inplace(
+    mesh, vertex_connectivity, iterations: int, beta: float, weights, device=None
+):
+    """Reference-named wrapper: ``mesh.vertices`` becomes the
+    ``laplacian_smoothing`` of the mesh (``vertex_connectivity`` is not
+    read; the connectivity comes from the triangles). Returns ``mesh``."""
+    mesh.vertices = laplacian_smoothing(
+        mesh.vertices, mesh.triangles, iterations, beta, weights, device=device
+    )
+    return mesh
+
 def laplacian_smoothing_normals(
     normals, triangles, num_vertices: int, iterations: int, device=None
 ):

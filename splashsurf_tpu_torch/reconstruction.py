@@ -124,7 +124,7 @@ def choose_route(parameters: Parameters, grid: UniformGrid, n_devices: int = 1) 
     As in the reference, slabs need a single device: with ``n_devices`` > 1
     (the process's devices of the positions' type, ``parallel.mesh.devices``)
     a grid past the dense gate takes the subdomain route, which shards."""
-    from splashsurf_tpu_torch.ops.slab_sweep import slab_cells_budget, slab_width_cells
+    from splashsurf_tpu_torch.ops.slab_sweep import gs_dense_gate, slab_width_cells
 
     route = "dense"
     if parameters.spatial_decomposition == SpatialDecomposition.UNIFORM_GRID:
@@ -140,7 +140,7 @@ def choose_route(parameters: Parameters, grid: UniformGrid, n_devices: int = 1) 
                 and n_devices == 1
                 and int(np.prod(np.asarray(grid.n_points, np.int64))) < 2**31
             ):
-                n_slabs = -(-grid.n_cells[0] // slab_width_cells(grid, slab_cells_budget()))
+                n_slabs = -(-grid.n_cells[0] // slab_width_cells(grid, gs_dense_gate()))
                 if n_slabs <= _env_int("SPLASHSURF_TPU_SLAB_MAX_SLABS", 64):
                     route = "slab"
     if route == "dense" and grid.total_cells > GLOBAL_DENSE_GUARD_CELLS:

@@ -507,6 +507,48 @@ def halo_from_shells(ls, own_flat, nb_idx, nb_flat, shells):
 # ---------------------------------------------------------------------------
 
 
+def _chunk_edges_and_cases(ls: torch.Tensor, iso: float):
+    """The active-edge masks of a (C, P, P, P) chunk, one per axis (the x,
+    y and z edge arrays of each block, (C, P-1, P, P) etc.), and its (C,
+    P-1, P-1, P-1) int64 case indices; ``iso`` is rounded to the field's
+    dtype by the caller."""
+    inside = ls >= iso
+    masks = []
+    for a in range(3):
+        lo = (slice(None),) + tuple(slice(0, -1) if d == a else slice(None) for d in range(3))
+        hi = (slice(None),) + tuple(slice(1, None) if d == a else slice(None) for d in range(3))
+        masks.append(inside[lo] != inside[hi])
+    n = ls.shape[1] - 1
+    case = torch.zeros((ls.shape[0], n, n, n), dtype=torch.int64, device=ls.device)
+    for c8 in range(8):
+        oi, oj, ok = (c8 >> 2) & 1, (c8 >> 1) & 1, c8 & 1
+        case |= inside[:, oi : oi + n, oj : oj + n, ok : ok + n].long() << c8
+    return masks, case
+
+
+def chunk_mc_counts(ls: torch.Tensor, sd: SubdomainGridParams, iso):
+    """Per-block (vertex, triangle, boundary-vertex) counts of a (C, P, P,
+    P) chunk, three (C,) int64 tensors on its device. A vertex is on the
+    boundary when its edge lies in a plane shared with a neighbour (a
+    coordinate other than its axis at 0 or P-1): only those can come out of
+    two blocks, so only those need the stitch's merge."""
+    P = ls.shape[1]
+    masks, case = _chunk_edges_and_cases(ls, kernels.rounded(iso, ls.dtype))
+    nv = sum(m.flatten(1).sum(1) for m in masks)
+    nb = 0
+    for a, m in enumerate(masks):
+        onplane = torch.zeros(m.shape[1:], dtype=torch.bool, device=ls.device)
+        for d in range(3):
+            if d != a:
+                idx = [slice(None)] * 3
+                idx[d] = [0, P - 1]
+                onplane[tuple(idx)] = True
+        nb = nb + (m & onplane).flatten(1).sum(1)
+    count_t, _ = lut_tensors(ls.device)
+    nt = count_t[case].flatten(1).sum(1)
+    return nv, nt, nb
+
+
 def chunk_mc(ls, sub_ijk, sd: SubdomainGridParams, iso):
     """Marching cubes over the (C, P, P, P) level sets of a chunk, the batch
     folded into the flat edge and cell index spaces.
@@ -524,14 +566,8 @@ def chunk_mc(ls, sub_ijk, sd: SubdomainGridParams, iso):
     _, npy, npz = g.n_points
     iso = kernels.rounded(iso, dtype)
     cs = kernels.rounded(g.cell_size, dtype)
-    inside = ls >= iso
-
-    masks = []
-    for a in range(3):
-        lo = (slice(None),) + tuple(slice(0, -1) if d == a else slice(None) for d in range(3))
-        hi = (slice(None),) + tuple(slice(1, None) if d == a else slice(None) for d in range(3))
-        masks.append((inside[lo] != inside[hi]).reshape(C, -1))
-    mask = torch.cat(masks, dim=1).reshape(-1)
+    masks, case = _chunk_edges_and_cases(ls, iso)
+    mask = torch.cat([m.reshape(C, -1) for m in masks], dim=1).reshape(-1)
     shapes, _, axoffs, e_local = edge_layout((P, P, P))
     vidx = torch.cumsum(mask, 0) - 1
 
@@ -564,10 +600,6 @@ def chunk_mc(ls, sub_ijk, sd: SubdomainGridParams, iso):
 
     # triangles of the active cells
     n = P - 1
-    case = torch.zeros((C, n, n, n), dtype=torch.int64, device=dev)
-    for c8 in range(8):
-        oi, oj, ok = (c8 >> 2) & 1, (c8 >> 1) & 1, c8 & 1
-        case |= inside[:, oi : oi + n, oj : oj + n, ok : ok + n].long() << c8
     count_t, tab_t = lut_tensors(dev)
     case = case.reshape(-1)
     counts = count_t[case]

@@ -1,12 +1,18 @@
 """The port's pysplashsurf-parity surface: every name of the JAX package's
 ``__all__`` and every submodule it loads on access resolves on
 ``splashsurf_tpu_torch`` to the port's counterpart, ``parallel`` with the
-reference's ``__all__``; the debug outputs
+reference's ``__all__``; every public name that a module of the JAX
+package defines itself resolves on the port's counterpart module, but for
+the written ``NOT_PORTED`` table, whose entries are held absent; the debug outputs
 (``density_map_to_hex_mesh``) and the meshio BGEO plugin give the JAX
 package's results; and the thin pysplashsurf methods behave as the JAX
 package's parity tests hold them, on the CPU."""
 
+import ast
+import importlib
+import inspect
 import pathlib
+import pkgutil
 import subprocess
 import sys
 import types
@@ -23,13 +29,71 @@ import splashsurf_tpu_torch as pt
 from splashsurf_tpu_torch import meshio_bgeo as tbgeo
 from splashsurf_tpu_torch.io import bgeo as tbgeo_io
 from splashsurf_tpu_torch.mesh import HexMesh3d, PointCloud3d, density_map_to_hex_mesh
+from torch_gate import reset_port_geoslot_hysteresis  # noqa: F401 (autouse)
 
 # the submodules the JAX package's ``__getattr__`` loads on access
 REFERENCE_SUBMODULES = (
     "io", "mesh", "profiling", "postprocess", "pipeline", "mc", "neighbors", "density",
     "subdomains", "sph_interpolation", "sequence", "parallel", "cli", "studio",
 )
-NOT_PORTED: set = set()
+_PLANS = (
+    "speculative frame plans: they hide host round trips of a remote TPU link; the "
+    "port reads its counts back on the card's host (ROADMAP.md, Not queued)"
+)
+_ENCODED = (
+    "the encoded / u16 mesh pull and its native decoder: built to cut remote-link "
+    "bytes, and lossy by default (SPLASHSURF_TPU_PULL_QUANT=1), where the port's "
+    "float mesh pull is exact"
+)
+_SHARD_MAP = (
+    "a jit(shard_map) factory: the port's per-shard step in parallel/mesh.py "
+    "(_levelset_mc_step, sharded_halo_overwrite) does this work over a device list"
+)
+# Public names of the JAX package that the port leaves out on purpose, by
+# module path relative to the package (a whole module where the path names
+# one), each with its reason. Nothing else may be missing.
+NOT_PORTED = {
+    "global_pipeline.SPECULATION_STATS": _PLANS,
+    "reconstruction.GridPlanMiss": _PLANS,
+    "reconstruction.clear_grid_plan": _PLANS,
+    "neighbors.DensityPlanMiss": _PLANS,
+    "neighbors.clear_density_plan": _PLANS,
+    "ops.global_sweep.SpeculationMiss": _PLANS,
+    "ops.global_sweep.PendingPull": _PLANS,
+    "subdomains.chunk_mc_counts_encoded": _ENCODED,
+    "subdomains.chunk_mc_encode": _ENCODED,
+    "native.mc_decode": _ENCODED,
+    "native.mc_decode_sub": _ENCODED,
+    "native.unpack_compact": _ENCODED,
+    "parallel.mesh.sharded_mc_counts_encoded": _ENCODED,
+    "parallel.mesh.sharded_scan_mc_encode": _ENCODED,
+    "ops.global_sweep.mc_global_packed": (
+        "edge-major marching cubes, reached only by SPLASHSURF_TPU_MC=edges; the "
+        "port's cell-major mc_global_cells gives the same mesh"
+    ),
+    "parallel.mesh.sharded_splat_scatter": _SHARD_MAP,
+    "parallel.mesh.sharded_splat_raster": _SHARD_MAP,
+    "parallel.mesh.sharded_scan_splat": _SHARD_MAP,
+    "parallel.mesh.sharded_scan_splat_pairs": _SHARD_MAP,
+    "parallel.mesh.sharded_mc_counts": _SHARD_MAP,
+    "parallel.mesh.sharded_scan_mc": _SHARD_MAP,
+    "parallel.mesh.sharded_chunk_mc": _SHARD_MAP,
+    "subdomains.enable_profile_sync": (
+        "profile synchronisation: the port's profiling.StageClock always "
+        "synchronises the device at stage boundaries"
+    ),
+    "ops.prefix": "the MXU blocked prefix sum; the port uses torch.cumsum",
+    "ops.splat_pallas": "the Pallas kernels; the port's are ops/splat_kernels.py with csrc/",
+    "workspace": "the JAX persistent compile cache; the port compiles no programs",
+    "native.libhalfedge": (
+        "the reference's built C++ library; the port builds its own engine "
+        "(native.py with csrc/host/)"
+    ),
+}
+REFERENCE_MODULES = ["splashsurf_tpu"] + sorted(
+    m.name for m in pkgutil.walk_packages(st.__path__, "splashsurf_tpu.")
+    if not m.name.endswith("__main__")
+)
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
@@ -44,6 +108,86 @@ def test_reference_name_resolves_on_the_port(name):
     assert got.__module__.split(".")[1:] == ref.__module__.split(".")[1:], name
     assert got.__qualname__ == ref.__qualname__, name
     assert name in pt.__all__
+
+
+def _rel(module_name: str) -> str:
+    return module_name.partition(".")[2]
+
+
+def _port_module(rel: str):
+    """The port's counterpart of the reference module at ``rel``, or None."""
+    name = "splashsurf_tpu_torch" + (f".{rel}" if rel else "")
+    try:
+        return importlib.import_module(name)
+    except ModuleNotFoundError:
+        return None
+
+
+def _defined_names(mod) -> set:
+    """The public names that ``mod`` defines itself: callables and classes
+    whose ``__module__`` is ``mod``, and names assigned at its top level
+    that hold neither a module nor a callable (constants)."""
+    names = {
+        k for k, v in vars(mod).items()
+        if not k.startswith("_") and not isinstance(v, types.ModuleType)
+        and callable(v) and getattr(v, "__module__", None) == mod.__name__
+    }
+    tree = ast.parse(inspect.getsource(mod))
+    for node in tree.body:
+        targets = node.targets if isinstance(node, ast.Assign) else (
+            [node.target] if isinstance(node, ast.AnnAssign) else [])
+        for t in targets:
+            for n in ast.walk(t):
+                if isinstance(n, ast.Name) and not n.id.startswith("_") and n.id in vars(mod):
+                    v = vars(mod)[n.id]
+                    if not isinstance(v, types.ModuleType) and not callable(v):
+                        names.add(n.id)
+    return names
+
+
+@pytest.mark.parametrize("module", REFERENCE_MODULES)
+def test_every_reference_module_name_resolves_on_the_port(module):
+    rel = _rel(module)
+    if rel in NOT_PORTED:
+        assert _port_module(rel) is None, rel
+        return
+    ref = importlib.import_module(module)
+    port = _port_module(rel)
+    assert port is not None, f"splashsurf_tpu_torch.{rel} is missing"
+    missing = []
+    for name in sorted(_defined_names(ref)):
+        key = f"{rel}.{name}" if rel else name
+        if key in NOT_PORTED:
+            continue
+        if not hasattr(port, name):
+            missing.append(name)
+    assert not missing, (module, missing)
+
+
+@pytest.mark.parametrize("entry", sorted(NOT_PORTED))
+def test_not_ported_entries_exist_in_the_reference_and_not_in_the_port(entry):
+    """The table cannot go stale: each entry names a module or a name of the
+    JAX package that the port really lacks."""
+    assert NOT_PORTED[entry]
+    if f"splashsurf_tpu.{entry}" in REFERENCE_MODULES:
+        assert _port_module(entry) is None, entry
+        return
+    rel, _, name = entry.rpartition(".")
+    ref = importlib.import_module(f"splashsurf_tpu.{rel}")
+    assert name in _defined_names(ref), entry
+    port = _port_module(rel)
+    assert port is not None and not hasattr(port, name), entry
+
+
+def test_the_scan_sees_the_newly_ported_names():
+    """A spot check that the scan reaches into submodules, constants and
+    classes alike."""
+    from splashsurf_tpu import density, kernels, neighbors
+
+    assert {"splat_level_set", "RasterizedParticles"} <= _defined_names(density)
+    assert "DiscreteSquaredDistanceCubicKernel" in _defined_names(kernels)
+    assert {"GATE_LATTICE_MAX", "LAST_GATE", "bin_stats_ex"} <= _defined_names(neighbors)
+    assert len(REFERENCE_MODULES) > 40
 
 
 @pytest.mark.parametrize("name", REFERENCE_SUBMODULES)

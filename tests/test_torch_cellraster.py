@@ -24,6 +24,7 @@ from splashsurf_tpu.reconstruction import clear_grid_plan
 import splashsurf_tpu_torch as pt
 from splashsurf_tpu_torch import neighbors as tn
 from splashsurf_tpu_torch.ops import global_sweep as tgs
+from torch_gate import reset_port_geoslot_hysteresis  # noqa: F401 (autouse)
 
 RADIUS = 0.011
 ENV = "SPLASHSURF_TPU_DENSITY_CELLRASTER"

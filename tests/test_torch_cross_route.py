@@ -10,6 +10,7 @@ import torch
 import bench
 import splashsurf_tpu_torch as pt
 from splashsurf_tpu_torch import subdomains as ts
+from torch_gate import reset_port_geoslot_hysteresis  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -14,6 +14,7 @@ from splashsurf_tpu import kernels as jk
 from splashsurf_tpu import neighbors as jn
 
 from splashsurf_tpu_torch import neighbors as tn
+from torch_gate import reset_port_geoslot_hysteresis  # noqa: F401 (autouse)
 
 RADIUS = 0.011
 SUPPORT = 4 * RADIUS
@@ -94,7 +95,7 @@ def test_densities_agree_with_naive_oracle(spacing_rel, seed, path):
     assert geoslot_ok == (path == "geoslot")
     if path == "raster":
         grid = tn.BinGrid.for_domain(lo, hi, SUPPORT)
-        max_occ, n_bins, over8 = tn.bin_stats(tn.build_cell_list(tpts, grid))
+        max_occ, n_bins, over8 = tn.bin_stats_ex(tn.build_cell_list(tpts, grid))
         gate = tn.density_gate(len(pts), grid.lattice, n_bins, max_occ, over8)
         assert gate["use_raster"] and gate["overflow"]
     got = tn.compute_particle_densities(tpts, SUPPORT, MASS).numpy()

@@ -11,6 +11,7 @@ import bench
 from splashsurf_tpu import neighbors as jn
 
 from splashsurf_tpu_torch import neighbors as tn
+from torch_gate import reset_port_geoslot_hysteresis  # noqa: F401 (autouse)
 
 MASS = 1.0
 TOL = {
@@ -90,7 +91,7 @@ def test_overflow_correction_matches_full_capacity(dtype):
     lo, hi = pts.min(0), pts.max(0)
     grid = tn.BinGrid.for_domain(lo, hi, support)
     cl = tn.build_cell_list(tpts, grid)
-    max_occ, n_bins, _ = tn.bin_stats(cl)
+    max_occ, n_bins, _ = tn.bin_stats_ex(cl)
     K = tn._round_up(max_occ)
     u_cap = tn.binned_plan(len(pts), grid.lattice, n_bins, max_occ, 0)["u_cap"]
     full = tn.compute_particle_densities_binned(tpts, grid, cl, support, MASS, K, u_cap)

@@ -9,6 +9,7 @@ import torch
 from splashsurf_tpu import neighbors as jn
 
 from splashsurf_tpu_torch import neighbors as tn
+from torch_gate import reset_port_geoslot_hysteresis  # noqa: F401 (autouse)
 
 RADIUS = 0.011
 SUPPORT = 4 * RADIUS
@@ -59,7 +60,7 @@ def test_raster_with_overflow_matches_reference(dtype):
     assert gate["use_raster"] and gate["max_occ"] > 8 and gate["ocap"] > 0
 
     grid = tn.BinGrid.for_domain(pts.min(0), pts.max(0), SUPPORT)
-    max_occ, n_bins, over8 = tn.bin_stats(tn.build_cell_list(tpts, grid))
+    max_occ, n_bins, over8 = tn.bin_stats_ex(tn.build_cell_list(tpts, grid))
     if dtype == np.float64:
         assert (max_occ, n_bins, over8) == (gate["max_occ"], gate["n_bins"], gate["over8"])
     # in f32 the reference's XLA build multiplies by 1/bin_size instead of

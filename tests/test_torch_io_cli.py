@@ -26,6 +26,7 @@ from splashsurf_tpu_torch import profiling, progress
 from splashsurf_tpu_torch.cli import make_parser as t_make_parser
 from splashsurf_tpu_torch.cli import run_splashsurf as t_run
 from torch_meshes import icosphere
+from torch_gate import reset_port_geoslot_hysteresis  # noqa: F401 (autouse)
 
 PACKAGES = {"torch": (tio, pt.TriMesh3d, pt.MixedTriQuadMesh3d), "jax": (jio, JTriMesh3d, JMixed)}
 

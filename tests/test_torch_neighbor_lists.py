@@ -17,6 +17,7 @@ from splashsurf_tpu.aabb import Aabb3d as JAabb
 import splashsurf_tpu_torch as pt
 from splashsurf_tpu_torch import neighbors as tn
 from splashsurf_tpu_torch.ops import slab_sweep as tslab
+from torch_gate import reset_port_geoslot_hysteresis  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True, scope="module")

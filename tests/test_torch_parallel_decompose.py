@@ -19,6 +19,7 @@ import splashsurf_tpu_torch as pt
 from splashsurf_tpu_torch import subdomains as ts
 from splashsurf_tpu_torch.parallel import mesh as pm
 from splashsurf_tpu_torch.parallel.decompose import decompose_sharded, split_decomposition
+from torch_gate import reset_port_geoslot_hysteresis  # noqa: F401 (autouse)
 
 R = 0.025
 

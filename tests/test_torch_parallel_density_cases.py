@@ -16,6 +16,7 @@ from splashsurf_tpu import neighbors as jn
 from splashsurf_tpu_torch import neighbors as tn
 from splashsurf_tpu_torch.parallel import mesh as pm
 from splashsurf_tpu_torch.parallel.density import compute_particle_densities_sharded
+from torch_gate import reset_port_geoslot_hysteresis  # noqa: F401 (autouse)
 
 SUPPORT = 0.1
 MASS = 0.37

@@ -16,6 +16,7 @@ from splashsurf_tpu import subdomains as js
 import splashsurf_tpu_torch as pt
 from splashsurf_tpu_torch import subdomains as ts
 from splashsurf_tpu_torch.parallel import mesh as pm
+from torch_gate import reset_port_geoslot_hysteresis  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True, scope="module")

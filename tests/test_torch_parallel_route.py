@@ -31,6 +31,7 @@ from splashsurf_tpu_torch import subdomains as tsub
 from splashsurf_tpu_torch.ops import slab_sweep as tslab
 from splashsurf_tpu_torch.parallel import density as tpd
 from splashsurf_tpu_torch.parallel import mesh as pm
+from torch_gate import reset_port_geoslot_hysteresis  # noqa: F401 (autouse)
 
 SWITCHES = (
     "SPLASHSURF_TPU_GLOBAL_DENSE_MAX_CELLS",

@@ -30,6 +30,7 @@ from splashsurf_tpu.reconstruction import clear_grid_plan
 
 import splashsurf_tpu_torch as pt
 from splashsurf_tpu_torch import pipeline as tpl
+from torch_gate import reset_port_geoslot_hysteresis  # noqa: F401 (autouse)
 
 RADIUS = 0.011
 

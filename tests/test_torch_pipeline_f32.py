@@ -10,6 +10,7 @@ import torch
 import splashsurf_tpu_torch as pt
 from splashsurf_tpu_torch.sph_interpolation import SphInterpolator
 from test_torch_pipeline import _attrs, _chain, _run, scene  # noqa: F401 (fixture)
+from torch_gate import reset_port_geoslot_hysteresis  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -22,6 +22,7 @@ from splashsurf_tpu_torch import native
 from splashsurf_tpu_torch import postprocess as tpp
 from splashsurf_tpu_torch.halfedge import HalfEdgeTriMesh, IllegalCollapse
 from torch_meshes import icosphere, sphere_mc
+from torch_gate import reset_port_geoslot_hysteresis  # noqa: F401 (autouse)
 
 SMOOTH_TOL = {np.float32: dict(rtol=1e-5, atol=1e-5), np.float64: dict(rtol=1e-12, atol=1e-12)}
 

@@ -17,6 +17,7 @@ from splashsurf_tpu.reconstruction import clear_grid_plan
 
 import splashsurf_tpu_torch as pt
 from splashsurf_tpu_torch.ops import slab_sweep as tslab
+from torch_gate import reset_port_geoslot_hysteresis  # noqa: F401 (autouse)
 
 RADIUS = 0.011
 
@@ -106,7 +107,7 @@ def test_grid_past_the_dense_gate_is_not_ported(monkeypatch):
     pt.reconstruct_surface(pts, params, device="cpu")
     (grid,) = entered
     assert grid.total_cells > 160_000_000
-    assert -(-grid.n_cells[0] // tslab.slab_width_cells(grid, tslab.slab_cells_budget())) == 6
+    assert -(-grid.n_cells[0] // tslab.slab_width_cells(grid, tslab.gs_dense_gate())) == 6
 
 
 @pytest.mark.parametrize("kw", [dict(global_neighborhood_list=True)])

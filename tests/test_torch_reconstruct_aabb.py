@@ -12,6 +12,7 @@ from splashsurf_tpu import neighbors as jn
 from splashsurf_tpu.reconstruction import clear_grid_plan
 
 import splashsurf_tpu_torch as pt
+from torch_gate import reset_port_geoslot_hysteresis  # noqa: F401 (autouse)
 
 RADIUS = 0.011
 

@@ -30,6 +30,7 @@ from splashsurf_tpu_torch import global_pipeline as tgp
 from splashsurf_tpu_torch import reconstruction as tr
 from splashsurf_tpu_torch import subdomains as tsub
 from splashsurf_tpu_torch.ops import slab_sweep as tslab
+from torch_gate import reset_port_geoslot_hysteresis  # noqa: F401 (autouse)
 
 SWITCHES = (
     "SPLASHSURF_TPU_GLOBAL_DENSE_MAX_CELLS",
@@ -88,7 +89,7 @@ def test_choose_route_follows_the_switches(monkeypatch, env, grid, want):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     assert tr.global_dense_max_cells() == jr._global_dense_max_cells()
-    assert tslab.slab_cells_budget() == jslab.gs_dense_gate()
+    assert tslab.gs_dense_gate() == jslab.gs_dense_gate()
     assert _port_route(grid) == want
 
 

@@ -31,6 +31,7 @@ from splashsurf_tpu_torch import kernels
 from splashsurf_tpu_torch import neighbors as tn
 from splashsurf_tpu_torch.ops import global_sweep as tgs
 from splashsurf_tpu_torch.ops import slab_sweep as tslab
+from torch_gate import reset_port_geoslot_hysteresis  # noqa: F401 (autouse)
 
 R = 0.025
 

@@ -13,6 +13,7 @@ from splashsurf_tpu.reconstruction import _bucket_grid, grid_for_reconstruction
 
 import splashsurf_tpu_torch as pt
 from splashsurf_tpu_torch import subdomains as ts
+from torch_gate import reset_port_geoslot_hysteresis  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True, scope="module")

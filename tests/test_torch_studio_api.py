@@ -20,6 +20,7 @@ import splashsurf_tpu_torch as pt
 import splashsurf_tpu_torch.studio as tstudio
 from splashsurf_tpu_torch.pipeline import PostprocessingParameters
 from splashsurf_tpu_torch.studio import handlers, operators, panels, properties, updater, utils
+from torch_gate import reset_port_geoslot_hysteresis  # noqa: F401 (autouse)
 
 PROPS = [
     {},
