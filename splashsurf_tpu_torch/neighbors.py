@@ -48,10 +48,12 @@ GATE_LATTICE_MAX = 8_000_000
 
 
 def _bucket_lattice_dim(n: int) -> int:
-    """Round a bin-lattice dimension up to its bucket (32 steps per octave).
-    Kept so that the port builds the same lattice as the reference package,
-    whose density gate reads the bucketed size; padded bins are empty."""
-    if n <= 4:
+    """Round a bin-lattice dimension up to its bucket (32 steps per octave;
+    ``neighbors.py:28-46`` of the reference). Kept so that the port builds
+    the same lattice as the reference package, whose density gate reads the
+    bucketed size; padded bins are empty. ``SPLASHSURF_TPU_LATTICE_BUCKET=0``,
+    read at each call, keeps ``n``."""
+    if os.environ.get("SPLASHSURF_TPU_LATTICE_BUCKET", "1") == "0" or n <= 4:
         return n
     step = max(2, 1 << max(n.bit_length() - 6, 1))
     return -(-n // step) * step

@@ -136,3 +136,43 @@ def test_bin_stats_tuple_shapes_match_the_reference():
     assert two == jn.bin_stats(jcl)
     assert three == jn.bin_stats_ex(jcl)
     assert three[0] > 8 and three[2] > 0 and three[:2] == two
+
+
+LATTICE_ENV = "SPLASHSURF_TPU_LATTICE_BUCKET"
+LATTICE_H = 0.0131
+LATTICE_HI = (1.0, 0.37, 0.23)
+
+
+@pytest.mark.parametrize("switch, dims", [("0", (79, 31, 20)), ("1", (80, 32, 20))])
+def test_lattice_bucket_switch_builds_the_reference_lattice(switch, dims, monkeypatch):
+    monkeypatch.setenv(LATTICE_ENV, switch)
+    args = ((0.0, 0.0, 0.0), LATTICE_HI, LATTICE_H)
+    assert tn.BinGrid.for_domain(*args).dims == jn.BinGrid.for_domain(*args).dims == dims
+
+
+def _lattice_cloud():
+    """A sparse uniform cloud over the domain of the lattice test whose
+    occupied bins (12435) lie between a quarter of the unbucketed lattice
+    (79 x 31 x 20) and a quarter of the bucketed one (80 x 32 x 20): the
+    gate's density test flips with the switch."""
+    rng = np.random.default_rng(5)
+    hi = np.asarray(LATTICE_HI)
+    pts = (rng.uniform(0.0, 1.0, (15_000, 3)) * hi).astype(np.float32)
+    pts[0], pts[1] = 0.0, hi.astype(np.float32)
+    return pts
+
+
+@pytest.mark.parametrize("switch, raster", [("0", True), ("1", False)])
+def test_lattice_bucket_switch_writes_the_reference_gate(switch, raster, monkeypatch):
+    monkeypatch.setenv(LATTICE_ENV, switch)
+    pts = _lattice_cloud()
+    jn.LAST_GATE.clear()
+    jrho = np.asarray(jn.compute_particle_densities(pts, LATTICE_H, MASS))
+    tn.LAST_GATE.clear()
+    trho = tn.compute_particle_densities(torch.as_tensor(pts), LATTICE_H, MASS)
+    jgate, tgate = jn.LAST_GATE["single"], tn.LAST_GATE["single"]
+    keys = ("n", "lattice", "n_bins", "max_occ", "over8", "try_geoslot", "use_raster")
+    assert {k: tgate[k] for k in keys} == {k: jgate[k] for k in keys}
+    assert tgate["use_raster"] == raster
+    assert tgate["lattice"] == (79 * 31 * 20 if switch == "0" else 80 * 32 * 20)
+    np.testing.assert_allclose(trho.numpy(), jrho, **F32)
