@@ -2044,6 +2044,68 @@ def phase_neighbors(pt, dev, cross, pts_np, ident):
                      (offs(counts), indices.cpu().numpy()), (offs(cc), ci.numpy()))
 
 
+def sync_calls(fn):
+    """(fn(), the synchronising CUDA calls it made), counted under
+    ``torch.cuda.set_sync_debug_mode("warn")``: each such call (a read of
+    the card, a copy from pageable host memory, a synchronise) warns once."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def idle_share(fn):
+    """(wall seconds, idle share) of one call of ``fn`` that ends in a
+    synchronise: the idle share is 1 - the summed time of the card's kernels
+    in a ``torch.profiler`` trace (CUDA activity only) over the wall time;
+    None when the trace holds no kernel. The profiler's own host cost is in
+    the wall time, so the share is an upper bound."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    busy_us = sum(e.get("dur", 0) for e in events if e.get("cat") == "kernel")
+    return wall, (None if busy_us == 0 else 1.0 - busy_us * 1e-6 / wall)
+
+
+def phase_plans(pt, pts, params, ident):
+    """Phase 18: warm frames of phase 4's scene, ``pts + k 1e-6``: their
+    seconds, the synchronising calls of one frame and the card's idle share
+    over one frame."""
+    log(f"phase 18: {N_FRAMES} frames of pts + k 1e-6")
+    frames = [pts + k * 1e-6 for k in range(N_FRAMES)]
+    pt.reconstruct_surface(frames[0], params)
+    secs = []
+    for f in frames[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pt.reconstruct_surface(f, params)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    _, n_sync = sync_calls(lambda: pt.reconstruct_surface(frames[1], params))
+    wall, idle = idle_share(lambda: pt.reconstruct_surface(frames[2], params))
+    log(f"  warm frame seconds {secs}; median {statistics.median(secs)} s; "
+        f"synchronising calls in one frame {n_sync}; idle share {idle} over "
+        f"{wall} s under the profiler ({ident})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2080,6 +2142,9 @@ def main() -> int:
     log(f"  scene: {n_main} particles, grid {grid.n_cells} "
         f"({grid.total_cells} cells), hsc {hsc}")
     kernels = {}
+    if sys.argv[1:] == ["--phase", "18"]:  # a quick look at phase 18 alone
+        phase_plans(pt, pts, params, ident)
+        return 0
 
     # --- 2. K1 ---------------------------------------------------------------
     N.reset_geoslot_hysteresis()
@@ -2168,6 +2233,9 @@ def main() -> int:
     log(f"  frame seconds {[round(s, 4) for s in frame_s]}; warm median {warm:.4f} s "
         f"= {n_main / warm / 1e6:.3f} Mparticles/s ({ident}); launches {launches}")
     dense_mesh = mesh
+
+    # --- 18. warm frames ---------------------------------------------------
+    phase_plans(pt, pts, params, ident)
 
     # --- 17. the splat API, padded MC, the hysteresis, the kernel helpers -----
     more = phase_splat_api(pt, dev, pts, grid, hsc, params, kernels, ident)
