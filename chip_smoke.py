@@ -2,6 +2,7 @@
 """Drive the PyTorch + CUDA port (``splashsurf_tpu_torch``) once on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase 18   # phases 0, 1 and 18 alone, no result line
 
 Phases (each prints progress; any failure raises and exits non-zero):
   0. the card: its name and power limit, torch and CUDA versions;
@@ -19,8 +20,9 @@ Phases (each prints progress; any failure raises and exits non-zero):
      support radius; its compiler report and the lattice's occupancy (query
      fill, occupied pairs and pairs within the support per particle);
   4. ``reconstruct_surface`` on the 2M-particle dam break (r = 0.011,
-     support 4r, cube 1.5r, iso 0.6): one cold frame and three more; the mesh
-     must be closed and manifold and both kernels must have launched;
+     support 4r, cube 1.5r, iso 0.6): one cold frame and three more, warm on
+     the frame plans; the mesh must be closed and manifold and both kernels
+     must have launched; ``SPECULATION_STATS`` of the four frames;
   5. the same scene at ~100K particles from a CPU input (plain versions) and
      from a CUDA input (kernels): equal counts, vertices within 1e-4;
   6. kernel K3 (per-subdomain sweep) against its plain version on the
@@ -43,12 +45,16 @@ Phases (each prints progress; any failure raises and exits non-zero):
      support); masks, compiler report, shared memory and occupancy (query
      fill, busy 32-cell segments, pairs per particle, tiles skipping a slot);
  10. ``reconstruct_sequence`` over 6 frames of the 2M dam break with the
-     cell-raster densities (``SPLASHSURF_TPU_DENSITY_CELLRASTER=1``): every
-     frame without raster overflow takes them (K4 launched once, K2 not at
-     all, one mask pre-pass for each K1 and K4 launch), each mesh is closed and equals a frame-at-a-time run, and the
-     first frame agrees with the legacy densities (rho rtol 1e-5, equal
-     counts, vertices within 1e-4); per-frame seconds pipelined and frame at
-     a time, and the stage split of both density formulations;
+     cell-raster densities (``SPLASHSURF_TPU_DENSITY_CELLRASTER=1``), from
+     no plan: a frame without raster overflow takes them (K4 launched once,
+     K2 not at all) when, at its dispatch, the overflow plan of its grid is
+     0 and its MC capacities are planned, as in the reference, and the
+     legacy densities (K2 once) otherwise, which is the first frame; one
+     mask pre-pass for each K1 and K4 launch; each mesh is closed and equals
+     a frame-at-a-time run from no plan, and frame 1 agrees with the legacy
+     densities (rho rtol 1e-5, equal counts, vertices within 1e-4);
+     per-frame seconds pipelined and frame at a time, and the stage split
+     of both density formulations;
  11. the user's command on the 2M dam break, in-process through the CLI
      (``run_splashsurf``): the particles and a seeded velocity written to a
      VTK file, then ``reconstruct`` with cleanup, barnacle decimation,
@@ -120,8 +126,16 @@ Phases (each prints progress; any failure raises and exits non-zero):
      ``reset_geoslot_hysteresis()``, both within rtol 2e-5 of the f64
      densities; (d) ``cubic_kernel_gradient`` and
      ``DiscreteSquaredDistanceCubicKernel`` on the card against float64.
-     Phases whose densities must take geoslot (2, 4, 16, 17) first reset
-     the process-global hysteresis.
+     Phases whose densities must take geoslot (2, 4, 16, 17, 18) first
+     reset the process-global hysteresis.
+ 18. the frame plans (run after phase 4): frames of phase 4's scene, pts +
+     k 1e-6, each warm frame on the plans of the frame before it, dispatched
+     under ``torch.cuda.set_sync_debug_mode("error")`` up to its
+     ``resolve()``, with K1 and K2 launched once and one frame counted, no
+     miss; each frame warm on its own plans equal to its plan-cleared run
+     (counts, vertices within 1e-6); the warm and plan-cleared seconds,
+     synchronising calls and the card's idle share (``torch.profiler``); a
+     frame shifted past a grid cell misses its grid plan.
 
 Each kernel's line carries its bound: the larger of the bytes it must move
 (rasters read once, output written once) over 3.35 TB/s and the float
@@ -763,9 +777,9 @@ def phase_cross_subdomain(pt, dev, dam):
     check_same_mesh("subdomain/dense dam break", rs.mesh, rd.mesh, ordered=False, tree=cKDTree)
 
 
-def check_same_mesh(name, a, b, ordered, tree=None, same_counts=True):
+def check_same_mesh(name, a, b, ordered, tree=None, same_counts=True, tol=1e-4):
     """Equal counts (unless ``same_counts`` is False) and vertices within
-    1e-4: position by position when both lists share an order, else by
+    ``tol``: position by position when both lists share an order, else by
     nearest neighbour both ways."""
     if same_counts and (a.num_vertices, a.num_triangles) != (b.num_vertices, b.num_triangles):
         raise AssertionError(
@@ -777,7 +791,7 @@ def check_same_mesh(name, a, b, ordered, tree=None, same_counts=True):
     else:
         vdiff = max(float(tree(b.vertices).query(a.vertices)[0].max()),
                     float(tree(a.vertices).query(b.vertices)[0].max()))
-    if vdiff >= 1e-4:
+    if vdiff >= tol:
         raise AssertionError(f"{name}: vertices differ by {vdiff}")
     same = ordered and bool((a.triangles == b.triangles).all())
     counts = f"{a.num_vertices} vertices, {a.num_triangles} triangles"
@@ -928,7 +942,6 @@ def dense_stage_split(pts, params, grid, hsc, cellraster: bool, reps: int = 3):
     (densities, rasterize, sweep, MC, pull) or the cell-raster ones
     (rasterize with meta, K4 + fv, sweep, MC, pull)."""
     from splashsurf_tpu_torch import neighbors as N
-    from splashsurf_tpu_torch.global_pipeline import MeshPull
     from splashsurf_tpu_torch.ops import global_sweep as gs
 
     h, m = params.compact_support_radius, params.particle_rest_mass
@@ -961,9 +974,9 @@ def dense_stage_split(pts, params, grid, hsc, cellraster: bool, reps: int = 3):
             lap("rasterize")
             ls = gs.sweep_global(rasters, overflow, grid, h, hsc)
         lap("sweep")
-        verts, tris = gs.mesh_from_level_set(ls, grid, params.iso_surface_threshold)
+        verts, tris = gs.mc_global_cells(ls, grid, params.iso_surface_threshold)
         lap("marching cubes")
-        MeshPull(verts, tris).resolve()
+        gs.PendingPull(lambda v, t: (v, t), [verts, tris]).resolve()
         lap("pull")
         runs.append(t)
     return {k: statistics.median(r[k] for r in runs) for k in runs[0]}
@@ -974,8 +987,8 @@ def rel_err(rho, truth):
 
 
 def compare_legacy(pt, frame, params, cell):
-    """Frame 0 with the cell-raster densities (``cell``) against the legacy
-    densities (switch "0").
+    """Frame 1 (the first on the cell-raster densities, ``cell``) against
+    the legacy densities (switch "0").
 
     In f64 the two agree within rho rtol 1e-5 (the reference's own bar
     between them), with equal counts and vertices within 1e-4. In f32 the
@@ -1004,18 +1017,18 @@ def compare_legacy(pt, frame, params, cell):
         raise AssertionError("the f64 frame did not take the cell-raster densities")
     torch.testing.assert_close(cell64.particle_densities, truth.particle_densities,
                                rtol=1e-5, atol=0)
-    log(f"  frame 0 f64, cell-raster / legacy ({kind}) densities: rho max relative "
+    log(f"  frame 1 f64, cell-raster / legacy ({kind}) densities: rho max relative "
         f"difference {rel_err(cell64.particle_densities, truth.particle_densities):.3e}")
-    check_same_mesh("frame 0 f64, cell-raster / legacy", cell64.mesh, truth.mesh, ordered=True)
+    check_same_mesh("frame 1 f64, cell-raster / legacy", cell64.mesh, truth.mesh, ordered=True)
     rho64 = truth.particle_densities
     e_cell = rel_err(cell.particle_densities, rho64)
     e_leg = rel_err(legacy.particle_densities, rho64)
-    log(f"  frame 0 f32, rho max relative error against the f64 densities: cell-raster "
+    log(f"  frame 1 f32, rho max relative error against the f64 densities: cell-raster "
         f"{e_cell:.3e}, legacy {e_leg:.3e}; between them "
         f"{rel_err(cell.particle_densities, legacy.particle_densities.double()):.3e}")
     if e_cell > max(1e-5, 2 * e_leg):
         raise AssertionError(f"cell-raster densities off by {e_cell:.3e} (legacy {e_leg:.3e})")
-    check_same_mesh("frame 0 f32, cell-raster / legacy", cell.mesh, legacy.mesh, ordered=False,
+    check_same_mesh("frame 1 f32, cell-raster / legacy", cell.mesh, legacy.mesh, ordered=False,
                     tree=cKDTree, same_counts=False)
 
 
@@ -1056,30 +1069,36 @@ def phase_sequence(pt, pts, params, kernels, ident):
     try:
         os.environ[CELLRASTER] = "1"
         list(pt.reconstruct_sequence(frames[:2], params))  # warm-up, not counted
+        clear_plans()  # the sequence's first frame plans, as a user's does
         reset_launches(sk)
         record = []
 
         def recording():
-            for f in frames:
+            for f, g in zip(frames, grids):
+                # the reference's condition (global_pipeline.py:383-389)
+                planned = (gs._OVER_PLAN.get((g.n_points, n)) == 0
+                           and (g.n_points, str(f.dtype)) in gs._MC_CAPS)
+                k4, k2 = sk.pair_sweep_cuda.launches, sk.density_sweep_cuda.launches
                 yield f
-                record.append((N.LAST_GATE.get("kind"), sk.pair_sweep_cuda.launches,
-                               sk.density_sweep_cuda.launches))
+                record.append((planned, N.LAST_GATE.get("kind"),
+                               sk.pair_sweep_cuda.launches - k4,
+                               sk.density_sweep_cuda.launches - k2))
 
         seq, gaps_pipe = timed_sequence(pt.reconstruct_sequence(recording(), params))
         launches = sk.pair_sweep_cuda.launches
         masks = check_mask_launches(sk, sk.sweep_global_cuda.launches + launches)
-        took, prev = 0, (0, 0)
-        for i, ((kind, k4, k2), n_over) in enumerate(zip(record, over)):
-            step, prev = (k4 - prev[0], k2 - prev[1]), (k4, k2)
-            if n_over == 0:
-                if kind != "cellraster" or step != (1, 0):
-                    raise AssertionError(
-                        f"frame {i} has no raster overflow but took {kind} with "
-                        f"(K4, K2) launches {step}"
-                    )
-                took += 1
-        if took == 0:
-            raise AssertionError("no frame of the sequence took the cell-raster densities")
+        took = 0
+        for i, ((planned, kind, k4, k2), n_over) in enumerate(zip(record, over)):
+            want = ("cellraster", 1, 0) if planned else (kind, 0, 1)
+            if n_over == 0 and ((kind, k4, k2) != want or (kind == "cellraster") != planned):
+                raise AssertionError(
+                    f"frame {i} (plans for the cell-raster densities: {planned}) took "
+                    f"{kind} with K4, K2 launches {k4}, {k2}"
+                )
+            took += kind == "cellraster"
+        if record[0][0] or took == 0:
+            raise AssertionError("the first frame was not the planning frame, or no frame "
+                                 "took the cell-raster densities")
         kernels["pair_sweep"]["launches"] = launches
         for i, rec in enumerate(seq):
             bad = pt.check_mesh_consistency(rec.mesh.vertices, rec.mesh.triangles)
@@ -1087,11 +1106,12 @@ def phase_sequence(pt, pts, params, kernels, ident):
                 raise AssertionError(f"frame {i}: mesh not closed/manifold or empty: {bad}")
 
         os.environ["SPLASHSURF_TPU_PIPELINE"] = "0"
+        clear_plans()  # the same plans, frame by frame
         single, gaps_single = timed_sequence(pt.reconstruct_sequence(frames, params))
         for i, (a, b) in enumerate(zip(seq, single)):
             check_same_mesh(f"frame {i}, sequence / frame at a time", a.mesh, b.mesh, ordered=True)
 
-        compare_legacy(pt, frames[0], params, seq[0])
+        compare_legacy(pt, frames[1], params, seq[1])
     finally:
         for k, v in saved.items():
             if v is None:
@@ -2085,25 +2105,122 @@ def idle_share(fn):
     return wall, (None if busy_us == 0 else 1.0 - busy_us * 1e-6 / wall)
 
 
+def clear_plans():
+    """Forget every speculative plan of the port: the next frame is cold."""
+    from splashsurf_tpu_torch import neighbors, reconstruction
+    from splashsurf_tpu_torch.ops import global_sweep as gs
+
+    neighbors.clear_density_plan()
+    reconstruction.clear_grid_plan()
+    for plan in (gs._OVER_PLAN, gs._MC_CAPS, gs._PULL_PLAN):
+        plan.clear()
+
+
+def stats_delta(before):
+    from splashsurf_tpu_torch.global_pipeline import SPECULATION_STATS
+
+    return {k: v - before[k] for k, v in SPECULATION_STATS.items() if v != before[k]}
+
+
 def phase_plans(pt, pts, params, ident):
-    """Phase 18: warm frames of phase 4's scene, ``pts + k 1e-6``: their
-    seconds, the synchronising calls of one frame and the card's idle share
-    over one frame."""
-    log(f"phase 18: {N_FRAMES} frames of pts + k 1e-6")
-    frames = [pts + k * 1e-6 for k in range(N_FRAMES)]
-    pt.reconstruct_surface(frames[0], params)
-    secs = []
-    for f in frames[1:]:
+    """Phase 18: frames of phase 4's scene, ``pts + k 1e-6`` as CUDA tensors,
+    on the frame plans.
+
+    (a) The chain a user runs: a cold frame 0, then warm frames 1-5, each on
+    the plans of the frame before it. Each warm frame is dispatched under
+    ``torch.cuda.set_sync_debug_mode("error")`` up to its ``resolve()`` (a
+    read of the card fails the phase), launches K1 and K2 once and moves
+    ``SPECULATION_STATS`` by one frame and no miss. Its mesh is held to the
+    same frame run with the plans cleared by nearest neighbour, both ways,
+    within 1e-4: between these frames the geoslot lattice may re-phase (its
+    origin is quantized to s / 4096 = 5.4e-6 m), and float32 densities on
+    another origin differ by the fractions' rounding, up to ~1e-5 relative.
+    (b) Each frame on its own plans: the plans cleared, frame k run cold,
+    then frame k again, warm, under the same checks: equal counts and
+    vertices within 1e-6 of the cold run. (c) The seconds of (a)'s warm
+    frames and of the plan-cleared ones, the synchronising calls of a frame
+    of each, and the card's idle share over a frame of each. (d) A frame
+    shifted by two cells misses its grid plan and gives the cold frame's
+    mesh."""
+    from scipy.spatial import cKDTree
+
+    from splashsurf_tpu_torch import neighbors as N
+    from splashsurf_tpu_torch.global_pipeline import SPECULATION_STATS
+    from splashsurf_tpu_torch.ops import splat_kernels as sk
+
+    log(f"phase 18: {N_FRAMES} frames of pts + k 1e-6 on the frame plans")
+
+    def warm_frame(f, label):
+        before = dict(SPECULATION_STATS)
+        reset_launches(sk)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pt.reconstruct_surface(f, params)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            rec = pt.reconstruct_surface(f, params, _defer_pull=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        rec.resolve()
         torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-    _, n_sync = sync_calls(lambda: pt.reconstruct_surface(frames[1], params))
-    wall, idle = idle_share(lambda: pt.reconstruct_surface(frames[2], params))
-    log(f"  warm frame seconds {secs}; median {statistics.median(secs)} s; "
-        f"synchronising calls in one frame {n_sync}; idle share {idle} over "
-        f"{wall} s under the profiler ({ident})")
+        dt = time.perf_counter() - t0
+        launches = (sk.sweep_global_cuda.launches, sk.density_sweep_cuda.launches)
+        if launches != (1, 1):
+            raise AssertionError(f"{label}: (K1, K2) launches {launches}, want (1, 1)")
+        if stats_delta(before) != {"frames": 1}:
+            raise AssertionError(f"{label}: SPECULATION_STATS moved {stats_delta(before)}")
+        return rec, dt
+
+    def cold_frame(f):
+        clear_plans()
+        return pt.reconstruct_surface(f, params)
+
+    def lattice():
+        (plan,) = N._DENSITY_PLAN.values()
+        return plan["grid"].min
+
+    N.reset_geoslot_hysteresis()
+    frames = [pts + k * 1e-6 for k in range(N_FRAMES)]
+    cold_frame(frames[0])
+    chain_lattice = lattice()
+    chain, warm_s, cold_s = [], [], []
+    for k, f in enumerate(frames[1:], 1):
+        rec, dt = warm_frame(f, f"warm frame {k}")
+        chain.append(rec)
+        warm_s.append(dt)
+    for k, f in enumerate(frames[1:], 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cold = cold_frame(f)
+        torch.cuda.synchronize()
+        cold_s.append(time.perf_counter() - t0)
+        moved = lattice() != chain_lattice
+        check_same_mesh(f"warm frame {k} / plans cleared (lattice re-phased: {moved})",
+                        chain[k - 1].mesh, cold.mesh, ordered=False, tree=cKDTree,
+                        same_counts=False)
+        rec, _ = warm_frame(f, f"frame {k} on its own plans")
+        check_same_mesh(f"frame {k} on its own plans / plans cleared", rec.mesh, cold.mesh,
+                        ordered=True, tol=1e-6)
+    warm_sync = sync_calls(lambda: pt.reconstruct_surface(frames[1], params))[1]
+    warm_wall, warm_idle = idle_share(lambda: pt.reconstruct_surface(frames[2], params))
+    cold_sync = sync_calls(lambda: cold_frame(frames[3]))[1]
+    cold_wall, cold_idle = idle_share(lambda: cold_frame(frames[4]))
+    # a frame shifted past a grid cell: the grid plan misses, the frame runs cold
+    shifted = pts + 2.0 * params.cube_size
+    before = dict(SPECULATION_STATS)
+    rec = pt.reconstruct_surface(shifted, params)
+    moved = stats_delta(before)
+    if moved.get("grid_miss") != 1:
+        raise AssertionError(f"the shifted frame did not miss its grid plan: {moved}")
+    check_same_mesh("shifted frame / plans cleared", rec.mesh, cold_frame(shifted).mesh,
+                    ordered=True, tol=1e-6)
+    log(f"  warm frames on the plans: seconds {warm_s}, median {statistics.median(warm_s)}; "
+        f"K1 and K2 launched once each, no synchronising call up to resolve()")
+    log(f"  plans cleared before each frame: seconds {cold_s}, median "
+        f"{statistics.median(cold_s)}")
+    log(f"  synchronising calls in one frame: on the plans {warm_sync}, plans cleared "
+        f"{cold_sync}; idle share under the profiler: on the plans {warm_idle} over "
+        f"{warm_wall} s, plans cleared {cold_idle} over {cold_wall} s ({ident})")
+    log(f"  the shifted frame: SPECULATION_STATS moved {moved}; the cold frame's mesh")
 
 
 def main() -> int:
@@ -2205,6 +2322,9 @@ def main() -> int:
     # --- 4. the main path at full size ---------------------------------------
     log(f"phase 4: reconstruct_surface, {n_main} particles")
     N.reset_geoslot_hysteresis()  # a geoslot scene: start from no recorded collision
+    from splashsurf_tpu_torch.global_pipeline import SPECULATION_STATS
+
+    stats0 = dict(SPECULATION_STATS)
     reset_launches(sk)
     frame_s = []
     for _ in range(4):
@@ -2231,10 +2351,11 @@ def main() -> int:
     warm = statistics.median(frame_s[1:])
     log(f"  mesh {mesh.num_vertices} vertices, {mesh.num_triangles} triangles, closed")
     log(f"  frame seconds {[round(s, 4) for s in frame_s]}; warm median {warm:.4f} s "
-        f"= {n_main / warm / 1e6:.3f} Mparticles/s ({ident}); launches {launches}")
+        f"= {n_main / warm / 1e6:.3f} Mparticles/s ({ident}); launches {launches}; "
+        f"SPECULATION_STATS {stats_delta(stats0)}")
     dense_mesh = mesh
 
-    # --- 18. warm frames ---------------------------------------------------
+    # --- 18. warm frames on the frame plans ------------------------------------
     phase_plans(pt, pts, params, ident)
 
     # --- 17. the splat API, padded MC, the hysteresis, the kernel helpers -----

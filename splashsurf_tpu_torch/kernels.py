@@ -11,6 +11,7 @@ branch, and an empty raster slot (position +inf) evaluates to exactly 0.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -57,8 +58,27 @@ def grid_coord(idx: torch.Tensor, origin: float, spacing: float, dtype) -> torch
     o, s = rounded(origin, dtype), rounded(spacing, dtype)
     if dtype == torch.float32:
         return (o + idx.to(torch.float64) * s).to(torch.float32)
-    scalar = lambda v: torch.tensor(v, dtype=dtype, device=idx.device)
+    scalar = lambda v: torch.full((), v, dtype=dtype, device=idx.device)
     return torch.addcmul(scalar(o), idx.to(dtype), scalar(s))
+
+
+def compact_indices(mask: torch.Tensor, capacity: Optional[int] = None) -> torch.Tensor:
+    """Ascending indices of the set entries of the 1-D bool ``mask``.
+
+    Without ``capacity``, all of them (``torch.nonzero``: their count is
+    read back from the device). With ``capacity``, a fixed-size list of the
+    first ``capacity`` of them, padded with ``mask.numel()``, and nothing is
+    read back: ``torch.nonzero_static`` where torch has it, otherwise a
+    cumsum and a scatter into a buffer of the capacity."""
+    if capacity is None:
+        return torch.nonzero(mask).squeeze(1)
+    n = mask.numel()
+    if hasattr(torch, "nonzero_static"):
+        return torch.nonzero_static(mask, size=capacity, fill_value=n).squeeze(1)
+    dest = torch.where(mask, torch.cumsum(mask, 0) - 1, capacity).clamp_max(capacity)
+    out = torch.full((capacity + 1,), n, dtype=torch.int64, device=mask.device)
+    out.scatter_(0, dest, torch.arange(n, device=mask.device))
+    return out[:capacity]
 
 
 def scatter_table(dest, values, total: int, fill: float, shape) -> torch.Tensor:

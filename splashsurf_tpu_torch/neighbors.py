@@ -31,6 +31,7 @@ within the search radius, and the lists come to the host in CSR form.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import os
 from typing import NamedTuple, Optional, Tuple
@@ -108,12 +109,19 @@ class CellList(NamedTuple):
     order: torch.Tensor  # (N,) int64: original index of each sorted slot
     sorted_bins: torch.Tensor  # (N,) int64
     sorted_positions: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+    bin_of_particle: torch.Tensor  # (N,) int64: flat bin id per original index
 
 
 _STENCIL = np.array(
     [(i, j, k) for i in (-1, 0, 1) for j in (-1, 0, 1) for k in (-1, 0, 1)],
     dtype=np.int64,
 )
+
+
+@functools.cache
+def stencil_on(device: torch.device) -> torch.Tensor:
+    """``_STENCIL`` on ``device``, copied there once."""
+    return torch.as_tensor(_STENCIL, device=device)
 
 
 def build_cell_list(positions: torch.Tensor, grid: BinGrid) -> CellList:
@@ -124,18 +132,38 @@ def build_cell_list(positions: torch.Tensor, grid: BinGrid) -> CellList:
         order=order,
         sorted_bins=sorted_bins,
         sorted_positions=tuple(positions[:, d][order] for d in range(3)),
+        bin_of_particle=bins,
+    )
+
+
+def _run_starts(sorted_bins: torch.Tensor):
+    """(is_start, first): whether each sorted slot starts its bin's run, and
+    the sorted index of its run's first slot; no read-back."""
+    n = sorted_bins.shape[0]
+    dev = sorted_bins.device
+    is_start = torch.ones(n, dtype=torch.bool, device=dev)
+    is_start[1:] = sorted_bins[1:] != sorted_bins[:-1]
+    idx = torch.arange(n, device=dev)
+    first = torch.cummax(torch.where(is_start, idx, 0), 0).values
+    return is_start, first
+
+
+def _bin_stats_device(sorted_bins: torch.Tensor) -> torch.Tensor:
+    """(max occupancy, occupied bins, particles with bin rank >= 8) as one
+    int64 device tensor (``_bin_stats_device`` of the reference,
+    ``neighbors.py:154-168``)."""
+    is_start, _ = _run_starts(sorted_bins)
+    seg = torch.cumsum(is_start, 0) - 1
+    counts = torch.zeros_like(seg).scatter_add_(0, seg, torch.ones_like(seg))
+    return torch.stack(
+        [counts.max(), seg[-1] + 1, torch.clamp_min(counts - 8, 0).sum()]
     )
 
 
 def bin_stats_ex(cell_list: CellList) -> Tuple[int, int, int]:
     """(max occupancy, occupied bins, particles with bin rank >= 8), read
     back to the host in one transfer."""
-    _, counts = torch.unique_consecutive(cell_list.sorted_bins, return_counts=True)
-    stats = torch.stack(
-        [counts.max(), torch.tensor(counts.numel(), device=counts.device),
-         torch.clamp_min(counts - 8, 0).sum()]
-    )
-    mx, u, o8 = stats.tolist()
+    mx, u, o8 = _bin_stats_device(cell_list.sorted_bins).tolist()
     return int(mx), int(u), int(o8)
 
 
@@ -145,34 +173,38 @@ def bin_stats(cell_list: CellList) -> Tuple[int, int]:
 
 
 def _segment_tables(sorted_bins: torch.Tensor, lattice: int):
-    """Dense per-bin (first sorted index, count) tables over the lattice."""
+    """Dense per-bin (first sorted index, count) tables over the lattice
+    (no read-back)."""
     n = sorted_bins.shape[0]
     dev = sorted_bins.device
-    is_start = torch.ones(n, dtype=torch.bool, device=dev)
-    is_start[1:] = sorted_bins[1:] != sorted_bins[:-1]
-    first = torch.nonzero(is_start).squeeze(1)
-    starts = torch.zeros(lattice, dtype=torch.int64, device=dev)
-    starts[sorted_bins[first]] = first
-    counts = torch.bincount(sorted_bins, minlength=lattice)
-    return starts, counts
+    is_start, _ = _run_starts(sorted_bins)
+    starts = torch.zeros(lattice + 1, dtype=torch.int64, device=dev)
+    starts.scatter_(0, torch.where(is_start, sorted_bins, lattice), torch.arange(n, device=dev))
+    counts = torch.zeros(lattice, dtype=torch.int64, device=dev)
+    counts.scatter_add_(0, sorted_bins, torch.ones_like(sorted_bins))
+    return starts[:lattice], counts
 
 
-def gather_candidates(query, grid: BinGrid, cell_list: CellList, capacity: int, tables):
+def gather_candidates(query_positions, grid: BinGrid, cell_list: CellList, capacity: int,
+                      tables):
     """Candidate particle indices from the 27-bin stencil of each query.
 
     Returns (idx (M, 27*capacity) into the original order, mask (M,
     27*capacity)), stencil offset major and bin-sorted order minor."""
-    return stencil_candidates(grid.bin_ijk(query), grid, cell_list, capacity, tables)
+    return stencil_candidates(grid.bin_ijk(query_positions), grid, cell_list, capacity, tables)
 
 
 def stencil_candidates(q_ijk, grid: BinGrid, cell_list: CellList, capacity: int, tables):
     """``gather_candidates`` for queries given by their (M, 3) bin indices."""
     starts_table, counts_table = tables
     dev = q_ijk.device
-    dims = torch.tensor(grid.dims, device=dev)
-    nb = q_ijk[:, None, :] + torch.as_tensor(_STENCIL, device=dev)[None]
-    valid = torch.all((nb >= 0) & (nb < dims), dim=-1)
-    nb_flat = grid.flatten(torch.minimum(torch.clamp_min(nb, 0), dims - 1))
+    nb = q_ijk[:, None, :] + stencil_on(dev)[None]
+    valid = torch.ones(nb.shape[:2], dtype=torch.bool, device=dev)
+    cols = []
+    for d, dim in enumerate(grid.dims):
+        valid &= (nb[..., d] >= 0) & (nb[..., d] < dim)
+        cols.append(nb[..., d].clamp(0, dim - 1))
+    nb_flat = grid.flatten(torch.stack(cols, dim=-1))
     starts = starts_table[nb_flat]
     counts = torch.where(valid, counts_table[nb_flat], 0)
     slot = torch.arange(capacity, device=dev)
@@ -183,26 +215,41 @@ def stencil_candidates(q_ijk, grid: BinGrid, cell_list: CellList, capacity: int,
     return idx.flatten(1), mask.flatten(1)
 
 
-def _overflow_correction(positions, grid, cell_list, K, capacity, h, rho):
+def _overflow_correction(positions, grid, cell_list, K, capacity, h, rho, overflow_capacity=0):
     """Exact correction for particles of within-bin rank >= K, which the
     dense tables leave out: their own density is summed over full candidate
     gathers (self term included), and their contribution is added into the
-    table particles. Lists are compacted to their exact sizes. The queries'
-    stencils come from their sorted bin ids, never from their positions, so
-    the cell list may be that of one x-slab of a larger lattice (``grid``
-    then has the slab's dims).
+    table particles. The queries' stencils come from their sorted bin ids,
+    never from their positions, so the cell list may be that of one x-slab
+    of a larger lattice (``grid`` then has the slab's dims).
+
+    With ``overflow_capacity`` (the density plan's ``ocap``), the lists of
+    overflow bins and overflow particles have that fixed size and nothing is
+    read back: the reference's two-level compaction (``neighbors.py:
+    589-684``); entries past the capacity are left out, and the plan check
+    then misses the frame. With 0 the lists have their exact sizes (one
+    read-back).
 
     The index_add_ sums run with atomics on CUDA, so their order, and the
     last bits of the corrected densities, change from run to run."""
     dtype = positions.dtype
     dev = positions.device
-    tables = _segment_tables(cell_list.sorted_bins, grid.lattice)
+    oc = overflow_capacity or None
+    lattice = grid.lattice
+    tables = _segment_tables(cell_list.sorted_bins, lattice)
     starts_table, counts_table = tables
-    obin = torch.nonzero(counts_table > K).squeeze(1)  # ascending bin id
+    obin = kernels.compact_indices(counts_table > K, oc)  # ascending bin id
+    ob_ok = obin < lattice
+    obin = torch.where(ob_ok, obin, 0)
     base = starts_table[obin]
-    cnt = counts_table[obin]
+    cnt = torch.where(ob_ok, counts_table[obin], 0)
     rr = torch.arange(K, capacity, device=dev)
-    osid = (base[:, None] + rr[None, :])[rr[None, :] < cnt[:, None]]
+    sid = (base[:, None] + rr[None, :]).reshape(-1)
+    if sid.numel() == 0:
+        return rho
+    take = kernels.compact_indices((rr[None, :] < cnt[:, None]).reshape(-1), oc)
+    ovalid = take < sid.numel()
+    osid = torch.where(ovalid, sid[take.clamp_max(sid.numel() - 1)], 0)
     opos = [cell_list.sorted_positions[d][osid] for d in range(3)]
     oidx = cell_list.order[osid]
 
@@ -210,6 +257,7 @@ def _overflow_correction(positions, grid, cell_list, K, capacity, h, rho):
     _, dy, dz = grid.dims
     q_ijk = torch.stack([ob // (dy * dz), (ob // dz) % dy, ob % dz], dim=1)
     idx, cmask = stencil_candidates(q_ijk, grid, cell_list, capacity, tables)
+    cmask = cmask & ovalid[:, None]
     d2o = torch.zeros(idx.shape, dtype=dtype, device=dev)
     for d in range(3):
         diff = positions[:, d][idx] - opos[d][:, None]
@@ -221,7 +269,7 @@ def _overflow_correction(positions, grid, cell_list, K, capacity, h, rho):
     slot_within = torch.arange(capacity, device=dev).repeat(27)[None, :]
     to_table = cmask & (slot_within < K)
     rho = rho.index_add(0, idx.reshape(-1), torch.where(to_table, wo, 0.0).reshape(-1))
-    return rho.index_add(0, oidx, rho_over)
+    return rho.index_add(0, oidx, torch.where(ovalid, rho_over, 0.0))
 
 
 def _sweep_readback(rasters, slot, bx, by, bz, ok, LX, bin_size, h):
@@ -236,12 +284,15 @@ def _sweep_readback(rasters, slot, bx, by, bz, ok, LX, bin_size, h):
 
 def compute_particle_densities_raster(
     positions, grid: BinGrid, cell_list: CellList, compact_support_radius,
-    particle_rest_mass, slots: int = 8, overflow: bool = False,
-    candidate_capacity: int = 0, x0: int = 0,
+    particle_rest_mass, slots: int = 8, overflow_capacity: int = 0,
+    candidate_capacity: int = 0, overflow: bool = False, x0: int = 0,
 ):
     """SPH densities via the dense bin-raster sweep, slots from the
-    within-bin rank of the bin-sorted order; with ``overflow`` the rank >=
-    ``slots`` particles go through the exact overflow correction.
+    within-bin rank of the bin-sorted order; with ``overflow``, or a
+    nonzero ``overflow_capacity`` (the lists' fixed size, see
+    :func:`_overflow_correction`), the rank >= ``slots`` particles go
+    through the exact overflow correction. Nothing is read back unless the
+    correction sizes its lists exactly.
 
     ``grid`` may be an x-slab of a larger lattice: its bin x = 0 is the
     lattice's bin ``x0``, and the bin corners, hence the fractions, are the
@@ -251,11 +302,8 @@ def compute_particle_densities_raster(
     n = positions.shape[0]
     LX, LY, LZ = grid.dims
     sb = cell_list.sorted_bins
-    is_start = torch.ones(n, dtype=torch.bool, device=dev)
-    is_start[1:] = sb[1:] != sb[:-1]
-    run_first = torch.nonzero(is_start).squeeze(1)
-    run_id = torch.cumsum(is_start, 0) - 1
-    slot = torch.arange(n, device=dev) - run_first[run_id]
+    _, first = _run_starts(sb)
+    slot = torch.arange(n, device=dev) - first
 
     Xp, Yp, Zp = LX + 2, LY + 2, LZ + 2
     bx, by, bz = sb // (LY * LZ), (sb // LZ) % LY, sb % LZ
@@ -273,10 +321,10 @@ def compute_particle_densities_raster(
     )
     rho = torch.empty_like(rho_sorted)
     rho[cell_list.order] = rho_sorted
-    if overflow:
+    if overflow or overflow_capacity:
         rho = _overflow_correction(
             positions, grid, cell_list, slots, candidate_capacity,
-            compact_support_radius, rho,
+            compact_support_radius, rho, overflow_capacity,
         )
     return kernels.rounded(particle_rest_mass, dtype) * rho
 
@@ -359,7 +407,9 @@ def geoslot_rasters(positions, grid: BinGrid, x_lo: int = 0, nx: Optional[int] =
 
     total = 8 * Xp * Yp * Zp
     dest = ((slot * Xp + bx + 1) * Yp + by + 1) * Zp + (bz + 1)
-    no_collision = torch.bincount(dest, minlength=total).max() <= 1
+    counts = torch.zeros(total, dtype=torch.int32, device=positions.device)
+    counts.scatter_add_(0, dest, torch.ones_like(dest, dtype=torch.int32))
+    no_collision = counts.max() <= 1
     far = kernels.far_fill(dtype)
     rasters = [
         kernels.scatter_table(dest, frac[d], total, far, (8, Xp, Yp, Zp))
@@ -398,8 +448,9 @@ _PAIR_BLOCK_ELEMS = 1 << 25
 
 def compute_particle_densities_binned(
     positions, grid: BinGrid, cell_list: CellList, compact_support_radius,
-    particle_rest_mass, capacity: int, u_cap: int, overflow: bool = False,
-    candidate_capacity: int = 0,
+    particle_rest_mass, capacity: int, u_cap: int, overflow_capacity: int = 0,
+    candidate_capacity: int = 0, overflow: bool = False,
+    occupied: Optional[int] = None,
 ):
     """SPH densities from per-occupied-bin position tables.
 
@@ -408,52 +459,55 @@ def compute_particle_densities_binned(
     offsets adds, for every occupied bin, the (K, K) block of kernel values
     between its slots and those of the neighbour bin; empty slots add
     exactly 0 and the self term W(0) comes in naturally. ``u_cap`` is the
-    occupied-bin count rounded up to a power of two, as in the reference;
-    only the occupied rows are swept, in row blocks that bound the pair
-    block to ``_PAIR_BLOCK_ELEMS``. Neighbour rows come from a dense rank
-    table on lattices up to ``RANK_TABLE_MAX`` bins, else from a binary
-    search over the occupied bin ids.
+    occupied-bin count rounded up to a power of two, as in the reference.
+    The rows swept are the first ``occupied`` (the occupied-bin count, where
+    the caller knows it) or all ``u_cap``, in row blocks that bound the pair
+    block to ``_PAIR_BLOCK_ELEMS``; nothing is read back. Neighbour rows
+    come from a dense rank table on lattices up to ``RANK_TABLE_MAX`` bins,
+    else from a binary search over the occupied bin ids.
 
     ``capacity`` (K) must cover the largest occupancy unless ``overflow``
-    is set: then the rank >= K particles are left out of the tables and
-    corrected exactly (``_overflow_correction``, with ``candidate_capacity``
-    >= the largest occupancy).
+    or ``overflow_capacity`` is set: then the rank >= K particles are left
+    out of the tables and corrected exactly (``_overflow_correction``, with
+    ``candidate_capacity`` >= the largest occupancy).
     """
     dtype = positions.dtype
     dev = positions.device
     n = positions.shape[0]
     K = capacity
+    R = u_cap if occupied is None else min(int(occupied), u_cap)
     sb = cell_list.sorted_bins
-    is_start = torch.ones(n, dtype=torch.bool, device=dev)
-    is_start[1:] = sb[1:] != sb[:-1]
+    is_start, first = _run_starts(sb)
     bin_rank = torch.cumsum(is_start, 0) - 1
-    first = torch.nonzero(is_start).squeeze(1)
-    n_bins = first.shape[0]
-    if n_bins > u_cap:
-        raise ValueError(f"u_cap {u_cap} below the {n_bins} occupied bins")
-    slot = torch.arange(n, device=dev) - first[bin_rank]
-    occ_bins = sb[first]  # ascending
+    slot = torch.arange(n, device=dev) - first
+    lattice = grid.lattice
+    _, dy, dz = grid.dims
+    # rows past the occupied bins hold a bin id whose every stencil target
+    # lies past the lattice
+    empty_row = lattice + dy * dz + dz + 2
+    occ_bins = torch.full((R + 1,), empty_row, dtype=torch.int64, device=dev)
+    occ_bins.scatter_(0, torch.where(is_start & (bin_rank < R), bin_rank, R), sb)
+    occ_bins = occ_bins[:R]  # ascending
 
-    table_ok = slot < K
-    dest = torch.where(table_ok, bin_rank * K + slot, u_cap * K)
+    table_ok = (slot < K) & (bin_rank < R)
+    dest = torch.where(table_ok, bin_rank * K + slot, R * K)
     far = kernels.far_fill(dtype)
     tables = [
-        kernels.scatter_table(dest, cell_list.sorted_positions[d], u_cap * K, far, (u_cap, K))
+        kernels.scatter_table(dest, cell_list.sorted_positions[d], R * K, far, (R, K))
         for d in range(3)
     ]
 
-    lattice = grid.lattice
-    _, dy, dz = grid.dims
     stencil_flat = (_STENCIL[:, 0] * (dy * dz) + _STENCIL[:, 1] * dz + _STENCIL[:, 2]).tolist()
     if lattice <= RANK_TABLE_MAX:
-        rank_table = torch.full((lattice,), -1, dtype=torch.int64, device=dev)
-        rank_table[occ_bins] = torch.arange(n_bins, device=dev)
+        rank_table = torch.full((lattice + 1,), -1, dtype=torch.int64, device=dev)
+        rank_table.scatter_(0, occ_bins.clamp_max(lattice), torch.arange(R, device=dev))
+        rank_table = rank_table[:lattice]
 
     h = compact_support_radius
-    acc = torch.zeros((n_bins, K), dtype=dtype, device=dev)
+    acc = torch.zeros((R, K), dtype=dtype, device=dev)
     rows = max(1, _PAIR_BLOCK_ELEMS // (K * K))
-    for r0 in range(0, n_bins, rows):
-        r1 = min(r0 + rows, n_bins)
+    for r0 in range(0, R, rows):
+        r1 = min(r0 + rows, R)
         own = [t[r0:r1, :, None] for t in tables]  # (rows, K, 1)
         for delta in stencil_flat:
             target = occ_bins[r0:r1] + delta
@@ -462,7 +516,7 @@ def compute_particle_densities_binned(
                 nb = rank_table[target.clamp(0, lattice - 1)]
                 present = inside & (nb >= 0)
             else:
-                nb = torch.searchsorted(occ_bins, target).clamp_max(n_bins - 1)
+                nb = torch.searchsorted(occ_bins, target).clamp_max(R - 1)
                 present = inside & (occ_bins[nb] == target)
             nb = torch.where(present, nb, 0)
             d2 = None
@@ -479,9 +533,9 @@ def compute_particle_densities_binned(
     )
     rho = torch.empty_like(rho_sorted)
     rho[cell_list.order] = rho_sorted
-    if overflow:
+    if overflow or overflow_capacity:
         rho = _overflow_correction(
-            positions, grid, cell_list, K, candidate_capacity, h, rho
+            positions, grid, cell_list, K, candidate_capacity, h, rho, overflow_capacity
         )
     return kernels.rounded(particle_rest_mass, dtype) * rho
 
@@ -492,14 +546,23 @@ def binned_plan(n: int, lattice: int, n_bins: int, max_occ: int, over8: int) -> 
     correction when the rank >= 8 particles are few and the lattice is
     small enough for its per-bin tables (also "binned8"); otherwise K = the
     largest occupancy rounded up to 8 ("binned"). ``u_cap`` is the
-    occupied-bin count rounded up to a power of two."""
+    occupied-bin count rounded up to a power of two; ``ocap`` the size of
+    the overflow lists (:func:`overflow_lists_capacity`)."""
     u_cap = 1 << max(int(n_bins) - 1, 1).bit_length()
-    plan = dict(kind="binned8", capacity=8, u_cap=u_cap, overflow=False, ccap=0)
+    plan = dict(kind="binned8", capacity=8, u_cap=u_cap, overflow=False, ocap=0, ccap=0)
     if max_occ <= 8:
         return plan
     if over8 <= density_over_budget(n) and lattice <= RANK_TABLE_MAX:
-        return dict(plan, overflow=True, ccap=_round_up(max_occ + 8))
+        return dict(plan, overflow=True, ocap=overflow_lists_capacity(over8),
+                    ccap=_round_up(max_occ + 8))
     return dict(plan, kind="binned", capacity=_round_up(max_occ))
+
+
+def overflow_lists_capacity(over8: int) -> int:
+    """The overflow correction's list size for ``over8`` rank >= 8
+    particles: twice their count, at least 256, in steps of 256 (headroom
+    for the next frames of a plan; reference ``neighbors.py:1454-1458``)."""
+    return _round_up(max(2 * int(over8), 256), 256)
 
 
 def density_over_budget(n: int) -> int:
@@ -548,6 +611,7 @@ def density_gate(
         ),
         use_raster=use_raster,
         overflow=use_raster and max_occ > 8,
+        ocap=overflow_lists_capacity(over8) if use_raster and max_occ > 8 else 0,
         ccap=_round_up(max_occ + 8) if use_raster and max_occ > 8 else 0,
     )
     LAST_GATE[which] = dict(
@@ -602,25 +666,156 @@ def note_formulation(which: str, kind: str) -> None:
         LAST_GATE.update({k: LAST_GATE[which][k] for k in _GATE_STATS})
 
 
+# The speculative density plan (reference ``neighbors.py:1091-1100``): the
+# next frame with the same key (N, dtype, support, capacity, n_valid) runs
+# on this frame's lattice, formulation and capacities without reading the
+# card, and returns a device bool that says whether the plan still held
+# (``_plan_check``). The caller verifies it with the frame's one read-back
+# and, on False, clears the plan and recomputes. Process-global, as the
+# reference's is.
+_DENSITY_PLAN: dict = {}
+
+
+class DensityPlanMiss(RuntimeError):
+    """A speculative density plan was violated; clear and recompute."""
+
+
+def clear_density_plan() -> None:
+    _DENSITY_PLAN.clear()
+
+
+def _lattice_end(grid: BinGrid, d: int, dtype) -> float:
+    """min + dims * bin_size along axis ``d`` in ``dtype``, rounded once."""
+    t = kernels.np_dtype(dtype).type
+    return kernels.rounded(
+        float(t(grid.min[d])) + grid.dims[d] * float(t(grid.bin_size)), dtype
+    )
+
+
+def _plan_check(positions, sorted_bins, grid: BinGrid, kind: str, slots: int,
+                u_cap: int, ocap: int, ccap: int = 0) -> torch.Tensor:
+    """Device bool: every particle lies inside the plan's lattice (no bin is
+    clipped) and the plan's capacities still hold (reference ``_plan_check``,
+    ``neighbors.py:1108-1141``)."""
+    lo, hi = torch.aminmax(positions, dim=0)
+    ok = torch.ones((), dtype=torch.bool, device=positions.device)
+    for d in range(3):
+        ok &= (lo[d] >= kernels.rounded(grid.min[d], positions.dtype)) & (
+            hi[d] < _lattice_end(grid, d, positions.dtype)
+        )
+    mx, u, o8 = _bin_stats_device(sorted_bins)
+    ok &= u <= u_cap
+    fits = mx <= slots
+    if kind in ("raster", "binned8") and ocap > 0:
+        # the overflow lists and the candidate gathers have fixed sizes:
+        # drifting past either must miss the plan, not corrupt the sums
+        fits |= (o8 <= ocap) & (mx <= max(ccap, slots))
+    return ok & fits
+
+
+def _densities_planned(positions, compact_support_radius, particle_rest_mass, plan):
+    """A plan hit: the plan's formulation on its lattice and capacities,
+    with nothing read back. Returns (rho, check), the device bool of
+    :func:`_plan_check` (for geoslot, the octant check)."""
+    grid, kind = plan["grid"], plan["kind"]
+    if kind == "geoslot":
+        return compute_particle_densities_geoslot(
+            positions, grid, compact_support_radius, particle_rest_mass
+        )
+    cl = build_cell_list(positions, grid)
+    check = _plan_check(
+        positions, cl.sorted_bins, grid, kind, plan["slots"], plan["u_cap"],
+        plan["ocap"], plan["ccap"],
+    )
+    common = (positions, grid, cl, compact_support_radius, particle_rest_mass)
+    if kind == "raster":
+        rho = compute_particle_densities_raster(
+            *common, slots=plan["slots"], overflow_capacity=plan["ocap"],
+            candidate_capacity=plan["ccap"],
+        )
+    else:
+        rho = compute_particle_densities_binned(
+            *common, capacity=plan["slots"], u_cap=plan["u_cap"],
+            overflow_capacity=plan["ocap"], candidate_capacity=plan["ccap"],
+        )
+    return rho, check
+
+
 def compute_particle_densities(
-    positions: torch.Tensor, compact_support_radius: float, particle_rest_mass: float
-) -> torch.Tensor:
+    positions: torch.Tensor,
+    compact_support_radius: float,
+    particle_rest_mass: float,
+    capacity: Optional[int] = None,
+    speculate: bool = False,
+    n_valid: Optional[int] = None,
+):
     """Per-particle SPH densities (self term included) on the positions'
-    device. Plans the bin lattice on the host from a few scalars read back,
-    then runs geoslot, else the raster formulation, else the binned one."""
+    device (reference ``neighbors.py:1197-1375``). Plans the bin lattice on
+    the host from a few scalars read back, then runs geoslot, else the
+    raster formulation, else the binned one; an explicit ``capacity`` takes
+    the binned formulation with at least that many slots per bin.
+
+    With ``speculate=True`` returns ``(rho, check)``. A frame with no plan
+    for its key plans (reads back) and records the plan; ``check`` is then
+    None. A frame with a plan runs on it and reads nothing back; ``check``
+    is a device bool that the caller must verify before it trusts ``rho``,
+    and on False clear the plan (:func:`clear_density_plan`) and recompute.
+
+    Only the first ``n_valid`` rows are particles, where that is given; the
+    densities of the rows past them are 0.
+    """
     n = positions.shape[0]
+    if n_valid is not None and int(n_valid) < n:
+        out = compute_particle_densities(
+            positions[: int(n_valid)], compact_support_radius, particle_rest_mass,
+            capacity, speculate,
+        )
+        rho = out[0] if speculate else out
+        rho = torch.cat([rho, rho.new_zeros(n - rho.shape[0])])
+        return (rho, out[1]) if speculate else rho
+
+    key = (
+        n, str(positions.dtype), float(compact_support_radius),
+        None if capacity is None else int(capacity),
+    )
+    plan = _DENSITY_PLAN.get(key) if speculate else None
+    if plan is not None:
+        LAST_GATE["kind"] = plan["kind"]
+        return _densities_planned(
+            positions, compact_support_radius, particle_rest_mass, plan
+        )
+
+    def planned(rho, grid, kind, slots=8, u_cap=0, ocap=0, ccap=0):
+        if not speculate:
+            return rho
+        _DENSITY_PLAN[key] = dict(
+            grid=grid, kind=kind, slots=slots, u_cap=u_cap, ocap=ocap, ccap=ccap
+        )
+        return rho, None
+
     lo, hi = torch.aminmax(positions, dim=0)
     mn, mx = lo.cpu().numpy(), hi.cpu().numpy()
     grid = BinGrid.for_domain(mn, mx, compact_support_radius)
     cl = build_cell_list(positions, grid)
     max_occ, n_bins, over8 = bin_stats_ex(cl)
-    if density_phase_retry(n, over8):
+    if capacity is None and density_phase_retry(n, over8):
         grid2 = phase_shifted_bingrid(grid, compact_support_radius)
         cl2 = build_cell_list(positions, grid2)
         stats2 = bin_stats_ex(cl2)
         if stats2[2] < over8:
             grid, cl = grid2, cl2
             max_occ, n_bins, over8 = stats2
+    u_cap = 1 << max(int(n_bins) - 1, 1).bit_length()
+
+    if capacity is not None:
+        # the reference's explicit capacity: binned, never truncated
+        K = capacity if capacity >= max_occ else _round_up(max_occ)
+        LAST_GATE["kind"] = "binned"
+        rho = compute_particle_densities_binned(
+            positions, grid, cl, compact_support_radius, particle_rest_mass,
+            capacity=K, u_cap=u_cap, occupied=n_bins,
+        )
+        return planned(rho, grid, "binned", K, u_cap)
 
     gate = density_gate(n, grid.lattice, n_bins, max_occ, over8)
     if gate["try_geoslot"]:
@@ -634,22 +829,23 @@ def compute_particle_densities(
             _note_geoslot_outcome(ok)
             if ok:
                 note_formulation("single", "geoslot")
-                return rho
+                return planned(rho, agrid, "geoslot", 8, u_cap)
         # octant collisions: the sorted formulations below
     if gate["use_raster"]:
         note_formulation("single", "raster")
-        return compute_particle_densities_raster(
+        rho = compute_particle_densities_raster(
             positions, grid, cl, compact_support_radius, particle_rest_mass,
-            slots=8, overflow=gate["overflow"],
-            candidate_capacity=gate["ccap"],
+            slots=8, overflow_capacity=gate["ocap"], candidate_capacity=gate["ccap"],
         )
+        return planned(rho, grid, "raster", 8, u_cap, gate["ocap"], gate["ccap"])
     plan = binned_plan(n, grid.lattice, n_bins, max_occ, over8)
     note_formulation("single", plan["kind"])
-    return compute_particle_densities_binned(
+    rho = compute_particle_densities_binned(
         positions, grid, cl, compact_support_radius, particle_rest_mass,
-        capacity=plan["capacity"], u_cap=plan["u_cap"],
-        overflow=plan["overflow"], candidate_capacity=plan["ccap"],
+        capacity=plan["capacity"], u_cap=u_cap, overflow_capacity=plan["ocap"],
+        candidate_capacity=plan["ccap"], occupied=n_bins,
     )
+    return planned(rho, grid, plan["kind"], plan["capacity"], u_cap, plan["ocap"], plan["ccap"])
 
 
 # ---------------------------------------------------------------------------

@@ -17,14 +17,23 @@ Pipeline:
 
 The slab route (``ops.slab_sweep``) runs steps 1-2 and the first half of 3
 per x-slab of the grid (the functions' slab arguments) and the second half
-once over the merged active points.
+once over the merged active points; there every intermediate has its exact
+size, and counts are read back where they are needed.
 
-Every intermediate has its exact size: eager PyTorch reads counts back where
-it needs them, so no capacities, buckets or retries are planned.
+The dense route (``reconstruct_global_dense``) runs on the reference's
+speculative plans (``ops/global_sweep.py:937-970, 1196-1565`` of the
+reference): the raster overflow list has a planned capacity
+(``_OVER_PLAN``), marching cubes writes into buffers of planned vertex and
+triangle capacities (``_MC_CAPS``), and the mesh comes to the host in
+planned buckets (``_PULL_PLAN``), together with the totals and the caller's
+deferred checks, in one copy (``PendingPull``). A frame whose plans are all
+in place reads nothing back before that copy; a check that fails there is a
+miss, which updates the plans as the reference does and re-runs the frame.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -45,8 +54,8 @@ def _cell_of(px: torch.Tensor, mn: float, cs: float, n: int) -> torch.Tensor:
 
 
 def rasterize_global(positions, values, grid: UniformGrid, slots: int, hsc: int,
-                     with_meta: bool = False, slab_ncx: Optional[int] = None,
-                     slab_x0: int = 0):
+                     overflow_capacity: Optional[int] = None, with_meta: bool = False,
+                     slab_ncx: Optional[int] = None, slab_x0: Optional[int] = None):
     """Rasterize particles into per-cell slot tables over the whole grid.
 
     Returns ``(fx, fy, fz, fv), (opx, opy, opz, oval)``: four (slots, Xp, Yp,
@@ -61,6 +70,13 @@ def rasterize_global(positions, values, grid: UniformGrid, slots: int, hsc: int,
     (one read-back), and per particle its slot rank, whether it holds a slot
     and its cell, int64 (``rasterize_global(..., with_meta=True)`` of the
     reference).
+
+    With ``overflow_capacity`` (the dense route's overflow plan) nothing is
+    read back: the overflow list has that fixed size (ascending index, the
+    rest padded with far positions -1e30 and weight 0, past the capacity
+    cut), and its true count comes as a device scalar: ``(rasters,
+    overflow, n_overflow)``, or with ``with_meta`` ``(fracs, n_overflow,
+    meta)``. The caller checks the count against the capacity.
 
     The table covers the global cells [x0 - pad, x0 + W + pad) in x, halo
     bands included, so Xp = W + 2*pad: W = ``slab_ncx`` from x0 =
@@ -80,6 +96,7 @@ def rasterize_global(positions, values, grid: UniformGrid, slots: int, hsc: int,
     ncx, ncy, ncz = grid.n_cells
     pad = hsc + 1
     W = ncx if slab_ncx is None else slab_ncx
+    slab_x0 = slab_x0 or 0
     Xp, Yp, Zp = W + 2 * pad, ncy + 2 * pad, ncz + 2 * pad
     cs = kernels.rounded(grid.cell_size, dtype)
     mn = [kernels.rounded(grid.min[d], dtype) for d in range(3)]
@@ -121,10 +138,18 @@ def rasterize_global(positions, values, grid: UniformGrid, slots: int, hsc: int,
     )
     over = valid & (rank >= slots)
     if with_meta:
-        return fracs, int(over.sum()), (rank, ok, *cell)
+        n_over = over.sum()
+        return fracs, (int(n_over) if overflow_capacity is None else n_over), (rank, ok, *cell)
     rasters = fracs + (kernels.scatter_table(dest, values, total, 0.0, shape),)
-    overflow = [px[d][over] for d in range(3)] + [values[over]]
-    return rasters, tuple(overflow)
+    if overflow_capacity is None:
+        overflow = [px[d][over] for d in range(3)] + [values[over]]
+        return rasters, tuple(overflow)
+    take = kernels.compact_indices(over, overflow_capacity)
+    real = take < n
+    take = take.clamp_max(n - 1)
+    overflow = [torch.where(real, px[d][take], -1e30) for d in range(3)]
+    overflow.append(torch.where(real, values[take], 0.0))
+    return rasters, tuple(overflow), over.sum()
 
 
 def density_weights_from_rasters(
@@ -185,7 +210,7 @@ def _scatter_splat_points(opx, opy, opz, oval, grid: UniformGrid, h, hsc,
     mn = [kernels.rounded(grid.min[d], dtype) for d in range(3)]
     pxs = (opx, opy, opz)
     cell = [_cell_of(pxs[d], mn[d], cs, npts[d]) for d in range(3)]
-    offs = torch.as_tensor(supported_point_offsets(hsc).astype(np.int64), device=dev)
+    offs = _point_offsets(hsc, dev)
     # bound the (particles, offsets) block to ~2^22 entries
     step = max(1, (1 << 22) // offs.shape[0])
     for b in range(0, opx.shape[0], step):
@@ -201,12 +226,21 @@ def _scatter_splat_points(opx, opy, opz, oval, grid: UniformGrid, h, hsc,
             in_grid = in_grid & (p >= 0) & (p < local[d])
             flat = flat + p * strides[d]
         w = kernels.cubic_kernel(torch.sqrt(d2), h) * oval[sl, None]
-        out_flat.index_add_(0, flat[in_grid], w[in_grid])
+        out_flat.index_add_(
+            0, torch.where(in_grid, flat, 0).reshape(-1),
+            torch.where(in_grid, w, 0.0).reshape(-1),
+        )
     return out
 
 
+@functools.cache
+def _point_offsets(hsc: int, device: torch.device) -> torch.Tensor:
+    """``supported_point_offsets(hsc)`` on ``device``, copied there once."""
+    return torch.as_tensor(supported_point_offsets(hsc).astype(np.int64), device=device)
+
+
 def sweep_global(rasters, overflow, grid: UniformGrid, compact_support_radius, hsc: int,
-                 slab_npx: Optional[int] = None, slab_x0: int = 0):
+                 slab_npx: Optional[int] = None, slab_x0: Optional[int] = None):
     """Level set phi on the (PX, PY, PZ) grid points: the dense stencil
     sweep over the rasters (kernel K1 on CUDA, its plain version on the
     CPU) plus the scatter splat of the overflow particles. On one slab (the
@@ -220,11 +254,11 @@ def sweep_global(rasters, overflow, grid: UniformGrid, compact_support_radius, h
     )
     if overflow[0].shape[0] == 0:
         return acc
-    return _scatter_splat_points(*overflow, grid, compact_support_radius, hsc, acc, slab_x0)
+    return _scatter_splat_points(*overflow, grid, compact_support_radius, hsc, acc, slab_x0 or 0)
 
 
 def mc_point_words(ls: torch.Tensor, grid: UniformGrid, iso, x0: int = 0,
-                   own_px: Optional[int] = None):
+                   own_px: Optional[int] = None, capacity: Optional[int] = None):
     """Marching cubes, part (a): the active points of a level set on grid
     points, with their words and edge parameters.
 
@@ -242,8 +276,11 @@ def mc_point_words(ls: torch.Tensor, grid: UniformGrid, iso, x0: int = 0,
     Returns (points, words, t): the active points' global flat ids, int64
     and ascending, their words (int64), and t (3, n_active), the parameter
     of each active point's edge along each axis (meaningless where that
-    edge is inactive): computed for every point so that nothing is read
-    back here."""
+    edge is inactive). Their count is read back; with ``capacity`` nothing
+    is: the lists have that fixed size, the entries past the active points
+    hold the point id PX * PY * PZ past the last one and word 0, and active
+    points past the capacity are cut (the caller checks the count,
+    ``_mc_totals``)."""
     dtype = ls.dtype
     dev = ls.device
     PX, PY, PZ = ls.shape
@@ -273,13 +310,14 @@ def mc_point_words(ls: torch.Tensor, grid: UniformGrid, iso, x0: int = 0,
     if own_px is not None:
         word = torch.where(ii < x0 + own_px, word, 0)
     word_flat = word.reshape(-1)
-    points_c = torch.nonzero(word_flat).squeeze(1)  # ascending flat id
-    words_c = word_flat[points_c].long()
+    points_c = kernels.compact_indices(word_flat != 0, capacity)  # ascending flat id
+    pc = points_c.clamp_max(n_pts - 1)
+    words_c = torch.where(points_c < n_pts, word_flat[pc], 0).long()
 
     ls_flat = ls.reshape(-1)
-    v0 = ls_flat[points_c]
-    step = torch.tensor([PY * PZ, PZ, 1], device=dev)[:, None]
-    denom = ls_flat[torch.clamp_max(points_c + step, n_pts - 1)] - v0
+    v0 = ls_flat[pc]
+    nbr = torch.stack([pc + PY * PZ, pc + PZ, pc + 1])
+    denom = ls_flat[torch.clamp_max(nbr, n_pts - 1)] - v0
     t = torch.clamp(
         (iso - v0) / torch.where(denom == 0, torch.ones_like(denom), denom), 0.0, 1.0
     )
@@ -287,7 +325,7 @@ def mc_point_words(ls: torch.Tensor, grid: UniformGrid, iso, x0: int = 0,
 
 
 def mc_mesh_from_points(points: torch.Tensor, words: torch.Tensor, t: torch.Tensor,
-                        grid: UniformGrid):
+                        grid: UniformGrid, caps: Optional[Tuple[int, int]] = None):
     """Marching cubes, part (b): vertices and triangles from the active
     points of the whole grid (``mc_point_words``, or the merge of every
     slab's, in ascending global id).
@@ -297,17 +335,28 @@ def mc_mesh_from_points(points: torch.Tensor, words: torch.Tensor, t: torch.Tens
     slots. A triangle corner's vertex belongs to a neighbour point, whose
     rank comes from a binary search over ``points``. Returns vertices (V, 3)
     and triangles (T, 3) int32 on the device: the lists of the reference
-    package's unencoded output."""
+    package's unencoded output. Their counts are read back; with ``caps``
+    (vertex, triangle capacities, the dense route's MC plan) nothing is:
+    the lists have those fixed sizes, valid up to the totals of
+    ``_mc_totals(words)`` (the reference's ``mc_global_cells``,
+    ``ops/global_sweep.py:674-930``)."""
     dev = points.device
     dtype = t.dtype
     _, PY, PZ = grid.n_points
     cs = kernels.rounded(grid.cell_size, dtype)
     total_c = points.shape[0]
+    count_t, tab_t, edge_base, edge_axis = _mc_tables(dev)
 
     # --- vertex stream: one vertex per active origin edge, axis-major -----
     emask = torch.cat([(words >> b) & 1 for b in (8, 9, 10)]) == 1
+    cases_c = words & 0xFF
+    counts = count_t[cases_c]
+    if caps is None:
+        vcap, tcap = torch.stack([emask.sum(), counts.sum()]).tolist()
+    else:
+        vcap, tcap = caps
     vidx_pos = torch.cumsum(emask, 0) - 1  # vertex id of (axis, rank)
-    vslot = torch.nonzero(emask).squeeze(1)
+    vslot = kernels.compact_indices(emask, vcap).clamp_max(max(3 * total_c - 1, 0))
     vaxis = vslot // max(total_c, 1)
     p0 = points[vslot - vaxis * total_c]
     t = t.reshape(-1)[vslot]
@@ -319,33 +368,61 @@ def mc_mesh_from_points(points: torch.Tensor, words: torch.Tensor, t: torch.Tens
     vertices = torch.stack(verts, dim=1)
 
     # --- triangle stream --------------------------------------------------
-    count_t, tab_t = lut_tensors(dev)
-    cases_c = words & 0xFF
-    counts = count_t[cases_c]
-    total_t = int(counts.sum())
-    slot_map = torch.repeat_interleave(
-        torch.arange(total_c, device=dev), counts, output_size=total_t
-    )
+    # forward fill: the active point that owns each triangle slot
     offsets = torch.cumsum(counts, 0) - counts
-    slot_in_cell = torch.arange(total_t, device=dev) - offsets[slot_map]
+    dest = torch.where(counts > 0, offsets, tcap).clamp_max(tcap)
+    slot_map = torch.zeros(tcap + 1, dtype=torch.int64, device=dev)
+    slot_map.scatter_(0, dest, torch.arange(total_c, device=dev))
+    slot_map = torch.cummax(slot_map[:tcap], 0).values
+    slot_in_cell = torch.arange(tcap, device=dev) - offsets[slot_map]
+    emit = slot_in_cell < counts[slot_map]
+    slot_in_cell = slot_in_cell.clamp(0, tab_t.shape[1] - 1)
     acase = cases_c[slot_map]
     tpoint = points[slot_map]
-    eb = lut.EDGE_BASE_OFFSET.astype(np.int64)
-    edge_delta = torch.as_tensor(eb[:, 0] * PY * PZ + eb[:, 1] * PZ + eb[:, 2], device=dev)
-    edge_axis = torch.as_tensor(lut.EDGE_AXIS.astype(np.int64), device=dev)
+    edge_delta = edge_base[:, 0] * (PY * PZ) + edge_base[:, 1] * PZ + edge_base[:, 2]
     cols = []
     for corner in range(3):
         local = tab_t[acase, slot_in_cell, corner]
         nrank = torch.searchsorted(points, tpoint + edge_delta[local])
-        cols.append(vidx_pos[edge_axis[local] * total_c + nrank])
+        nrank = nrank.clamp_max(max(total_c - 1, 0))
+        cols.append(torch.where(emit, vidx_pos[edge_axis[local] * total_c + nrank], 0))
     triangles = torch.stack(cols, dim=1).to(torch.int32)
     return vertices, triangles
 
 
-def mc_global_cells(ls: torch.Tensor, grid: UniformGrid, iso) -> Tuple[torch.Tensor, torch.Tensor]:
+@functools.cache
+def _mc_tables(device: torch.device):
+    """(TRI_COUNT, TRI_TABLE, EDGE_BASE_OFFSET (12, 3), EDGE_AXIS (12,)) as
+    int64 tensors on ``device``, copied there once."""
+    count_t, tab_t = lut_tensors(device)
+    base = torch.as_tensor(lut.EDGE_BASE_OFFSET.astype(np.int64), device=device)
+    axis = torch.as_tensor(lut.EDGE_AXIS.astype(np.int64), device=device)
+    return count_t, tab_t, base, axis
+
+
+def _mc_totals(words: torch.Tensor) -> torch.Tensor:
+    """(vertices, triangles, active points) of the active points' words, as
+    an int64 device tensor (nothing is read back)."""
+    count_t = _mc_tables(words.device)[0]
+    edges = sum(((words >> b) & 1) for b in (8, 9, 10))
+    return torch.stack([edges.sum(), count_t[words & 0xFF].sum(), (words != 0).sum()])
+
+
+def mc_global_cells(ls: torch.Tensor, grid: UniformGrid, iso,
+                    vertex_capacity: Optional[int] = None,
+                    triangle_capacity: Optional[int] = None,
+                    own_px: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cell-list marching cubes over the level set on the whole grid's
-    points: ``mc_point_words`` then ``mc_mesh_from_points``."""
-    return mc_mesh_from_points(*mc_point_words(ls, grid, iso), grid)
+    points: ``mc_point_words`` then ``mc_mesh_from_points``. With both
+    capacities nothing is read back and the lists have those sizes (see
+    ``mc_mesh_from_points``); ``own_px`` as in ``mc_point_words``."""
+    caps = None
+    if vertex_capacity is not None and triangle_capacity is not None:
+        caps = (vertex_capacity, triangle_capacity)
+    points = mc_point_words(
+        ls, grid, iso, own_px=own_px, capacity=None if caps is None else caps[1]
+    )
+    return mc_mesh_from_points(*points, grid, caps)
 
 
 class EmptyFieldError(RuntimeError):
@@ -372,22 +449,254 @@ def check_empty_field(total_t: int, ls_max: float, iso: float) -> None:
         )
 
 
+def _pow2(n: int, lo: int = 1024) -> int:
+    return max(lo, 1 << (max(int(n), 1) - 1).bit_length())
+
+
+def _bucket16(n: int, lo: int = 1024) -> int:
+    """Round up to 16 steps per power of two (<= 6% of padding)."""
+    n = max(int(n), lo)
+    p = 1 << max((n - 1).bit_length() - 4, 0)
+    return -(-n // p) * p
+
+
+# The dense route's speculative plans (reference ``ops/global_sweep.py:
+# 937-958``), process-global as the reference's are:
+# per (grid points, dtype), the MC vertex and triangle capacities ...
+_MC_CAPS: dict = {}
+# ... and the (vertex, triangle) buckets of the mesh copy; per (grid
+# points, N), the raster overflow capacity, fitted to the previous frame's
+# count (usually 0, which skips the overflow splat).
+_PULL_PLAN: dict = {}
+_OVER_PLAN: dict = {}
+# the overflow count of the last frame that ran past its plan, for the retry
+_LAST_OVERFLOW = [0]
+
+
+def _note_overflow_plan(okey, total_over: int) -> None:
+    """Fit the next frame's overflow capacity to this frame's true count."""
+    _OVER_PLAN[okey] = 0 if total_over == 0 else _pow2(total_over * 2, lo=1024)
+
+
+class SpeculationMiss(RuntimeError):
+    """One of the caller's deferred checks came back False; ``flags`` holds
+    each check's value, in the order they were passed."""
+
+    def __init__(self, flags):
+        super().__init__(f"speculative plan violated: {flags}")
+        self.flags = tuple(flags)
+
+
+class PendingPull:
+    """A dense frame's mesh on its way to the host (reference
+    ``PendingPull``, ``ops/global_sweep.py:1372-1395``).
+
+    The copy of ``arrs`` (device tensors) starts when the object is made.
+    On CUDA they are packed into one byte buffer, which is copied,
+    non-blocking, into pinned host memory on a side stream, after the
+    current stream's work up to now: the copy overlaps whatever the caller
+    queues next, and the device buffer stays referenced until it ends. On
+    the CPU there is nothing to copy. ``resolve()`` waits for the copy and
+    hands the host copies of ``arrs`` to ``fn``, which returns ``("ok",
+    vertices, triangles)`` as host tensors, or ``("redo",)`` /
+    ``("redo_grid",)`` where a deferred check failed and the frame must run
+    again."""
+
+    def __init__(self, fn, arrs):
+        self._fn = fn
+        self._event = None
+        self._host = list(arrs)
+        if not arrs or arrs[0].device.type != "cuda":
+            return
+        dev = arrs[0].device
+        chunks, self._layout = [], []
+        for p in arrs:
+            b = p.contiguous().reshape(-1).view(torch.uint8)
+            self._layout.append((p.dtype, tuple(p.shape), b.numel()))
+            chunks.append(b)
+            if b.numel() % 8:  # keep every part 8-byte aligned
+                chunks.append(b.new_zeros(8 - b.numel() % 8))
+        buf = torch.cat(chunks)
+        stream = _copy_stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            self._buf = torch.empty(buf.shape, dtype=torch.uint8, pin_memory=True)
+            self._buf.copy_(buf, non_blocking=True)
+            buf.record_stream(stream)
+            self._event = torch.cuda.Event()
+            self._event.record(stream)
+
+    def host_parts(self):
+        """The parts on the host (waits for the copy)."""
+        if self._event is not None:
+            self._event.synchronize()
+            self._event, o, self._host = None, 0, []
+            for dtype, shape, nb in self._layout:
+                self._host.append(self._buf[o : o + nb].view(dtype).reshape(shape))
+                o += -(-nb // 8) * 8
+        return self._host
+
+    def resolve(self):
+        return self._fn(*self.host_parts())
+
+
+@functools.cache
+def _copy_stream(device: torch.device) -> torch.cuda.Stream:
+    """One side stream per card for the mesh copies."""
+    return torch.cuda.Stream(device=device)
+
+
 def reconstruct_global_dense(
     positions, values, grid: UniformGrid, compact_support_radius: float,
-    hsc: int, iso: float, slots: int = 2,
+    hsc: int, iso: float, slots: int = 2, deferred_checks: tuple = (),
+    defer_pull: bool = False, check_labels: tuple = (),
 ):
-    """Full dense-grid reconstruction on the positions' device. Returns
-    (vertices (V, 3), triangles (T, 3) int32) as device tensors."""
-    rasters, overflow = rasterize_global(positions, values, grid, slots, hsc)
-    ls = sweep_global(rasters, overflow, grid, compact_support_radius, hsc)
-    del rasters
-    return mesh_from_level_set(ls, grid, iso)
+    """Full dense-grid reconstruction on the positions' device (reference
+    ``ops/global_sweep.py:1196-1285``). Returns (vertices (V, 3), triangles
+    (T, 3) int32) on the host, as CPU tensors.
+
+    The frame runs on the overflow plan of its (grid, N), by default N / 64
+    rounded up to a power of two (at least 4096), and on the MC and pull
+    plans of its (grid, dtype) (``_finish_global_dense``); a raster
+    overflow past the plan's capacity grows the plan and rasterizes again.
+    ``deferred_checks`` (device bools, such as the density and grid plans'
+    checks, named by ``check_labels``) come back with the mesh totals; a
+    False one raises :class:`SpeculationMiss`. With ``defer_pull`` returns
+    a :class:`PendingPull` instead, whose ``resolve()`` validates the plans
+    and checks as the reference's does and reports a miss as a redo.
+    """
+    from splashsurf_tpu_torch.global_pipeline import SPECULATION_STATS
+
+    n = positions.shape[0]
+    okey = (grid.n_points, n)
+    ocap = _OVER_PLAN.get(okey)
+    if ocap is None:
+        ocap = _pow2(n // 64, lo=4096)
+    for _ in range(4):
+        rasters, overflow, n_over = rasterize_global(positions, values, grid, slots, hsc, ocap)
+        ls = sweep_global(rasters, overflow, grid, compact_support_radius, hsc)
+        del rasters, overflow
+        out = _finish_global_dense(
+            ls, grid, iso, okey, ocap, n_over, deferred_checks, defer_pull, check_labels
+        )
+        if out is not None:
+            return out if defer_pull else out.resolve()[1:]
+        # the level set misses the dropped overflow splats: grow the plan
+        SPECULATION_STATS["overflow_retry"] += 1
+        ocap = min(_pow2(_LAST_OVERFLOW[0] * 2, lo=4096), _pow2(n))
+        _OVER_PLAN[okey] = ocap
+    raise RuntimeError(f"raster overflow exceeded capacity {ocap} after retries")
 
 
-def mesh_from_level_set(ls: torch.Tensor, grid: UniformGrid, iso):
-    """``mc_global_cells`` plus the empty-mesh guard: (vertices, triangles)
-    on the device."""
-    verts, tris = mc_global_cells(ls, grid, iso)
-    if tris.shape[0] == 0:
-        check_empty_field(0, float(ls.max()), float(iso))
-    return verts, tris
+def _finish_global_dense(ls, grid: UniformGrid, iso, okey, overflow_capacity, n_over,
+                         deferred_checks=(), defer_pull=False, check_labels=()):
+    """Marching cubes and the mesh copy of a dense frame (reference
+    ``ops/global_sweep.py:1397-1565``, its packed pull).
+
+    The planning frame of a (grid, dtype) runs MC on lists of exact size
+    (their counts read back) and plans the MC capacities from them. A frame
+    with capacities writes into buffers of them. With a pull plan too, it
+    packs the mesh in the plan's buckets and copies it together with its
+    totals, the overflow count, the level set's maximum and the deferred
+    checks, in one copy (``PendingPull``); without one it reads those
+    scalars first, then copies the exact mesh.
+
+    Returns a :class:`PendingPull`, or None when the frame's raster overflow
+    exceeded ``overflow_capacity`` (the caller rasterizes again). With
+    ``defer_pull`` on a frame with every plan, the returned pull has not
+    been read: its ``resolve()`` runs the checks below, updates the plans
+    on a miss exactly as they do, and reports the miss as a redo.
+    Otherwise the checks run here: a False deferred check raises
+    :class:`SpeculationMiss`, an MC total past its capacity grows the
+    capacities and runs MC again (``caps_retry``).
+    """
+    from splashsurf_tpu_torch.global_pipeline import SPECULATION_STATS
+
+    iso = kernels.rounded(iso, ls.dtype)
+    key = (grid.n_points, str(ls.dtype))
+    f64 = lambda x: x.reshape(1).to(torch.float64)
+    tail = [f64(n_over), f64(ls.max())] + [f64(c) for c in deferred_checks]
+    while True:
+        caps = _MC_CAPS.get(key)
+        points, words, t = mc_point_words(ls, grid, iso, capacity=None if caps is None else caps[1])
+        verts, tris = mc_mesh_from_points(points, words, t, grid, caps)
+        if caps is None:
+            caps = (_bucket16(verts.shape[0] * 5 // 4), _bucket16(tris.shape[0] * 5 // 4))
+            _MC_CAPS[key] = caps
+        vcap, tcap = caps
+        scalars = torch.cat([_mc_totals(words).to(torch.float64)] + tail)
+        plan = _PULL_PLAN.get(key)
+        if plan is not None and plan[0] <= vcap and plan[1] <= tcap:
+            pull_parts = [scalars, verts[: plan[0]], tris[: plan[1]]]
+            if defer_pull:
+                return PendingPull(functools.partial(
+                    _resolve_deferred, verts=verts, tris=tris, iso=iso, caps=caps,
+                    key=key, okey=okey, overflow_capacity=overflow_capacity,
+                    check_labels=check_labels,
+                ), pull_parts)
+            sc, hv, ht = PendingPull(None, pull_parts).host_parts()
+        else:
+            sc, hv, ht = scalars.cpu(), None, None
+        total_v, total_t, total_c, total_over, ls_max, *flags = sc.tolist()
+        total_v, total_t, total_c, total_over = (
+            int(x) for x in (total_v, total_t, total_c, total_over)
+        )
+        if not all(flags):
+            raise SpeculationMiss([bool(f) for f in flags])
+        if total_over > overflow_capacity:
+            _LAST_OVERFLOW[0] = total_over
+            return None
+        if total_v > vcap or total_t > tcap or total_c > tcap:
+            SPECULATION_STATS["caps_retry"] += 1
+            _MC_CAPS[key] = (_bucket16(total_v * 5 // 4), _bucket16(total_t * 5 // 4))
+            _PULL_PLAN.pop(key, None)
+            continue
+        _PULL_PLAN[key] = (min(vcap, _bucket16(total_v)), min(tcap, _bucket16(total_t)))
+        if total_t == 0:
+            check_empty_field(0, ls_max, iso)
+        _note_overflow_plan(okey, total_over)
+        if hv is None or total_v > hv.shape[0] or total_t > ht.shape[0]:
+            return PendingPull(lambda v, t: ("ok", v, t), [verts[:total_v], tris[:total_t]])
+        return PendingPull(lambda: ("ok", hv[:total_v], ht[:total_t]), [])
+
+
+def _resolve_deferred(sc, hv, ht, *, verts, tris, iso, caps, key, okey,
+                      overflow_capacity, check_labels):
+    """The checks of a deferred warm frame on its pulled scalars (reference
+    ``_defer_encoded_pull``'s resolver, ``ops/global_sweep.py:1306-1359``):
+    a miss updates the plan it concerns and returns ``("redo",)``, or
+    ``("redo_grid",)`` for the grid; otherwise ``("ok", vertices,
+    triangles)``."""
+    from splashsurf_tpu_torch import neighbors
+    from splashsurf_tpu_torch.global_pipeline import SPECULATION_STATS
+
+    total_v, total_t, total_c, total_over, ls_max, *flags = sc.tolist()
+    total_v, total_t, total_c, total_over = (
+        int(x) for x in (total_v, total_t, total_c, total_over)
+    )
+    vcap, tcap = caps
+    if not all(flags):
+        failed = {check_labels[i] for i, ok in enumerate(flags) if not ok}
+        if "grid" in failed:
+            SPECULATION_STATS["grid_miss"] += 1
+            return ("redo_grid",)
+        SPECULATION_STATS["density_miss"] += 1
+        neighbors.clear_density_plan()
+        return ("redo",)
+    if total_over > overflow_capacity:
+        SPECULATION_STATS["overflow_retry"] += 1
+        _OVER_PLAN[okey] = _pow2(total_over * 2, lo=4096)
+        return ("redo",)
+    if total_v > vcap or total_t > tcap or total_c > tcap:
+        SPECULATION_STATS["caps_retry"] += 1
+        _MC_CAPS[key] = (_bucket16(total_v * 5 // 4), _bucket16(total_t * 5 // 4))
+        _PULL_PLAN.pop(key, None)
+        return ("redo",)
+    if total_v > hv.shape[0] or total_t > ht.shape[0]:
+        # a bucket miss: copy the exact mesh (one more read)
+        hv, ht = PendingPull(None, [verts[:total_v], tris[:total_t]]).host_parts()
+    _PULL_PLAN[key] = (min(vcap, _bucket16(total_v)), min(tcap, _bucket16(total_t)))
+    _note_overflow_plan(okey, total_over)
+    if total_t == 0:
+        check_empty_field(0, ls_max, iso)
+    return ("ok", hv[:total_v], ht[:total_t])

@@ -73,19 +73,23 @@ def reconstruct_global_slabbed(
     compact_support_radius: float,
     hsc: int,
     iso: float,
-    slots: int = 2,
+    slots: Optional[int] = None,
     max_cells: Optional[int] = None,
     clock: Optional[StageClock] = None,
 ):
     """The dense route's mesh, computed slab by slab on the positions'
     device: (vertices (V, 3), triangles (T, 3) int32) as device tensors,
-    equal to ``gs.reconstruct_global_dense`` at the same ``slots``.
+    equal to ``gs.reconstruct_global_dense`` at the same ``slots`` (by
+    default ``SPLASHSURF_TPU_SLAB_SLOTS``, read per call, else 2, the dense
+    route's).
 
     ``max_cells`` bounds one slab's cells (default ``gs_dense_gate()``).
     ``clock`` (a ``StageClock``) takes the stage laps; ``LAST_RUN`` records
     the run."""
     if max_cells is None:
         max_cells = gs_dense_gate()
+    if slots is None:
+        slots = int(os.environ.get("SPLASHSURF_TPU_SLAB_SLOTS", "2"))
     if clock is None:
         clock = StageClock(positions.device)
     dtype = positions.dtype
@@ -147,6 +151,7 @@ def reconstruct_surface_slabbed(
     parameters,
     grid: UniformGrid,
     particle_inside_aabb: Optional[np.ndarray] = None,
+    n_valid: Optional[int] = None,
 ):
     """The slab route of ``reconstruct_surface`` on the positions' device:
     densities over all particles, weights m / rho, the slab loop, the mesh
@@ -154,7 +159,11 @@ def reconstruct_surface_slabbed(
     particle neighbour lists. The per-particle densities stay a device
     tensor. ``LAST_RUN["stage_s"]`` holds the stages "densities",
     "selection and raster", "sweep" and "marching cubes" (summed over the
-    slabs), "merge and pull" and, when asked, "neighbour lists"."""
+    slabs), "merge and pull" and, when asked, "neighbour lists". Only the
+    first ``n_valid`` rows of ``positions`` are particles, where that is
+    given."""
+    if n_valid is not None:
+        positions = positions[: int(n_valid)]
     h = parameters.compact_support_radius
     hsc = kernel_extents(h, grid.cell_size).half_supported_cells
     clock = StageClock(positions.device)

@@ -232,8 +232,9 @@ def compute_particle_densities_sharded(
         slab = BinGrid(min=grid.min, bin_size=grid.bin_size, dims=(nx,) + grid.dims[1:])
         ijk = grid.bin_ijk(rows)
         ijk[:, 0] -= x_lo
-        sorted_bins, order = torch.sort(slab.flatten(ijk), stable=True)
-        cl = CellList(order, sorted_bins, tuple(rows[:, d][order] for d in range(3)))
+        bins = slab.flatten(ijk)
+        sorted_bins, order = torch.sort(bins, stable=True)
+        cl = CellList(order, sorted_bins, tuple(rows[:, d][order] for d in range(3)), bins)
         rho = N.compute_particle_densities_raster(
             rows, slab, cl, h, mass, slots=8, overflow=gate["overflow"],
             candidate_capacity=gate["ccap"], x0=x_lo,

@@ -11,17 +11,26 @@ and the route is chosen as the reference package chooses it; every route fills
 ``particle_neighbors`` when ``global_neighborhood_list`` asks for it.
 ``reconstruct_sequence`` runs frames in order, each frame's mesh copy
 overlapping the next frame's first stages.
+
+A tensor input on the dense route runs on the background grid of the
+frame before it with the same (N, dtype, radii, cube size), as the
+reference's device arrays do (the grid plan, reconstruction.py:53-76,
+240-275 of the reference): its AABB is not read back; a device check that
+the grid still holds comes back with the mesh, and a miss re-derives the
+grid and runs the frame again.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import Iterable, Iterator, Optional
 
 import numpy as np
 import torch
 
+from splashsurf_tpu_torch import kernels
 from splashsurf_tpu_torch.aabb import Aabb3d
 from splashsurf_tpu_torch.mesh import TriMesh3d
 from splashsurf_tpu_torch.neighbors import NeighborhoodLists
@@ -54,8 +63,9 @@ class SurfaceReconstruction:
 
     With a deferred mesh pull (``reconstruct_surface(..., _defer_pull=True)``,
     used by ``reconstruct_sequence``) ``mesh`` is None until ``resolve()``
-    finishes the copy; the sequence resolves every frame before it yields
-    it."""
+    finishes the copy (where the frame's plans missed, it runs the frame
+    again and takes its grid and densities too); the sequence resolves
+    every frame before it yields it."""
 
     grid: UniformGrid
     mesh: Optional[TriMesh3d]
@@ -68,9 +78,55 @@ class SurfaceReconstruction:
     def resolve(self) -> "SurfaceReconstruction":
         """Finish a deferred mesh pull (no-op when there is none)."""
         if self._pending_mesh is not None:
-            pull, self._pending_mesh = self._pending_mesh, None
-            self.mesh = pull.resolve()
+            fn, self._pending_mesh = self._pending_mesh, None
+            self.mesh = fn()
         return self
+
+
+# The speculative background grid (reference reconstruction.py:53-76): per
+# (N, dtype, particle radius, support radius, cube size) of a tensor input,
+# the last dense frame's (bucketed grid, unbucketed cell counts). The next
+# frame with that key runs on it without reading its AABB back, and checks
+# it on the device (``_grid_check_device``); a miss re-derives the grid. A
+# key whose cold grid equals the grid that missed (its extent straddles an
+# alignment boundary) stops speculating (``_GRID_NOSPEC``): it would miss on
+# every frame.
+_GRID_PLAN: dict = {}
+_GRID_NOSPEC: set = set()
+_PENDING_NOSPEC: dict = {}
+
+
+class GridPlanMiss(RuntimeError):
+    """A speculated background grid no longer matches the particle AABB."""
+
+
+def clear_grid_plan() -> None:
+    _GRID_PLAN.clear()
+    _GRID_NOSPEC.clear()
+
+
+def _grid_check_device(positions: torch.Tensor, grid: UniformGrid, grow: float, raw_nc):
+    """Device bool: would ``grid_for_reconstruction`` on these positions give
+    ``grid`` (whose unbucketed cell counts are ``raw_nc``)? A copy of the
+    reference's ``_grid_check_device_impl`` (reconstruction.py:98-134),
+    conservative as it is: alignment quantities within 16 float32 ulps of an
+    integer, where the device's arithmetic in the positions' dtype could
+    round otherwise than the host's float64, report a miss."""
+    dtype = positions.dtype
+    r = lambda x: kernels.rounded(x, dtype)
+    lo, hi = torch.aminmax(positions, dim=0)
+    cs = r(grid.cell_size)
+    q = (lo - r(grow)) / cs
+    mi = torch.floor(q)
+    q2 = (hi + r(grow) - mi * cs) / cs
+    nc = torch.ceil(q2)
+    ulp16 = 16.0 * r(np.float32(1.2e-7))
+    safe = torch.all((q - torch.round(q)).abs() > ulp16 * q.abs().clamp_min(1.0))
+    safe &= torch.all((q2 - torch.round(q2)).abs() > ulp16 * q2.abs().clamp_min(1.0))
+    ok = safe
+    for d in range(3):
+        ok &= (mi[d] == r(np.round(grid.min[d] / grid.cell_size))) & (nc[d] == raw_nc[d])
+    return ok
 
 
 def grid_for_reconstruction(
@@ -163,10 +219,11 @@ def reconstruct_surface(
 
     ``_defer_pull`` (used by ``reconstruct_sequence``): on the dense route,
     start the mesh copy and return with ``mesh`` None; ``resolve()`` waits
-    for it. The slab and subdomain routes pull their mesh before they
-    return, so there it changes nothing.
+    for it, checks the frame's plans and, where one missed, runs the frame
+    again with the same input. The slab and subdomain routes pull their
+    mesh before they return, so there it changes nothing.
     """
-    from splashsurf_tpu_torch.global_pipeline import reconstruct_surface_global
+    from splashsurf_tpu_torch.global_pipeline import DeferredMesh, reconstruct_surface_global
     from splashsurf_tpu_torch.ops.slab_sweep import reconstruct_surface_slabbed
     from splashsurf_tpu_torch.parallel.mesh import devices
     from splashsurf_tpu_torch.subdomains import reconstruct_surface_subdomain_grid
@@ -187,28 +244,84 @@ def reconstruct_surface(
         inside_aabb = mask.cpu().numpy()
         positions = positions[mask]
 
-    grid = _bucket_grid(
-        grid_for_reconstruction(
-            positions,
-            parameters.particle_radius,
-            parameters.compact_support_radius,
-            parameters.cube_size,
-            parameters.particle_aabb,
+    gkey = None
+    if isinstance(particle_positions, torch.Tensor) and parameters.particle_aabb is None:
+        gkey = (
+            int(positions.shape[0]), str(positions.dtype), float(parameters.particle_radius),
+            float(parameters.compact_support_radius), float(parameters.cube_size),
         )
-    )
-    route = choose_route(parameters, grid, len(devices(positions.device.type)))
-    if route == "subdomain":
-        return reconstruct_surface_subdomain_grid(
-            positions, parameters, grid, particle_inside_aabb=inside_aabb
+    rec = None
+    for attempt in range(2):
+        cached = (
+            attempt == 0 and gkey is not None and gkey in _GRID_PLAN
+            and gkey not in _GRID_NOSPEC
         )
-    if route == "slab":
-        return reconstruct_surface_slabbed(
-            positions, parameters, grid, particle_inside_aabb=inside_aabb
+        grid_check = None
+        if cached:
+            grid, raw_nc = _GRID_PLAN[gkey]
+            grow = parameters.particle_radius + kernel_extents(
+                parameters.compact_support_radius, parameters.cube_size
+            ).kernel_evaluation_radius
+            grid_check = _grid_check_device(positions, grid, grow, raw_nc)
+        else:
+            grid = grid_for_reconstruction(
+                positions,
+                parameters.particle_radius,
+                parameters.compact_support_radius,
+                parameters.cube_size,
+                parameters.particle_aabb,
+            )
+            raw_nc = grid.n_cells
+            grid = _bucket_grid(grid)
+        route = choose_route(parameters, grid, len(devices(positions.device.type)))
+        if route != "dense" and cached:
+            # the slab and subdomain routes take no deferred check: go cold
+            _GRID_PLAN.pop(gkey, None)
+            continue
+        if route == "subdomain":
+            return reconstruct_surface_subdomain_grid(
+                positions, parameters, grid, particle_inside_aabb=inside_aabb
+            )
+        if route == "slab":
+            return reconstruct_surface_slabbed(
+                positions, parameters, grid, particle_inside_aabb=inside_aabb
+            )
+        try:
+            rec = reconstruct_surface_global(
+                positions, parameters, grid, particle_inside_aabb=inside_aabb,
+                grid_check=grid_check, defer_pull=_defer_pull,
+            )
+        except GridPlanMiss:
+            _note_grid_miss(gkey)
+            continue
+        if gkey is not None:
+            if _PENDING_NOSPEC.pop(gkey, None) == (grid, raw_nc):
+                _GRID_NOSPEC.add(gkey)
+            else:
+                _GRID_PLAN[gkey] = (grid, raw_nc)
+        break
+    assert rec is not None
+    if isinstance(rec._pending_mesh, DeferredMesh):
+        rec._pending_mesh.redo = functools.partial(
+            _redo_frame, gkey, particle_positions, parameters, device
         )
-    return reconstruct_surface_global(
-        positions, parameters, grid, particle_inside_aabb=inside_aabb,
-        defer_pull=_defer_pull,
-    )
+    return rec
+
+
+def _note_grid_miss(gkey) -> None:
+    """Drop the grid plan that missed and remember it: if the cold grid
+    equals it, the key stops speculating."""
+    missed = _GRID_PLAN.pop(gkey, None)
+    if missed is not None:
+        _PENDING_NOSPEC[gkey] = missed
+
+
+def _redo_frame(gkey, particle_positions, parameters, device, code: str):
+    """A deferred frame whose plans missed, run again synchronously with its
+    original input (reference reconstruction.py:465-490)."""
+    if code == "redo_grid" and gkey is not None:
+        _note_grid_miss(gkey)
+    return reconstruct_surface(particle_positions, parameters, device=device)
 
 
 def reconstruct_sequence(
@@ -219,11 +332,12 @@ def reconstruct_sequence(
 
     Frame t+1 is dispatched before frame t's mesh is resolved, so frame t's
     mesh copy (on a side stream, into pinned host memory) overlaps frame
-    t+1's first stages. Eager PyTorch reads counts back inside a frame (the
-    overflow count, the density plan, marching cubes), so the overlap covers
-    only the mesh copy against the next frame's first stages.
-    ``SPLASHSURF_TPU_PIPELINE=0`` runs frame at a time. Each frame goes
-    through ``reconstruct_surface`` with ``device``.
+    t+1's work. A warm dense frame (every plan of the frames before it in
+    place) dispatches all of its device work without reading the card, so
+    the card runs ahead of the host by up to a frame. Where a frame's plans
+    missed, its resolve runs it again synchronously, with its original
+    input. ``SPLASHSURF_TPU_PIPELINE=0`` runs frame at a time. Each frame
+    goes through ``reconstruct_surface`` with ``device``.
     """
     pipeline = os.environ.get("SPLASHSURF_TPU_PIPELINE", "1") != "0"
     prev = None

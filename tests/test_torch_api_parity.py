@@ -36,10 +36,6 @@ REFERENCE_SUBMODULES = (
     "io", "mesh", "profiling", "postprocess", "pipeline", "mc", "neighbors", "density",
     "subdomains", "sph_interpolation", "sequence", "parallel", "cli", "studio",
 )
-_PLANS = (
-    "speculative frame plans: they hide host round trips of a remote TPU link; the "
-    "port reads its counts back on the card's host (ROADMAP.md, Not queued)"
-)
 _ENCODED = (
     "the encoded / u16 mesh pull and its native decoder: built to cut remote-link "
     "bytes, and lossy by default (SPLASHSURF_TPU_PULL_QUANT=1), where the port's "
@@ -53,13 +49,6 @@ _SHARD_MAP = (
 # module path relative to the package (a whole module where the path names
 # one), each with its reason. Nothing else may be missing.
 NOT_PORTED = {
-    "global_pipeline.SPECULATION_STATS": _PLANS,
-    "reconstruction.GridPlanMiss": _PLANS,
-    "reconstruction.clear_grid_plan": _PLANS,
-    "neighbors.DensityPlanMiss": _PLANS,
-    "neighbors.clear_density_plan": _PLANS,
-    "ops.global_sweep.SpeculationMiss": _PLANS,
-    "ops.global_sweep.PendingPull": _PLANS,
     "subdomains.chunk_mc_counts_encoded": _ENCODED,
     "subdomains.chunk_mc_encode": _ENCODED,
     "native.mc_decode": _ENCODED,
@@ -88,6 +77,62 @@ NOT_PORTED = {
     "native.libhalfedge": (
         "the reference's built C++ library; the port builds its own engine "
         "(native.py with csrc/host/)"
+    ),
+}
+_BACKEND = "the TPU's choice of a Pallas kernel or an XLA scan; the port has one route per device"
+_ROWS = (
+    "the port takes n_valid at its entry points (compute_particle_densities, "
+    "reconstruct_surface_global, the slab and subdomain routes) and keeps those rows, "
+    "so its cell lists and rasters hold particles only"
+)
+_CHUNK_ROWS = (
+    "the port's chunk takes the positions and values with the chunk's pair rows "
+    "(pids, rows, cells, ranks) in place of the reference's extended arrays and "
+    "padded per-subdomain lists"
+)
+_EXACT = "the port sizes this list exactly (its count read back), where the reference plans a capacity"
+# Parameters of reference functions and classes that the port's counterpart
+# leaves out on purpose ("module.name:parameter"), each with its reason.
+# Every other parameter of the reference is present on the port, with the
+# reference's default where it has one.
+SIGNATURE_NOT_PORTED = {
+    "neighbors.build_cell_list:n_valid": _ROWS,
+    "neighbors.build_cell_list:has_n_valid": _ROWS,
+    "neighbors.compute_particle_densities_geoslot:n_valid": _ROWS,
+    "neighbors.compute_particle_densities_geoslot:has_n_valid": _ROWS,
+    "neighbors.compute_particle_densities_geoslot:backend": _BACKEND,
+    "neighbors.compute_particle_densities_raster:backend": _BACKEND,
+    "ops.global_sweep.density_weights_from_rasters:backend": _BACKEND,
+    "ops.global_sweep.reconstruct_global_dense:backend": _BACKEND,
+    "ops.global_sweep.sweep_global:backend": _BACKEND,
+    "ops.global_sweep.mc_global_cells:encode": _ENCODED,
+    "ops.global_sweep.mc_global_cells:quant_t": _ENCODED,
+    "ops.global_sweep.rasterize_global:lane_align": (
+        "the TPU sweep's (8, 128) tile alignment of the raster's minor dims"
+    ),
+    **{
+        f"ops.global_sweep.sweep_global:{a}": (
+            "the port passes the four rasters and the four overflow columns as two "
+            "tuples, (rasters, overflow)"
+        )
+        for a in ("fx", "fy", "fz", "fv", "opx", "opy", "opz", "oval")
+    },
+    **{f"subdomains.chunk_levelset_raster:{a}": _CHUNK_ROWS
+       for a in ("positions_ext", "values_ext", "plists", "plocal", "prank")},
+    **{f"subdomains.chunk_levelset_scatter:{a}": _CHUNK_ROWS
+       for a in ("positions_ext", "values_ext", "plists")},
+    "subdomains.chunk_levelset_raster:slots": "the port's subdomain rasters have SLOTS = 2",
+    "subdomains.chunk_levelset_raster:unroll": _BACKEND,
+    "subdomains.chunk_mc:pack_vertex_capacity": _EXACT,
+    "subdomains.chunk_mc:pack_triangle_capacity": _EXACT,
+    "subdomains.decompose:pair_capacity": _EXACT,
+    "subdomains.reconstruct_surface_subdomain_grid:chunk_size": (
+        "the port sizes splat chunks by a byte budget (chunk_bytes), not by a "
+        "subdomain count"
+    ),
+    "subdomains.reconstruct_surface_subdomain_grid:raster_threshold": (
+        "the port always rasterizes (kernel K3) and splats only the slot overflow; "
+        "the reference's threshold picks the scatter splat off the TPU"
     ),
 }
 REFERENCE_MODULES = ["splashsurf_tpu"] + sorted(
@@ -177,6 +222,96 @@ def test_not_ported_entries_exist_in_the_reference_and_not_in_the_port(entry):
     assert name in _defined_names(ref), entry
     port = _port_module(rel)
     assert port is not None and not hasattr(port, name), entry
+
+
+def _parameters(obj):
+    """The parameters of a callable's signature, or None where it has none
+    that ``inspect`` can read (a builtin exception type)."""
+    try:
+        return inspect.signature(obj).parameters
+    except (TypeError, ValueError):
+        return None
+
+
+def _same_default(ref, port) -> bool:
+    """Equal defaults; an enum member or a dataclass of the reference equals
+    the port's copy of it when their values do."""
+    if ref is port:
+        return True
+    if type(ref).__name__ != type(port).__name__:
+        return False
+    if hasattr(ref, "value") and hasattr(port, "value"):
+        return ref.value == port.value
+    try:
+        return bool(ref == port) or repr(ref) == repr(port)
+    except Exception:
+        return False
+
+
+def _signature_gaps(module: str) -> list:
+    """The reference module's public functions and classes whose parameters
+    the port's counterpart lacks, or whose defaults differ, less the
+    ``SIGNATURE_NOT_PORTED`` table: ["name:parameter (why)", ...]."""
+    rel = _rel(module)
+    ref, port = importlib.import_module(module), _port_module(rel)
+    gaps = []
+    for name in sorted(_defined_names(ref)):
+        key = f"{rel}.{name}" if rel else name
+        if key in NOT_PORTED or not hasattr(port, name):
+            continue
+        theirs, ours = _parameters(getattr(ref, name)), _parameters(getattr(port, name))
+        if theirs is None or ours is None:
+            continue
+        for pname, par in theirs.items():
+            if par.kind in (par.VAR_POSITIONAL, par.VAR_KEYWORD):
+                continue
+            if f"{key}:{pname}" in SIGNATURE_NOT_PORTED:
+                continue
+            if pname not in ours:
+                gaps.append(f"{key}:{pname} (missing)")
+            elif par.default is not par.empty and not _same_default(
+                par.default, ours[pname].default
+            ):
+                gaps.append(f"{key}:{pname} (default {par.default!r} != {ours[pname].default!r})")
+    return gaps
+
+
+@pytest.mark.parametrize(
+    "module", [m for m in REFERENCE_MODULES if _rel(m) not in NOT_PORTED]
+)
+def test_every_reference_signature_holds_on_the_port(module):
+    """Every parameter of the reference's public functions and classes is a
+    parameter of the port's counterpart, with the reference's default where
+    it has one, but for ``SIGNATURE_NOT_PORTED``."""
+    assert not _signature_gaps(module), module
+
+
+@pytest.mark.parametrize("entry", sorted(SIGNATURE_NOT_PORTED))
+def test_signature_not_ported_entries_are_real(entry):
+    """The table cannot go stale: each entry names a parameter of the
+    reference that the port's counterpart really lacks."""
+    assert SIGNATURE_NOT_PORTED[entry]
+    path, _, pname = entry.partition(":")
+    rel, _, name = path.rpartition(".")
+    ref = getattr(importlib.import_module(f"splashsurf_tpu.{rel}"), name)
+    port = getattr(_port_module(rel), name)
+    assert pname in _parameters(ref), entry
+    assert pname not in _parameters(port), entry
+
+
+def test_the_speculation_names_are_ported():
+    """The speculative frame plans' public names, once in ``NOT_PORTED``."""
+    from splashsurf_tpu_torch import global_pipeline, neighbors, reconstruction
+    from splashsurf_tpu_torch.ops import global_sweep
+
+    assert set(global_pipeline.SPECULATION_STATS) == {
+        "frames", "density_miss", "grid_miss", "caps_retry", "overflow_retry"
+    }
+    for mod, name in ((reconstruction, "GridPlanMiss"), (neighbors, "DensityPlanMiss"),
+                      (global_sweep, "SpeculationMiss")):
+        assert issubclass(getattr(mod, name), RuntimeError)
+    assert callable(reconstruction.clear_grid_plan) and callable(neighbors.clear_density_plan)
+    assert callable(global_sweep.PendingPull.resolve)
 
 
 def test_the_scan_sees_the_newly_ported_names():

@@ -2,12 +2,12 @@
 (``SPLASHSURF_TPU_DENSITY_CELLRASTER``), PyTorch port against the JAX
 reference's cell-raster warm frame on a small synthetic dam break.
 
-The reference takes its cell-raster branch only on a warm frame (after a
+Both packages take the cell-raster branch only on a warm frame (after a
 planning frame of the same grid and particle count left no raster
-overflow); a spy on its ``density_weights_from_rasters`` asserts that the
-branch ran, and runs it with jit disabled (the same operations, one at a
-time: its unrolled pair fan takes many seconds to compile on the CPU). The
-port takes the branch on any frame without overflow and says so in
+overflow and planned the MC capacities); a spy on the reference's
+``density_weights_from_rasters`` asserts that the branch ran, and runs it
+with jit disabled (the same operations, one at a time: its unrolled pair
+fan takes many seconds to compile on the CPU). The port says so in
 ``neighbors.LAST_GATE``."""
 
 import jax
@@ -91,12 +91,20 @@ def _port(pts, jp, env, monkeypatch):
     return pt.reconstruct_surface(pts, pt.Parameters.from_reference(jp), device="cpu")
 
 
+def _port_warm(pts, jp, env, monkeypatch):
+    """The port's planning frame, then its warm frame (the cell-raster one
+    where ``env`` turns them on)."""
+    _port(pts, jp, env, monkeypatch)
+    assert tn.LAST_GATE["kind"] != "cellraster"
+    return _port(pts, jp, env, monkeypatch)
+
+
 def test_matches_reference_cellraster_frame(jax_cellraster, monkeypatch):
     """f64: equal triangle lists, vertices within 1e-12, rho rtol 1e-12;
     f32: equal counts, vertices within 1e-4 (the reference ships t
     quantized to 16 bits), rho rtol 1e-5."""
     dtype, jp, pts, ref = jax_cellraster
-    rec = _port(pts, jp, "1cpu", monkeypatch)
+    rec = _port_warm(pts, jp, "1cpu", monkeypatch)
     assert tn.LAST_GATE["kind"] == "cellraster"
     rv, rt = np.asarray(ref.mesh.vertices), np.asarray(ref.mesh.triangles)
     v, t = rec.mesh.vertices, rec.mesh.triangles
@@ -117,7 +125,8 @@ def test_matches_own_legacy_densities(jax_cellraster, monkeypatch):
     """The two density formulations of the port agree: rho rtol 1e-5 (the
     reference's own bar between them), equal counts, vertices within 1e-4."""
     _, jp, pts, _ = jax_cellraster
-    cell = _port(pts, jp, "1cpu", monkeypatch)
+    cell = _port_warm(pts, jp, "1cpu", monkeypatch)
+    assert tn.LAST_GATE["kind"] == "cellraster"
     legacy = _port(pts, jp, "0", monkeypatch)
     assert tn.LAST_GATE["kind"] != "cellraster"
     np.testing.assert_allclose(

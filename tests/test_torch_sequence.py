@@ -1,9 +1,10 @@
 """``reconstruct_sequence`` of the PyTorch port on the CPU, with synthetic
 frames (a small dam break, jittered per frame as the reference's sequence
-test does): every yielded frame equals a frame-at-a-time run, the sequence
-matches the JAX reference's ``reconstruct_sequence``, the deferred mesh
-pull, ``SPLASHSURF_TPU_PIPELINE=0``, a frame that overflows the raster
-slots in the middle of a cell-raster sequence, and the subdomain route."""
+test does): every yielded frame equals a frame-at-a-time run made from the
+same speculative plans, the sequence matches the JAX reference's
+``reconstruct_sequence``, the deferred mesh pull,
+``SPLASHSURF_TPU_PIPELINE=0``, a frame that overflows the raster slots in
+the middle of a cell-raster sequence, and the subdomain route."""
 
 import numpy as np
 import pytest
@@ -18,7 +19,7 @@ from splashsurf_tpu.reconstruction import clear_grid_plan
 import splashsurf_tpu_torch as pt
 from splashsurf_tpu_torch import neighbors as tn
 from splashsurf_tpu_torch import reconstruction as tr
-from torch_gate import reset_port_geoslot_hysteresis  # noqa: F401 (autouse)
+from torch_gate import clear_port_plans, reset_port_geoslot_hysteresis  # noqa: F401 (autouse)
 
 RADIUS = 0.011
 ENV = "SPLASHSURF_TPU_DENSITY_CELLRASTER"
@@ -49,6 +50,13 @@ def _assert_same(a, b):
     assert torch.equal(a.particle_densities, b.particle_densities)
 
 
+def _frame_at_a_time(frames, params):
+    """Each frame through ``reconstruct_surface`` in turn, from no plan: the
+    plans evolve as they do in a sequence without a miss."""
+    clear_port_plans()
+    return [pt.reconstruct_surface(f, params, device="cpu") for f in frames]
+
+
 def _recording(frames, log):
     """The frames, noting after each frame's dispatch which density
     formulation it took."""
@@ -59,16 +67,20 @@ def _recording(frames, log):
 
 @pytest.mark.parametrize("env", ["0", "1cpu"])
 def test_sequence_equals_frame_at_a_time(env, monkeypatch):
-    """Bit for bit on the CPU, with the legacy and the cell-raster densities."""
+    """Bit for bit on the CPU, with the legacy and the cell-raster densities
+    (which, as in the reference, a frame takes once a frame before it has
+    planned its grid's MC capacities and left no raster overflow: the
+    frames after the first)."""
     monkeypatch.setenv(ENV, env)
     frames, kinds = _frames(3), []
     seq = list(pt.reconstruct_sequence(_recording(frames, kinds), _params(), device="cpu"))
     assert len(seq) == 3
-    assert (kinds == ["cellraster"] * 3) == (env == "1cpu")
-    for f, rec in zip(frames, seq):
+    assert kinds[0] != "cellraster"
+    assert (kinds[1:] == ["cellraster"] * 2) == (env == "1cpu")
+    for rec, ref in zip(seq, _frame_at_a_time(frames, _params())):
         assert rec.mesh is not None and rec._pending_mesh is None
         assert rec.mesh.num_triangles > 1000
-        _assert_same(rec, pt.reconstruct_surface(f, _params(), device="cpu"))
+        _assert_same(rec, ref)
 
 
 def test_matches_reference_sequence():
@@ -129,9 +141,13 @@ def test_pipeline_disable_env(monkeypatch):
 
 def test_overflow_burst_mid_sequence_falls_back(monkeypatch):
     """128 coincident particles in frame 2 of a cell-raster sequence: that
-    frame overflows the raster slots, takes the legacy densities, and still
-    equals its frame-at-a-time run; its neighbours take the cell-raster
-    path."""
+    frame overflows the raster slots, takes the legacy densities (its
+    bounding box, and so its grid, is new: a planning frame, whose density
+    plan misses on the octant collisions) and still equals its
+    frame-at-a-time run; its neighbours take the cell-raster path, but for
+    frame 0, which plans it."""
+    from splashsurf_tpu_torch.global_pipeline import SPECULATION_STATS
+
     monkeypatch.setenv(ENV, "1cpu")
     frames = _frames(4)
     burst = frames[2].copy()
@@ -139,9 +155,10 @@ def test_overflow_burst_mid_sequence_falls_back(monkeypatch):
     frames[2] = burst
     kinds = []
     seq = list(pt.reconstruct_sequence(_recording(frames, kinds), _params(), device="cpu"))
-    assert kinds[2] != "cellraster" and kinds[:2] + kinds[3:] == ["cellraster"] * 3
-    ref = pt.reconstruct_surface(frames[2], _params(), device="cpu")
-    _assert_same(seq[2], ref)
+    assert kinds[2] != "cellraster" and kinds[1] == kinds[3] == "cellraster" != kinds[0]
+    assert SPECULATION_STATS["density_miss"] == 1
+    for rec, want in zip(seq, _frame_at_a_time(frames, _params())):
+        _assert_same(rec, want)
     assert pt.check_mesh_consistency(seq[2].mesh.vertices, seq[2].mesh.triangles) is None
 
 

@@ -1,16 +1,33 @@
-"""The port's geoslot hysteresis is process-global, as the reference's is,
-and port test files share worker processes. A port test module that reaches
-a density gate imports this autouse fixture, so that each of its tests
-starts and ends with the port's count of consecutive octant collisions at
-0, whatever test ran before it in the same worker."""
+"""The port's process-global density state, as the reference's is: the
+geoslot hysteresis and the speculative frame plans (the density plan, the
+grid plan, the dense route's overflow, MC and pull plans) with their
+``SPECULATION_STATS``. Port test files share worker processes, so a port
+test module that reaches a density gate or the dense route imports this
+autouse fixture: each of its tests starts and ends with no recorded octant
+collision, no plan and zero counts, whatever test ran before it in the same
+worker."""
 
 import pytest
 
-from splashsurf_tpu_torch import neighbors
+from splashsurf_tpu_torch import global_pipeline, neighbors, reconstruction
+from splashsurf_tpu_torch.ops import global_sweep
+
+
+def clear_port_plans():
+    """Forget every speculative plan of the port and zero its counts."""
+    neighbors.clear_density_plan()
+    reconstruction.clear_grid_plan()
+    reconstruction._PENDING_NOSPEC.clear()
+    for plan in (global_sweep._OVER_PLAN, global_sweep._MC_CAPS, global_sweep._PULL_PLAN):
+        plan.clear()
+    for k in global_pipeline.SPECULATION_STATS:
+        global_pipeline.SPECULATION_STATS[k] = 0
 
 
 @pytest.fixture(autouse=True)
 def reset_port_geoslot_hysteresis():
     neighbors.reset_geoslot_hysteresis()
+    clear_port_plans()
     yield
     neighbors.reset_geoslot_hysteresis()
+    clear_port_plans()
