@@ -2080,12 +2080,13 @@ def sync_calls(fn):
     return out, sum("synchroniz" in str(w.message) for w in caught)
 
 
-def idle_share(fn):
+def idle_share(fn, top=None):
     """(wall seconds, idle share) of one call of ``fn`` that ends in a
     synchronise: the idle share is 1 - the summed time of the card's kernels
     in a ``torch.profiler`` trace (CUDA activity only) over the wall time;
     None when the trace holds no kernel. The profiler's own host cost is in
-    the wall time, so the share is an upper bound."""
+    the wall time, so the share is an upper bound. With ``top``, also logs
+    the ``top`` kernels by summed time (name, launches, ms)."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -2101,7 +2102,16 @@ def idle_share(fn):
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f).get("traceEvents", [])
-    busy_us = sum(e.get("dur", 0) for e in events if e.get("cat") == "kernel")
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    busy_us = sum(e.get("dur", 0) for e in kernels)
+    if top:
+        by_name = {}
+        for e in kernels:
+            n, us = by_name.get(e["name"], (0, 0.0))
+            by_name[e["name"]] = (n + 1, us + e.get("dur", 0))
+        rows = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+        log(f"  {len(kernels)} kernels, {busy_us * 1e-3:.3f} ms in all; the top {top}: "
+            + "; ".join(f"{name[:60]} x{n} {us * 1e-3:.3f} ms" for name, (n, us) in rows))
     return wall, (None if busy_us == 0 else 1.0 - busy_us * 1e-6 / wall)
 
 
@@ -2201,9 +2211,9 @@ def phase_plans(pt, pts, params, ident):
         check_same_mesh(f"frame {k} on its own plans / plans cleared", rec.mesh, cold.mesh,
                         ordered=True, tol=1e-6)
     warm_sync = sync_calls(lambda: pt.reconstruct_surface(frames[1], params))[1]
-    warm_wall, warm_idle = idle_share(lambda: pt.reconstruct_surface(frames[2], params))
+    warm_wall, warm_idle = idle_share(lambda: pt.reconstruct_surface(frames[2], params), top=8)
     cold_sync = sync_calls(lambda: cold_frame(frames[3]))[1]
-    cold_wall, cold_idle = idle_share(lambda: cold_frame(frames[4]))
+    cold_wall, cold_idle = idle_share(lambda: cold_frame(frames[4]), top=8)
     # a frame shifted past a grid cell: the grid plan misses, the frame runs cold
     shifted = pts + 2.0 * params.cube_size
     before = dict(SPECULATION_STATS)

@@ -159,35 +159,31 @@ def reconstruct_surface_global(
     ``defer_pull``, ``resolve()`` runs the frame again). Only the first
     ``n_valid`` rows of ``positions`` are particles, where that is given;
     the densities of the rest are 0."""
-    n = positions.shape[0]
-    if n_valid is not None and int(n_valid) < n:
-        rec = reconstruct_surface_global(
-            positions[: int(n_valid)], parameters, grid, particle_inside_aabb,
-            grid_check, defer_pull=defer_pull,
-        )
-        rho = rec.particle_densities
-        rec.particle_densities = torch.cat([rho, rho.new_zeros(n - rho.shape[0])])
-        return rec
+    full, n = positions, positions.shape[0]
+    if n_valid is not None:
+        positions = positions[: int(n_valid)]
     hsc = kernel_extents(parameters.compact_support_radius, grid.cell_size).half_supported_cells
     SPECULATION_STATS["frames"] += 1
     defer_pull = defer_pull and not parameters.global_neighborhood_list
     out = None
     if (
         use_cellraster(positions.device)
-        and gs._OVER_PLAN.get((grid.n_points, n)) == 0
+        and gs._OVER_PLAN.get((grid.n_points, positions.shape[0])) == 0
         and (grid.n_points, str(positions.dtype)) in gs._MC_CAPS
     ):
         out = _cellrast_frame(positions, parameters, grid, hsc, grid_check, defer_pull)
     if out is None:
         out = _legacy_frame(positions, parameters, grid, hsc, grid_check, defer_pull)
     pull, rho = out
+    rho = torch.cat([rho, rho.new_zeros(n - rho.shape[0])]) if rho.shape[0] < n else rho
     rec = SurfaceReconstruction(
         grid=grid, mesh=None, particle_densities=rho,
         particle_neighbors=neighbors.particle_neighbor_lists(positions, parameters),
         particle_inside_aabb=particle_inside_aabb,
     )
     redo = functools.partial(
-        reconstruct_surface_global, positions, parameters, grid, particle_inside_aabb
+        reconstruct_surface_global, full, parameters, grid, particle_inside_aabb,
+        n_valid=n_valid,
     )
     rec._pending_mesh = DeferredMesh(rec, pull, lambda code: redo())
     return rec if defer_pull else rec.resolve()

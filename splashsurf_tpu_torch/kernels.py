@@ -68,17 +68,11 @@ def compact_indices(mask: torch.Tensor, capacity: Optional[int] = None) -> torch
     Without ``capacity``, all of them (``torch.nonzero``: their count is
     read back from the device). With ``capacity``, a fixed-size list of the
     first ``capacity`` of them, padded with ``mask.numel()``, and nothing is
-    read back: ``torch.nonzero_static`` where torch has it, otherwise a
-    cumsum and a scatter into a buffer of the capacity."""
+    read back (``torch.nonzero_static``, which reads nothing back on CUDA
+    either)."""
     if capacity is None:
         return torch.nonzero(mask).squeeze(1)
-    n = mask.numel()
-    if hasattr(torch, "nonzero_static"):
-        return torch.nonzero_static(mask, size=capacity, fill_value=n).squeeze(1)
-    dest = torch.where(mask, torch.cumsum(mask, 0) - 1, capacity).clamp_max(capacity)
-    out = torch.full((capacity + 1,), n, dtype=torch.int64, device=mask.device)
-    out.scatter_(0, dest, torch.arange(n, device=mask.device))
-    return out[:capacity]
+    return torch.nonzero_static(mask, size=capacity, fill_value=mask.numel()).squeeze(1)
 
 
 def scatter_table(dest, values, total: int, fill: float, shape) -> torch.Tensor:

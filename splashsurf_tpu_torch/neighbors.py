@@ -136,24 +136,25 @@ def build_cell_list(positions: torch.Tensor, grid: BinGrid) -> CellList:
     )
 
 
-def _run_starts(sorted_bins: torch.Tensor):
-    """(is_start, first): whether each sorted slot starts its bin's run, and
-    the sorted index of its run's first slot; no read-back."""
+def _runs(sorted_bins: torch.Tensor):
+    """(is_start, run, first) of the bin-sorted slots: whether each starts
+    its bin's run, the run's rank among the occupied bins, and the sorted
+    index of the run's first slot; no read-back."""
     n = sorted_bins.shape[0]
     dev = sorted_bins.device
     is_start = torch.ones(n, dtype=torch.bool, device=dev)
     is_start[1:] = sorted_bins[1:] != sorted_bins[:-1]
-    idx = torch.arange(n, device=dev)
-    first = torch.cummax(torch.where(is_start, idx, 0), 0).values
-    return is_start, first
+    run = torch.cumsum(is_start, 0) - 1
+    first = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    first.scatter_(0, torch.where(is_start, run, n), torch.arange(n, device=dev))
+    return is_start, run, first[run]
 
 
 def _bin_stats_device(sorted_bins: torch.Tensor) -> torch.Tensor:
     """(max occupancy, occupied bins, particles with bin rank >= 8) as one
     int64 device tensor (``_bin_stats_device`` of the reference,
     ``neighbors.py:154-168``)."""
-    is_start, _ = _run_starts(sorted_bins)
-    seg = torch.cumsum(is_start, 0) - 1
+    _, seg, _ = _runs(sorted_bins)
     counts = torch.zeros_like(seg).scatter_add_(0, seg, torch.ones_like(seg))
     return torch.stack(
         [counts.max(), seg[-1] + 1, torch.clamp_min(counts - 8, 0).sum()]
@@ -177,7 +178,8 @@ def _segment_tables(sorted_bins: torch.Tensor, lattice: int):
     (no read-back)."""
     n = sorted_bins.shape[0]
     dev = sorted_bins.device
-    is_start, _ = _run_starts(sorted_bins)
+    is_start = torch.ones(n, dtype=torch.bool, device=dev)
+    is_start[1:] = sorted_bins[1:] != sorted_bins[:-1]
     starts = torch.zeros(lattice + 1, dtype=torch.int64, device=dev)
     starts.scatter_(0, torch.where(is_start, sorted_bins, lattice), torch.arange(n, device=dev))
     counts = torch.zeros(lattice, dtype=torch.int64, device=dev)
@@ -215,7 +217,7 @@ def stencil_candidates(q_ijk, grid: BinGrid, cell_list: CellList, capacity: int,
     return idx.flatten(1), mask.flatten(1)
 
 
-def _overflow_correction(positions, grid, cell_list, K, capacity, h, rho, overflow_capacity=0):
+def _overflow_correction(positions, grid, cell_list, K, capacity, h, rho, overflow_capacity):
     """Exact correction for particles of within-bin rank >= K, which the
     dense tables leave out: their own density is summed over full candidate
     gathers (self term included), and their contribution is added into the
@@ -223,31 +225,27 @@ def _overflow_correction(positions, grid, cell_list, K, capacity, h, rho, overfl
     never from their positions, so the cell list may be that of one x-slab
     of a larger lattice (``grid`` then has the slab's dims).
 
-    With ``overflow_capacity`` (the density plan's ``ocap``), the lists of
-    overflow bins and overflow particles have that fixed size and nothing is
-    read back: the reference's two-level compaction (``neighbors.py:
-    589-684``); entries past the capacity are left out, and the plan check
-    then misses the frame. With 0 the lists have their exact sizes (one
-    read-back).
+    The lists of overflow bins and of overflow particles have the fixed
+    size ``overflow_capacity`` (``ocap`` of the gate or the density plan)
+    and nothing is read back: the reference's two-level compaction
+    (``neighbors.py:589-684``); entries past the capacity are left out, and
+    the plan check then misses the frame.
 
     The index_add_ sums run with atomics on CUDA, so their order, and the
     last bits of the corrected densities, change from run to run."""
     dtype = positions.dtype
     dev = positions.device
-    oc = overflow_capacity or None
     lattice = grid.lattice
     tables = _segment_tables(cell_list.sorted_bins, lattice)
     starts_table, counts_table = tables
-    obin = kernels.compact_indices(counts_table > K, oc)  # ascending bin id
+    obin = kernels.compact_indices(counts_table > K, overflow_capacity)  # ascending bin id
     ob_ok = obin < lattice
     obin = torch.where(ob_ok, obin, 0)
     base = starts_table[obin]
     cnt = torch.where(ob_ok, counts_table[obin], 0)
     rr = torch.arange(K, capacity, device=dev)
     sid = (base[:, None] + rr[None, :]).reshape(-1)
-    if sid.numel() == 0:
-        return rho
-    take = kernels.compact_indices((rr[None, :] < cnt[:, None]).reshape(-1), oc)
+    take = kernels.compact_indices((rr[None, :] < cnt[:, None]).reshape(-1), overflow_capacity)
     ovalid = take < sid.numel()
     osid = torch.where(ovalid, sid[take.clamp_max(sid.numel() - 1)], 0)
     opos = [cell_list.sorted_positions[d][osid] for d in range(3)]
@@ -285,14 +283,13 @@ def _sweep_readback(rasters, slot, bx, by, bz, ok, LX, bin_size, h):
 def compute_particle_densities_raster(
     positions, grid: BinGrid, cell_list: CellList, compact_support_radius,
     particle_rest_mass, slots: int = 8, overflow_capacity: int = 0,
-    candidate_capacity: int = 0, overflow: bool = False, x0: int = 0,
+    candidate_capacity: int = 0, x0: int = 0,
 ):
     """SPH densities via the dense bin-raster sweep, slots from the
-    within-bin rank of the bin-sorted order; with ``overflow``, or a
-    nonzero ``overflow_capacity`` (the lists' fixed size, see
-    :func:`_overflow_correction`), the rank >= ``slots`` particles go
-    through the exact overflow correction. Nothing is read back unless the
-    correction sizes its lists exactly.
+    within-bin rank of the bin-sorted order; with a nonzero
+    ``overflow_capacity`` (the size of its lists, see
+    :func:`_overflow_correction`) the rank >= ``slots`` particles go
+    through the exact overflow correction. Nothing is read back.
 
     ``grid`` may be an x-slab of a larger lattice: its bin x = 0 is the
     lattice's bin ``x0``, and the bin corners, hence the fractions, are the
@@ -302,7 +299,7 @@ def compute_particle_densities_raster(
     n = positions.shape[0]
     LX, LY, LZ = grid.dims
     sb = cell_list.sorted_bins
-    _, first = _run_starts(sb)
+    _, _, first = _runs(sb)
     slot = torch.arange(n, device=dev) - first
 
     Xp, Yp, Zp = LX + 2, LY + 2, LZ + 2
@@ -321,7 +318,7 @@ def compute_particle_densities_raster(
     )
     rho = torch.empty_like(rho_sorted)
     rho[cell_list.order] = rho_sorted
-    if overflow or overflow_capacity:
+    if overflow_capacity:
         rho = _overflow_correction(
             positions, grid, cell_list, slots, candidate_capacity,
             compact_support_radius, rho, overflow_capacity,
@@ -449,8 +446,7 @@ _PAIR_BLOCK_ELEMS = 1 << 25
 def compute_particle_densities_binned(
     positions, grid: BinGrid, cell_list: CellList, compact_support_radius,
     particle_rest_mass, capacity: int, u_cap: int, overflow_capacity: int = 0,
-    candidate_capacity: int = 0, overflow: bool = False,
-    occupied: Optional[int] = None,
+    candidate_capacity: int = 0, occupied: Optional[int] = None,
 ):
     """SPH densities from per-occupied-bin position tables.
 
@@ -466,9 +462,9 @@ def compute_particle_densities_binned(
     come from a dense rank table on lattices up to ``RANK_TABLE_MAX`` bins,
     else from a binary search over the occupied bin ids.
 
-    ``capacity`` (K) must cover the largest occupancy unless ``overflow``
-    or ``overflow_capacity`` is set: then the rank >= K particles are left
-    out of the tables and corrected exactly (``_overflow_correction``, with
+    ``capacity`` (K) must cover the largest occupancy unless
+    ``overflow_capacity`` is set: then the rank >= K particles are left out
+    of the tables and corrected exactly (``_overflow_correction``, with
     ``candidate_capacity`` >= the largest occupancy).
     """
     dtype = positions.dtype
@@ -477,8 +473,7 @@ def compute_particle_densities_binned(
     K = capacity
     R = u_cap if occupied is None else min(int(occupied), u_cap)
     sb = cell_list.sorted_bins
-    is_start, first = _run_starts(sb)
-    bin_rank = torch.cumsum(is_start, 0) - 1
+    is_start, bin_rank, first = _runs(sb)
     slot = torch.arange(n, device=dev) - first
     lattice = grid.lattice
     _, dy, dz = grid.dims
@@ -533,7 +528,7 @@ def compute_particle_densities_binned(
     )
     rho = torch.empty_like(rho_sorted)
     rho[cell_list.order] = rho_sorted
-    if overflow or overflow_capacity:
+    if overflow_capacity:
         rho = _overflow_correction(
             positions, grid, cell_list, K, candidate_capacity, h, rho, overflow_capacity
         )

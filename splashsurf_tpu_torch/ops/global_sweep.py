@@ -226,8 +226,10 @@ def _scatter_splat_points(opx, opy, opz, oval, grid: UniformGrid, h, hsc,
             in_grid = in_grid & (p >= 0) & (p < local[d])
             flat = flat + p * strides[d]
         w = kernels.cubic_kernel(torch.sqrt(d2), h) * oval[sl, None]
+        # entries off the grid add 0 at a clamped index of their own, so
+        # that no single address takes all of their atomics
         out_flat.index_add_(
-            0, torch.where(in_grid, flat, 0).reshape(-1),
+            0, flat.clamp(0, out_flat.numel() - 1).reshape(-1),
             torch.where(in_grid, w, 0.0).reshape(-1),
         )
     return out
@@ -368,12 +370,12 @@ def mc_mesh_from_points(points: torch.Tensor, words: torch.Tensor, t: torch.Tens
     vertices = torch.stack(verts, dim=1)
 
     # --- triangle stream --------------------------------------------------
-    # forward fill: the active point that owns each triangle slot
-    offsets = torch.cumsum(counts, 0) - counts
-    dest = torch.where(counts > 0, offsets, tcap).clamp_max(tcap)
-    slot_map = torch.zeros(tcap + 1, dtype=torch.int64, device=dev)
-    slot_map.scatter_(0, dest, torch.arange(total_c, device=dev))
-    slot_map = torch.cummax(slot_map[:tcap], 0).values
+    # the active point that owns each triangle slot: point p owns the slots
+    # [ccum[p] - counts[p], ccum[p])
+    ccum = torch.cumsum(counts, 0)
+    offsets = ccum - counts
+    slot_map = torch.searchsorted(ccum, torch.arange(tcap, device=dev), right=True)
+    slot_map = slot_map.clamp_max(max(total_c - 1, 0))
     slot_in_cell = torch.arange(tcap, device=dev) - offsets[slot_map]
     emit = slot_in_cell < counts[slot_map]
     slot_in_cell = slot_in_cell.clamp(0, tab_t.shape[1] - 1)
@@ -574,6 +576,10 @@ def reconstruct_global_dense(
         ocap = _pow2(n // 64, lo=4096)
     for _ in range(4):
         rasters, overflow, n_over = rasterize_global(positions, values, grid, slots, hsc, ocap)
+        if okey not in _OVER_PLAN:
+            # no plan yet: this frame reads counts back anyway, so it splats
+            # the real rows only (the sums are those of the whole list)
+            overflow = tuple(c[: int(n_over)] for c in overflow)
         ls = sweep_global(rasters, overflow, grid, compact_support_radius, hsc)
         del rasters, overflow
         out = _finish_global_dense(

@@ -236,7 +236,7 @@ def compute_particle_densities_sharded(
         sorted_bins, order = torch.sort(bins, stable=True)
         cl = CellList(order, sorted_bins, tuple(rows[:, d][order] for d in range(3)), bins)
         rho = N.compute_particle_densities_raster(
-            rows, slab, cl, h, mass, slots=8, overflow=gate["overflow"],
+            rows, slab, cl, h, mass, slots=8, overflow_capacity=gate["ocap"],
             candidate_capacity=gate["ccap"], x0=x_lo,
         )
         return rho, None
