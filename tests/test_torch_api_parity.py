@@ -74,10 +74,6 @@ NOT_PORTED = {
     "ops.prefix": "the MXU blocked prefix sum; the port uses torch.cumsum",
     "ops.splat_pallas": "the Pallas kernels; the port's are ops/splat_kernels.py with csrc/",
     "workspace": "the JAX persistent compile cache; the port compiles no programs",
-    "native.libhalfedge": (
-        "the reference's built C++ library; the port builds its own engine "
-        "(native.py with csrc/host/)"
-    ),
 }
 _BACKEND = "the TPU's choice of a Pallas kernel or an XLA scan; the port has one route per device"
 _ROWS = (
@@ -135,9 +131,22 @@ SIGNATURE_NOT_PORTED = {
         "the reference's threshold picks the scatter splat off the TPU"
     ),
 }
+
+
+def _is_source_module(info) -> bool:
+    """A package or a ``.py`` file: not an extension module or a built
+    shared library, which exist only once a run before has built them."""
+    if info.ispkg:
+        return True
+    leaf = info.name.rpartition(".")[2]
+    return (pathlib.Path(info.module_finder.path) / f"{leaf}.py").is_file()
+
+
+# the JAX package's source modules: the same list whether or not its
+# native library has been built
 REFERENCE_MODULES = ["splashsurf_tpu"] + sorted(
     m.name for m in pkgutil.walk_packages(st.__path__, "splashsurf_tpu.")
-    if not m.name.endswith("__main__")
+    if not m.name.endswith("__main__") and _is_source_module(m)
 )
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
