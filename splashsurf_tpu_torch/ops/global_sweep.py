@@ -29,11 +29,24 @@ planned buckets (``_PULL_PLAN``), together with the totals and the caller's
 deferred checks, in one copy (``PendingPull``). A frame whose plans are all
 in place reads nothing back before that copy; a check that fails there is a
 miss, which updates the plans as the reference does and re-runs the frame.
+
+The copy is the mesh itself (the packed pull, the port's default) or, with
+``SPLASHSURF_TPU_PULL=encoded`` (the reference's default), the encoded
+streams of ``mc_global_cells(encode=True)``: per active point a u16 word
+with its offset in its 32-point block, u8 active counts per block, and one
+edge parameter per vertex, u16 where ``SPLASHSURF_TPU_PULL_QUANT`` asks
+(the default, f32 only); the host rebuilds the mesh with the native decoder
+(``native.mc_decode``) or, in f64, the numpy one (``pull_mode``).
+``SPLASHSURF_TPU_MC=edges`` takes the edge-major ``mc_global_packed`` and
+the packed pull. No kernel is involved in either: both are plain PyTorch,
+as in the reference they are XLA code.
 """
 
 from __future__ import annotations
 
 import functools
+import os
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -42,7 +55,7 @@ import torch
 from splashsurf_tpu_torch import kernels
 from splashsurf_tpu_torch.density import supported_point_offsets
 from splashsurf_tpu_torch.mc import lut
-from splashsurf_tpu_torch.mc.dense import lut_tensors
+from splashsurf_tpu_torch.mc.dense import _case_indices, _local_edge_coeffs, edge_layout, lut_tensors
 from splashsurf_tpu_torch.ops.splat_kernels import pair_sweep_cuda, sweep_global_cuda
 from splashsurf_tpu_torch.uniform_grid import UniformGrid
 
@@ -413,18 +426,381 @@ def _mc_totals(words: torch.Tensor) -> torch.Tensor:
 def mc_global_cells(ls: torch.Tensor, grid: UniformGrid, iso,
                     vertex_capacity: Optional[int] = None,
                     triangle_capacity: Optional[int] = None,
-                    own_px: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                    encode: bool = False, quant_t: bool = False,
+                    own_px: Optional[int] = None):
     """Cell-list marching cubes over the level set on the whole grid's
-    points: ``mc_point_words`` then ``mc_mesh_from_points``. With both
-    capacities nothing is read back and the lists have those sizes (see
-    ``mc_mesh_from_points``); ``own_px`` as in ``mc_point_words``."""
+    points: ``mc_point_words`` then ``mc_mesh_from_points``, which return
+    (vertices, triangles). With both capacities nothing is read back and
+    the lists have those sizes (see ``mc_mesh_from_points``); ``own_px`` as
+    in ``mc_point_words``.
+
+    With ``encode`` the mesh is not built: returns the reference's encoded
+    streams (``encode_points``) ``(t, packed, bincl, total_v, total_t,
+    total_c)``, the totals as int64 device scalars, from which the host
+    rebuilds the mesh (``decode_encoded``); ``quant_t`` ships t as u16."""
     caps = None
     if vertex_capacity is not None and triangle_capacity is not None:
         caps = (vertex_capacity, triangle_capacity)
     points = mc_point_words(
         ls, grid, iso, own_px=own_px, capacity=None if caps is None else caps[1]
     )
+    if encode:
+        return encode_points(
+            *points, ls.numel(), vertex_capacity=None if caps is None else caps[0],
+            quant_t=quant_t,
+        )
     return mc_mesh_from_points(*points, grid, caps)
+
+
+# the packed compaction's block width: a point's offset in its block (5
+# bits) sits above its 11-bit word, so a packed slot is exactly 16 bits
+BLOCK = 32
+
+
+def encode_points(points: torch.Tensor, words: torch.Tensor, t: torch.Tensor, n_pts: int,
+                  x0_points: int = 0, vertex_capacity: Optional[int] = None,
+                  quant_t: bool = False):
+    """The encoded streams of a level set's active points (the reference's
+    ``mc_global_cells(encode=True)``, ``ops/global_sweep.py:808-958``).
+
+    ``points``, ``words``, ``t`` come from ``mc_point_words`` over ``n_pts``
+    grid points whose first global flat id is ``x0_points`` (0 for the whole
+    grid, x0 * PY * PZ for a slab); past its active points the list may
+    hold the pad id ``x0_points + n_pts`` (a capacity). Returns ``(t,
+    packed, bincl, total_v, total_t, total_c)``:
+
+    - ``t``: one edge parameter per active edge, axis-major (every active x
+      edge in point order, then y, then z), as ``mc_mesh_from_points``
+      orders its vertices; u16 (round(t * 65535)) with ``quant_t``, else
+      the field's dtype. ``vertex_capacity`` entries (garbage past
+      ``total_v``), or exactly ``total_v`` without it;
+    - ``packed``: u16 per active point, (its offset in its 32-point block) <<
+      11 | word, zero past ``total_c``; as long as ``points``;
+    - ``bincl``: u8, the active points of each 32-point block of the
+      ``n_pts`` points;
+    - ``total_v``, ``total_t``, ``total_c``: int64 device scalars (vertices,
+      triangles, active points).
+
+    Nothing is read back when ``points`` has a capacity and
+    ``vertex_capacity`` is given."""
+    dev = points.device
+    cap = points.shape[0]
+    local = points - x0_points
+    valid = local < n_pts
+    packed = torch.where(valid, ((local & (BLOCK - 1)) << 11) | words, 0).to(torch.uint16)
+    nb = -(-n_pts // BLOCK)
+    blk = torch.where(valid, local // BLOCK, nb)
+    bincl = torch.zeros(nb + 1, dtype=torch.int32, device=dev)
+    bincl.index_add_(0, blk, torch.ones_like(blk, dtype=torch.int32))
+    bincl = bincl[:nb].to(torch.uint8)
+
+    emask = torch.cat([(words >> b) & 1 for b in (8, 9, 10)]) == 1
+    vslot = kernels.compact_indices(emask, vertex_capacity).clamp_max(max(3 * cap - 1, 0))
+    tv = t.reshape(-1)[vslot]
+    if quant_t:
+        tv = torch.round(tv * 65535.0).to(torch.uint16)
+    count_t = _mc_tables(dev)[0]
+    totals = (emask.sum(), count_t[words & 0xFF].sum(), valid.sum())
+    return (tv, packed, bincl) + totals
+
+
+def _pack_cellwise(t: torch.Tensor, packed: torch.Tensor, nv: int, nc: int):
+    """The encoded streams (t, packed) cut to their copy buckets (or any
+    two streams: the packed pull's vertices and triangles)."""
+    return t[:nv], packed[:nc]
+
+
+def _unpack_compact(packed, bcounts, total_c: int, point_offset: int = 0):
+    """Numpy inverse of the packed compaction: (points int64, words uint16)
+    from the u16 packed stream and the u8 per-block counts (block width
+    32), the ids offset by ``point_offset`` (the native ``unpack_compact``
+    computes the same)."""
+    packed = np.asarray(packed[:total_c]).astype(np.int64)
+    counts = np.asarray(bcounts).astype(np.int64)
+    blk = np.repeat(np.arange(len(counts), dtype=np.int64), counts)
+    if len(blk) != total_c:
+        raise RuntimeError("packed-compaction decode inconsistency")
+    points = blk * BLOCK + (packed >> 11) + point_offset
+    words = (packed & 0x7FF).astype(np.uint16)
+    return points, words
+
+
+def _dequant_t(t: np.ndarray) -> np.ndarray:
+    """The host inverse of the u16 edge-parameter quantization (other
+    streams come back as they are)."""
+    if t.dtype == np.uint16:
+        return t.astype(np.float32) * np.float32(1.0 / 65535.0)
+    return t
+
+
+def _decode_cellwise_mesh(t, points, words, total_v: int, total_t: int, total_c: int,
+                          grid: UniformGrid):
+    """The numpy decoder of the point-word streams (the reference's
+    ``_decode_cellwise_mesh``, ``ops/global_sweep.py:1062-1134``): the mesh
+    of ``mc_mesh_from_points``, up to the multiply-add of the vertex
+    positions (the host multiplies, then adds). It runs in the streams'
+    dtype, so it is the decoder of f64 streams and of hosts without a
+    compiler. Returns (vertices (V, 3), triangles (T, 3) int32)."""
+    PY, PZ = grid.n_points[1], grid.n_points[2]
+    points = np.asarray(points[:total_c]).astype(np.int64)
+    words = np.asarray(words[:total_c]).astype(np.int64)
+    t = np.asarray(t[:total_v])
+    dtype = t.dtype
+    cases = words & 0xFF
+
+    ea = [(words >> 8) & 1, (words >> 9) & 1, (words >> 10) & 1]
+    emask = np.concatenate(ea) == 1
+    vcum = np.cumsum(emask)
+    if total_v and int(vcum[-1]) != total_v:
+        raise RuntimeError("cellwise decode inconsistency: vertex count")
+    vidx_pos = vcum - 1
+
+    ci = points // (PY * PZ)
+    rem = points - ci * (PY * PZ)
+    cj = rem // PZ
+    ck = rem - cj * PZ
+    ijk = np.stack([ci, cj, ck])
+    verts = np.empty((total_v, 3), dtype)
+    cs = dtype.type(grid.cell_size)
+    vo = 0
+    for a in range(3):
+        sel = ea[a] == 1
+        n_a = int(sel.sum())
+        ta = t[vo : vo + n_a]
+        for d in range(3):
+            pos_d = dtype.type(grid.min[d]) + ijk[d][sel].astype(dtype) * cs
+            if d == a:
+                pos_d = pos_d + ta * cs
+            verts[vo : vo + n_a, d] = pos_d
+        vo += n_a
+    if total_t == 0:
+        return verts, np.zeros((0, 3), np.int32)
+
+    # neighbour ranks for the 7 nonzero offsets (the points ascend)
+    rank7 = np.empty((8, total_c), np.int64)
+    rank7[0] = np.arange(total_c)
+    for off in range(1, 8):
+        di, dj, dk = (off >> 2) & 1, (off >> 1) & 1, off & 1
+        target = points + (di * (PY * PZ) + dj * PZ + dk)
+        pos = np.searchsorted(points, target)
+        posc = np.minimum(pos, total_c - 1)
+        rank7[off] = np.where(points[posc] == target, posc, -1)
+
+    counts = lut.TRI_COUNT[cases].astype(np.int64)
+    rep = np.repeat(np.arange(total_c, dtype=np.int64), counts)
+    if len(rep) != total_t:
+        raise RuntimeError("cellwise decode inconsistency: triangle count")
+    starts = np.cumsum(counts) - counts
+    slot = np.arange(len(rep), dtype=np.int64) - starts[rep]
+    tri_tab = np.where(lut.TRI_TABLE >= 0, lut.TRI_TABLE, 0)
+    eb = lut.EDGE_BASE_OFFSET.astype(np.int64)
+    eax = lut.EDGE_AXIS.astype(np.int64)
+    off_idx_tab = eb[:, 0] * 4 + eb[:, 1] * 2 + eb[:, 2]
+    tris = np.empty((total_t, 3), np.int32)
+    for corner in range(3):
+        local = tri_tab[cases[rep], slot, corner]
+        rank = rank7[off_idx_tab[local], rep]
+        if (rank < 0).any():
+            raise RuntimeError("cellwise decode inconsistency: missing owner")
+        tris[:, corner] = vidx_pos[eax[local] * total_c + rank].astype(np.int32)
+    return verts, tris
+
+
+def decode_encoded(t, packed, bincl, total_v: int, total_t: int, total_c: int,
+                   grid: UniformGrid, point_offset: int = 0):
+    """The host mesh of host copies of ``encode_points``' streams (numpy
+    arrays): the native decoder (``native.mc_decode``) for f32 and u16
+    streams, the numpy one (``_decode_cellwise_mesh``) for f64 streams or
+    where the native library cannot be built, as the reference chooses.
+    Returns (vertices (V, 3), triangles (T, 3) int32) numpy arrays."""
+    from splashsurf_tpu_torch import native
+
+    pw = None
+    if np.asarray(t).dtype != np.float64:
+        pw = native.unpack_compact(packed, bincl, total_c, point_offset)
+    if pw is None:
+        pw = _unpack_compact(packed, bincl, total_c, point_offset)
+    return decode_encoded_points(t, *pw, total_v, total_t, total_c, grid)
+
+
+def decode_encoded_points(t, points, words, total_v: int, total_t: int, total_c: int,
+                          grid: UniformGrid):
+    """The host mesh of unpacked point-word streams: (t, int64 points,
+    words) numpy arrays. The native decoder for f32 and u16 t, the numpy
+    one for f64 t or where the native library cannot be built; both
+    counted in ``native.DECODE_STATS``."""
+    from splashsurf_tpu_torch import native
+
+    t = _dequant_t(np.asarray(t))
+    dec = None
+    if t.dtype == np.float32:
+        dec = native.mc_decode(t, points, words, total_v, total_t, total_c,
+                               grid.n_points[1], grid.n_points[2], grid.min, grid.cell_size)
+    if dec is None:
+        native.DECODE_STATS["numpy"] += 1
+        dec = _decode_cellwise_mesh(t, points, words, total_v, total_t, total_c, grid)
+    return dec
+
+
+def mc_global_packed(ls: torch.Tensor, grid: UniformGrid, iso,
+                     vertex_capacity: Optional[int] = None,
+                     triangle_capacity: Optional[int] = None, encode: bool = False):
+    """Edge-major marching cubes over the whole grid (the reference's
+    ``mc_global_packed``, ``ops/global_sweep.py:516-667``; reached through
+    ``SPLASHSURF_TPU_MC=edges``): the active edges of the three dense edge
+    masks are compacted (vertex v is the v-th active edge in ``edge_layout``
+    order), the active cells by their triangle counts, and a triangle
+    corner's vertex is the rank of its global edge in the active-edge list.
+
+    Returns (vertices (V, 3), triangles (T, 3) int32, total_v, total_t),
+    the totals as int64 device scalars; with ``encode``, the reference's
+    encoded streams ``(active_edge, t, cells, cases, total_v, total_t,
+    total_c)`` instead (active edge ids and their t, active cell ids and
+    their u8 cases), decoded on the host by ``_decode_packed_mesh``. With
+    both capacities the lists have those sizes (zero-filled past the
+    totals, as the reference's) and nothing is read back; without them,
+    their exact sizes."""
+    dtype, dev = ls.dtype, ls.device
+    PX, PY, PZ = ls.shape
+    iso = kernels.rounded(iso, dtype)
+    cs = kernels.rounded(grid.cell_size, dtype)
+    inside = ls >= iso
+    ls_flat = ls.reshape(-1)
+    count_t, tab_t, _, _ = _mc_tables(dev)
+
+    masks = []
+    for a in range(3):
+        lo = tuple(slice(0, -1) if d == a else slice(None) for d in range(3))
+        hi = tuple(slice(1, None) if d == a else slice(None) for d in range(3))
+        masks.append((inside[lo] != inside[hi]).reshape(-1))
+    mask = torch.cat(masks)
+    n_edges = mask.shape[0]
+    vidx = torch.cumsum(mask, 0) - 1
+    total_v = mask.sum()
+    ae = kernels.compact_indices(mask, vertex_capacity)
+    ae = torch.where(ae < n_edges, ae, 0)
+    # the inverse of edge_layout's x, y, z concatenation, with host scalars
+    # only (no copy to the card on a warm frame)
+    _, strides, offs, _ = edge_layout((PX, PY, PZ))
+    axis = (ae >= offs[1]).long() + (ae >= offs[2]).long()
+    pick = lambda v: torch.where(axis == 0, v[0], torch.where(axis == 1, v[1], v[2]))
+    local = ae - pick(offs)
+    s0, s1 = pick([st[0] for st in strides]), pick([st[1] for st in strides])
+    i = local // s0
+    rem = local - i * s0
+    ijk = torch.stack([i, rem // s1, rem % s1], dim=1)
+    p0 = (ijk[:, 0] * PY + ijk[:, 1]) * PZ + ijk[:, 2]
+    step = torch.where(axis == 0, PY * PZ, torch.where(axis == 1, PZ, 1))
+    v0 = ls_flat[p0]
+    denom = ls_flat[(p0 + step).clamp_max(ls_flat.numel() - 1)] - v0
+    t = torch.clamp(
+        (iso - v0) / torch.where(denom == 0, torch.ones_like(denom), denom), 0.0, 1.0
+    )
+
+    case_flat = _case_indices(inside).reshape(-1).long()
+    counts = count_t[case_flat]
+    ccum = torch.cumsum(counts, 0)
+    total_t = ccum[-1] if ccum.numel() else counts.sum()
+    if encode:
+        active = counts > 0
+        cells = kernels.compact_indices(active, triangle_capacity)
+        cells = torch.where(cells < case_flat.numel(), cells, 0)
+        cases = torch.where(
+            torch.arange(cells.shape[0], device=dev) < active.sum(), case_flat[cells], 0
+        ).to(torch.uint8)
+        return ae, t, cells, cases, total_v, total_t, active.sum()
+
+    verts = []
+    for d in range(3):
+        pos = kernels.grid_coord(ijk[:, d], grid.min[d], cs, dtype)
+        verts.append(pos + torch.where(axis == d, t, 0.0) * cs)
+    vertices = torch.stack(verts, dim=1)
+
+    tcap = int(total_t) if triangle_capacity is None else triangle_capacity
+    n_cells = case_flat.numel()
+    offsets = ccum - counts
+    cell = torch.searchsorted(ccum, torch.arange(tcap, device=dev), right=True)
+    cell = cell.clamp_max(max(n_cells - 1, 0))
+    slot_in_cell = torch.arange(tcap, device=dev) - offsets[cell]
+    emit = slot_in_cell < counts[cell]
+    slot_in_cell = slot_in_cell.clamp(0, tab_t.shape[1] - 1)
+    acase = case_flat[cell]
+    cy, cz = PY - 1, PZ - 1
+    cijk = (cell // (cy * cz), (cell // cz) % cy, cell % cz)
+    coeffs = _edge_coeff_tensors((PX, PY, PZ), dev)
+    cols = []
+    for corner in range(3):
+        local = tab_t[acase, slot_in_cell, corner]
+        edge = (coeffs[0][local] + coeffs[1][local] * cijk[0] + coeffs[2][local] * cijk[1]
+                + coeffs[3][local] * cijk[2])
+        cols.append(torch.where(emit, vidx[edge], 0))
+    return vertices, torch.stack(cols, dim=1).to(torch.int32), total_v, total_t
+
+
+@functools.cache
+def _edge_coeff_tensors(n_points: Tuple[int, int, int], device: torch.device):
+    """``_local_edge_coeffs(n_points)`` as int64 tensors on ``device``,
+    copied there once."""
+    return [torch.as_tensor(c, device=device) for c in _local_edge_coeffs(n_points)]
+
+
+def _pack_encoded(ae, t, cells, cases, nv: int, nc: int):
+    """The edge-major encoded streams cut to their copy buckets."""
+    return ae[:nv], t[:nv], cells[:nc], cases[:nc]
+
+
+def _decode_packed_mesh(ae, t, cells, cases, total_v: int, total_t: int, total_c: int,
+                        grid: UniformGrid):
+    """The numpy decoder of ``mc_global_packed``'s encoded streams (the
+    reference's ``_decode_packed_mesh``, ``ops/global_sweep.py:1137-1193``):
+    vertex positions from (edge id, t), triangle corners as the rank of
+    their global edge among the ascending active edges. Returns (vertices
+    (V, 3), triangles (T, 3) int32)."""
+    n_points = grid.n_points
+    _shapes, strides, offs, _total = edge_layout(n_points)
+    ae = np.asarray(ae[:total_v]).astype(np.int64)
+    t = np.asarray(t[:total_v])
+    axis = np.where(ae >= offs[2], 2, np.where(ae >= offs[1], 1, 0))
+    ijk = np.zeros((total_v, 3), np.int64)
+    for a in range(3):
+        la = ae - offs[a]
+        s0, s1, _ = strides[a]
+        ia = la // s0
+        ra = la - ia * s0
+        sel = axis == a
+        ijk[sel, 0] = ia[sel]
+        ijk[sel, 1] = (ra // s1)[sel]
+        ijk[sel, 2] = (ra - (ra // s1) * s1)[sel]
+    dtype = t.dtype
+    cs = dtype.type(grid.cell_size)
+    verts = np.empty((total_v, 3), dtype)
+    for d in range(3):
+        pos_d = dtype.type(grid.min[d]) + ijk[:, d].astype(dtype) * cs
+        verts[:, d] = pos_d + np.where(axis == d, t, dtype.type(0)) * cs
+    if total_v == 0 or total_t == 0:
+        return verts[:0], np.zeros((0, 3), np.int32)
+
+    cells = np.asarray(cells[:total_c]).astype(np.int64)
+    cases = np.asarray(cases[:total_c]).astype(np.int64)
+    counts = lut.TRI_COUNT[cases].astype(np.int64)
+    rep = np.repeat(np.arange(total_c, dtype=np.int64), counts)
+    if len(rep) != total_t:
+        raise RuntimeError("edge-major decode inconsistency: triangle count")
+    starts = np.cumsum(counts) - counts
+    slot = np.arange(len(rep), dtype=np.int64) - starts[rep]
+    cy, cz = n_points[1] - 1, n_points[2] - 1
+    ci = cells // (cy * cz)
+    cj = (cells // cz) % cy
+    ck = cells % cz
+    const, ci_c, cj_c, ck_c = _local_edge_coeffs(n_points)
+    tris = np.empty((total_t, 3), np.int32)
+    tri_tab = np.where(lut.TRI_TABLE >= 0, lut.TRI_TABLE, 0)
+    for corner in range(3):
+        local = tri_tab[cases[rep], slot, corner]
+        edge_flat = (const[local] + ci_c[local] * ci[rep] + cj_c[local] * cj[rep]
+                     + ck_c[local] * ck[rep])
+        tris[:, corner] = np.searchsorted(ae, edge_flat).astype(np.int32)
+    return verts, tris
 
 
 class EmptyFieldError(RuntimeError):
@@ -466,10 +842,13 @@ def _bucket16(n: int, lo: int = 1024) -> int:
 # 937-958``), process-global as the reference's are:
 # per (grid points, dtype), the MC vertex and triangle capacities ...
 _MC_CAPS: dict = {}
-# ... and the (vertex, triangle) buckets of the mesh copy; per (grid
-# points, N), the raster overflow capacity, fitted to the previous frame's
-# count (usually 0, which skips the overflow splat).
+# ... the (vertex, triangle) buckets of the packed mesh copy and the
+# (vertex, active point) buckets of the encoded one (kept apart, as the
+# reference keeps them, so that the two never read each other's plan);
+# per (grid points, N), the raster overflow capacity, fitted to the
+# previous frame's count (usually 0, which skips the overflow splat).
 _PULL_PLAN: dict = {}
+_PULL_PLAN_ENC: dict = {}
 _OVER_PLAN: dict = {}
 # the overflow count of the last frame that ran past its plan, for the retry
 _LAST_OVERFLOW = [0]
@@ -594,18 +973,97 @@ def reconstruct_global_dense(
     raise RuntimeError(f"raster overflow exceeded capacity {ocap} after retries")
 
 
+def pull_mode(dtype: torch.dtype) -> Tuple[bool, bool, bool]:
+    """(edges, encoded, quant_t) of a dense frame in ``dtype``, from the
+    reference's switches, read at each call (its ``ops/global_sweep.py:
+    1410-1425``): ``SPLASHSURF_TPU_MC`` "edges" takes the edge-major
+    ``mc_global_packed`` (default "cells", ``mc_global_cells``) and forces
+    the packed pull; ``SPLASHSURF_TPU_PULL`` "encoded" ships the encoded
+    streams and decodes on the host (the port's default is "packed", the
+    mesh itself: the reference's default is "encoded"); and
+    ``SPLASHSURF_TPU_PULL_QUANT`` "1" (the default) ships an encoded f32
+    pull's t as u16 (``pull_quant``)."""
+    edges = os.environ.get("SPLASHSURF_TPU_MC", "cells") == "edges"
+    encoded = not edges and os.environ.get("SPLASHSURF_TPU_PULL", "packed") == "encoded"
+    return edges, encoded, encoded and pull_quant(dtype)
+
+
+def pull_quant(dtype: torch.dtype) -> bool:
+    """Whether an encoded pull in ``dtype`` ships t as u16:
+    ``SPLASHSURF_TPU_PULL_QUANT`` "1" (the default) and f32."""
+    return dtype == torch.float32 and os.environ.get("SPLASHSURF_TPU_PULL_QUANT", "1") == "1"
+
+
+# Facts about the last dense mesh pull, read by tests and chip_smoke.py,
+# never by the pipeline: "mode" ("packed", "encoded" or "edges"), "bytes"
+# (copied to the host, in the last copy of the mesh) and "decode_s" (host
+# seconds of the encoded decode, 0 for the packed pulls).
+LAST_PULL: dict = {}
+
+
+class _MeshStreams:
+    """What a dense frame copies to the host: two streams cut to (vertex,
+    second) buckets, the second counted in triangles (packed pulls) or
+    active points (encoded), plus whole extra parts (the encoded per-block
+    counts), and how the host copies become the mesh."""
+
+    def __init__(self, mode, streams, extra, second, grid):
+        self.mode, self.streams, self.extra, self.second = mode, streams, extra, second
+        self.grid = grid
+
+    def parts(self, nv: int, n2: int):
+        return list(_pack_cellwise(*self.streams, nv, n2)) + self.extra
+
+    def mesh(self, host, total_v: int, total_t: int, total_c: int):
+        """("ok", vertices, triangles) as host tensors from the host copies
+        of ``parts``; ``LAST_PULL`` records the copy."""
+        LAST_PULL.update(mode=self.mode, bytes=sum(h.numel() * h.element_size() for h in host),
+                         decode_s=0.0)
+        if self.mode != "encoded":
+            return ("ok", host[0][:total_v], host[1][:total_t])
+        t0 = time.perf_counter()
+        v, tr = decode_encoded(*(h.numpy() for h in host), total_v, total_t, total_c, self.grid)
+        LAST_PULL["decode_s"] = time.perf_counter() - t0
+        return ("ok", torch.from_numpy(v), torch.from_numpy(tr))
+
+
+def _dense_mc(ls, grid: UniformGrid, iso, caps):
+    """Marching cubes of a dense frame in the mode ``pull_mode`` reads: its
+    ``_MeshStreams`` and its totals (vertices, triangles, active points; 0
+    active points on the edge-major path), an int64 device tensor. Without
+    ``caps`` the streams have their exact sizes."""
+    edges, encoded, quant = pull_mode(ls.dtype)
+    vcap, tcap = (None, None) if caps is None else caps
+    if edges:
+        verts, tris, total_v, total_t = mc_global_packed(ls, grid, iso, vcap, tcap)
+        totals = torch.stack([total_v, total_t, torch.zeros_like(total_v)])
+        return _MeshStreams("edges", (verts, tris), [], 1, grid), totals
+    points, words, t = mc_point_words(ls, grid, iso, capacity=tcap)
+    if encoded:
+        tv, packed, bincl, *totals = encode_points(
+            points, words, t, ls.numel(), vertex_capacity=vcap, quant_t=quant
+        )
+        return _MeshStreams("encoded", (tv, packed), [bincl], 2, grid), torch.stack(totals)
+    verts, tris = mc_mesh_from_points(points, words, t, grid, caps)
+    return _MeshStreams("packed", (verts, tris), [], 1, grid), _mc_totals(words)
+
+
 def _finish_global_dense(ls, grid: UniformGrid, iso, okey, overflow_capacity, n_over,
                          deferred_checks=(), defer_pull=False, check_labels=()):
     """Marching cubes and the mesh copy of a dense frame (reference
-    ``ops/global_sweep.py:1397-1565``, its packed pull).
+    ``ops/global_sweep.py:1397-1565``), in the mode of ``pull_mode``: the
+    packed pull copies the mesh; the encoded pull copies the streams of
+    ``encode_points`` and decodes them on the host at resolve.
 
     The planning frame of a (grid, dtype) runs MC on lists of exact size
     (their counts read back) and plans the MC capacities from them. A frame
-    with capacities writes into buffers of them. With a pull plan too, it
-    packs the mesh in the plan's buckets and copies it together with its
-    totals, the overflow count, the level set's maximum and the deferred
-    checks, in one copy (``PendingPull``); without one it reads those
-    scalars first, then copies the exact mesh.
+    with capacities writes into buffers of them. With a pull plan too
+    (``_PULL_PLAN``, or ``_PULL_PLAN_ENC`` for the encoded pull, whose
+    second bucket counts active points, not triangles), it cuts the streams
+    to the plan's buckets and copies them together with their totals, the
+    overflow count, the level set's maximum and the deferred checks, in one
+    copy (``PendingPull``); without one it reads those scalars first, then
+    copies the exact streams.
 
     Returns a :class:`PendingPull`, or None when the frame's raster overflow
     exceeded ``overflow_capacity`` (the caller rasterizes again). With
@@ -614,7 +1072,8 @@ def _finish_global_dense(ls, grid: UniformGrid, iso, okey, overflow_capacity, n_
     on a miss exactly as they do, and reports the miss as a redo.
     Otherwise the checks run here: a False deferred check raises
     :class:`SpeculationMiss`, an MC total past its capacity grows the
-    capacities and runs MC again (``caps_retry``).
+    capacities and runs MC again (``caps_retry``); a stream past its
+    bucket is copied again at its exact size.
     """
     from splashsurf_tpu_torch.global_pipeline import SPECULATION_STATS
 
@@ -624,25 +1083,26 @@ def _finish_global_dense(ls, grid: UniformGrid, iso, okey, overflow_capacity, n_
     tail = [f64(n_over), f64(ls.max())] + [f64(c) for c in deferred_checks]
     while True:
         caps = _MC_CAPS.get(key)
-        points, words, t = mc_point_words(ls, grid, iso, capacity=None if caps is None else caps[1])
-        verts, tris = mc_mesh_from_points(points, words, t, grid, caps)
+        streams, totals = _dense_mc(ls, grid, iso, caps)
+        plans = _PULL_PLAN_ENC if streams.mode == "encoded" else _PULL_PLAN
         if caps is None:
-            caps = (_bucket16(verts.shape[0] * 5 // 4), _bucket16(tris.shape[0] * 5 // 4))
+            nv, nt = totals[:2].tolist()
+            caps = (_bucket16(nv * 5 // 4), _bucket16(nt * 5 // 4))
             _MC_CAPS[key] = caps
         vcap, tcap = caps
-        scalars = torch.cat([_mc_totals(words).to(torch.float64)] + tail)
-        plan = _PULL_PLAN.get(key)
+        scalars = torch.cat([totals.to(torch.float64)] + tail)
+        plan = plans.get(key)
         if plan is not None and plan[0] <= vcap and plan[1] <= tcap:
-            pull_parts = [scalars, verts[: plan[0]], tris[: plan[1]]]
+            pull_parts = [scalars] + streams.parts(*plan)
             if defer_pull:
                 return PendingPull(functools.partial(
-                    _resolve_deferred, verts=verts, tris=tris, iso=iso, caps=caps,
-                    key=key, okey=okey, overflow_capacity=overflow_capacity,
+                    _resolve_deferred, streams=streams, iso=iso, caps=caps, key=key,
+                    okey=okey, overflow_capacity=overflow_capacity,
                     check_labels=check_labels,
                 ), pull_parts)
-            sc, hv, ht = PendingPull(None, pull_parts).host_parts()
+            sc, *host = PendingPull(None, pull_parts).host_parts()
         else:
-            sc, hv, ht = scalars.cpu(), None, None
+            sc, host = scalars.cpu(), None
         total_v, total_t, total_c, total_over, ls_max, *flags = sc.tolist()
         total_v, total_t, total_c, total_over = (
             int(x) for x in (total_v, total_t, total_c, total_over)
@@ -655,24 +1115,26 @@ def _finish_global_dense(ls, grid: UniformGrid, iso, okey, overflow_capacity, n_
         if total_v > vcap or total_t > tcap or total_c > tcap:
             SPECULATION_STATS["caps_retry"] += 1
             _MC_CAPS[key] = (_bucket16(total_v * 5 // 4), _bucket16(total_t * 5 // 4))
-            _PULL_PLAN.pop(key, None)
+            plans.pop(key, None)
             continue
-        _PULL_PLAN[key] = (min(vcap, _bucket16(total_v)), min(tcap, _bucket16(total_t)))
+        n2 = (total_v, total_t, total_c)[streams.second]
+        plans[key] = (min(vcap, _bucket16(total_v)), min(tcap, _bucket16(n2)))
         if total_t == 0:
             check_empty_field(0, ls_max, iso)
         _note_overflow_plan(okey, total_over)
-        if hv is None or total_v > hv.shape[0] or total_t > ht.shape[0]:
-            return PendingPull(lambda v, t: ("ok", v, t), [verts[:total_v], tris[:total_t]])
-        return PendingPull(lambda: ("ok", hv[:total_v], ht[:total_t]), [])
+        if host is None or total_v > host[0].shape[0] or n2 > host[1].shape[0]:
+            exact = streams.parts(total_v, n2)
+            return PendingPull(lambda *h: streams.mesh(h, total_v, total_t, total_c), exact)
+        return PendingPull(lambda: streams.mesh(host, total_v, total_t, total_c), [])
 
 
-def _resolve_deferred(sc, hv, ht, *, verts, tris, iso, caps, key, okey,
-                      overflow_capacity, check_labels):
+def _resolve_deferred(sc, *host, streams, iso, caps, key, okey, overflow_capacity,
+                      check_labels):
     """The checks of a deferred warm frame on its pulled scalars (reference
     ``_defer_encoded_pull``'s resolver, ``ops/global_sweep.py:1306-1359``):
     a miss updates the plan it concerns and returns ``("redo",)``, or
     ``("redo_grid",)`` for the grid; otherwise ``("ok", vertices,
-    triangles)``."""
+    triangles)``, decoded on the host where the pull is encoded."""
     from splashsurf_tpu_torch import neighbors
     from splashsurf_tpu_torch.global_pipeline import SPECULATION_STATS
 
@@ -681,6 +1143,7 @@ def _resolve_deferred(sc, hv, ht, *, verts, tris, iso, caps, key, okey,
         int(x) for x in (total_v, total_t, total_c, total_over)
     )
     vcap, tcap = caps
+    plans = _PULL_PLAN_ENC if streams.mode == "encoded" else _PULL_PLAN
     if not all(flags):
         failed = {check_labels[i] for i, ok in enumerate(flags) if not ok}
         if "grid" in failed:
@@ -696,13 +1159,14 @@ def _resolve_deferred(sc, hv, ht, *, verts, tris, iso, caps, key, okey,
     if total_v > vcap or total_t > tcap or total_c > tcap:
         SPECULATION_STATS["caps_retry"] += 1
         _MC_CAPS[key] = (_bucket16(total_v * 5 // 4), _bucket16(total_t * 5 // 4))
-        _PULL_PLAN.pop(key, None)
+        plans.pop(key, None)
         return ("redo",)
-    if total_v > hv.shape[0] or total_t > ht.shape[0]:
-        # a bucket miss: copy the exact mesh (one more read)
-        hv, ht = PendingPull(None, [verts[:total_v], tris[:total_t]]).host_parts()
-    _PULL_PLAN[key] = (min(vcap, _bucket16(total_v)), min(tcap, _bucket16(total_t)))
+    n2 = (total_v, total_t, total_c)[streams.second]
+    if total_v > host[0].shape[0] or n2 > host[1].shape[0]:
+        # a bucket miss: copy the exact streams (one more read)
+        host = PendingPull(None, streams.parts(total_v, n2)).host_parts()
+    plans[key] = (min(vcap, _bucket16(total_v)), min(tcap, _bucket16(n2)))
     _note_overflow_plan(okey, total_over)
     if total_t == 0:
         check_empty_field(0, ls_max, iso)
-    return ("ok", hv[:total_v], ht[:total_t])
+    return streams.mesh(host, total_v, total_t, total_c)

@@ -23,9 +23,17 @@ triangle for triangle, through the reference's two invariants:
   route's active-point list, and ``mc_mesh_from_points`` runs once on it.
 
 The reference's bucket buffers, capacity plans and retries exist for its
-static shapes, and its u16 streams for a host decoder: the port sizes every
-tensor exactly and keeps each slab's (point ids, words, edge parameters) on
-the device until the merge. Point ids are int64.
+static shapes: the port sizes every tensor exactly. By default (the packed
+pull) it keeps each slab's (point ids, words, edge parameters) on the
+device until the merge. With ``SPLASHSURF_TPU_PULL=encoded`` it does what
+the reference always does (its ops/slab_sweep.py:189-194, 366-430): each
+slab's active points become the encoded streams of
+``gs.encode_points`` (u16 t where ``SPLASHSURF_TPU_PULL_QUANT`` asks),
+all slabs' streams come to the host in one copy, and the host merges them
+into one ascending point list, each slab's axis-major t regrouped across
+slabs, and decodes it once (``native.mc_decode``; numpy in f64). The mesh
+is the dense route's encoded mesh, bit for bit. Point ids are int64, so
+no grid size limits the merge (the reference's ids are int32).
 """
 
 from __future__ import annotations
@@ -79,9 +87,11 @@ def reconstruct_global_slabbed(
 ):
     """The dense route's mesh, computed slab by slab on the positions'
     device: (vertices (V, 3), triangles (T, 3) int32) as device tensors,
-    equal to ``gs.reconstruct_global_dense`` at the same ``slots`` (by
-    default ``SPLASHSURF_TPU_SLAB_SLOTS``, read per call, else 2, the dense
-    route's).
+    or, with the encoded pull (``SPLASHSURF_TPU_PULL=encoded``), as host
+    tensors decoded from the slabs' streams; equal to
+    ``gs.reconstruct_global_dense`` in the same mode at the same ``slots``
+    (by default ``SPLASHSURF_TPU_SLAB_SLOTS``, read per call, else 2, the
+    dense route's).
 
     ``max_cells`` bounds one slab's cells (default ``gs_dense_gate()``).
     ``clock`` (a ``StageClock``) takes the stage laps; ``LAST_RUN`` records
@@ -104,6 +114,9 @@ def reconstruct_global_slabbed(
     cx = gs._cell_of(positions[:, 0], kernels.rounded(grid.min[0], dtype), cs, ncx)
     in_grid = (cx >= 0) & (cx < ncx)
 
+    encoded = os.environ.get("SPLASHSURF_TPU_PULL", "packed") == "encoded"
+    quant = encoded and gs.pull_quant(dtype)
+    PY, PZ = grid.n_points[1], grid.n_points[2]
     parts, ls_max = [], []
     plane = None
     with profile("slab sweep+mc"):
@@ -129,13 +142,19 @@ def reconstruct_global_slabbed(
                 clock.lap("sweep")
             with profile("slab mc"):
                 own_px = W if s < n_slabs - 1 else ncx - x0 + 1
-                parts.append(gs.mc_point_words(ls, grid, iso, x0=x0, own_px=own_px))
-                del ls
+                words = gs.mc_point_words(ls, grid, iso, x0=x0, own_px=own_px)
+                if encoded:
+                    words = gs.encode_points(*words, ls.numel(), x0 * PY * PZ, quant_t=quant)
+                parts.append(words)
+                del ls, words
                 clock.lap("marching cubes")
     del plane
 
+    parts.reverse()  # ascending x: the merged ids ascend
+    if encoded:
+        with profile("slab decode"):
+            return _decode_slab_streams(parts, W, grid, ls_max, iso, clock)
     with profile("slab decode"):
-        parts.reverse()  # ascending x: the merged ids ascend
         points = torch.cat([p[0] for p in parts])
         words = torch.cat([p[1] for p in parts])
         t = torch.cat([p[2] for p in parts], dim=1)
@@ -144,6 +163,48 @@ def reconstruct_global_slabbed(
         if tris.shape[0] == 0:
             gs.check_empty_field(0, float(torch.stack(ls_max).max()), float(iso))
     return verts, tris
+
+
+def _decode_slab_streams(parts, W: int, grid: UniformGrid, ls_max, iso, clock: StageClock):
+    """The host mesh of the slabs' encoded streams (ascending x): one copy
+    of every slab's (t, packed, counts, totals), then per slab the packed
+    words unpacked into global int64 point ids, and each slab's axis-major
+    t cut at its per-axis vertex counts and regrouped axis-major across the
+    slabs; one decode of the merged list (``gs.decode_encoded``'s choice of
+    decoder). Returns (vertices, triangles int32) as host tensors;
+    ``LAST_RUN`` gets "pull_bytes", the bytes copied; laps "merge and pull"
+    at the end of the copy and "decode" at the end of the host merge and
+    decode."""
+    from splashsurf_tpu_torch import native
+
+    PY, PZ = grid.n_points[1], grid.n_points[2]
+    flat = [x for p in parts for x in p[:3]]
+    totals = torch.stack([torch.stack(p[3:]) for p in parts]).reshape(-1)
+    host = gs.PendingPull(None, flat + [totals, torch.stack(ls_max)]).host_parts()
+    tot = host[-2].numpy().reshape(-1, 3)
+    LAST_RUN["pull_bytes"] = sum(h.numel() * h.element_size() for h in host)
+    clock.lap("merge and pull")
+    total_v, total_t, total_c = (int(x) for x in tot.sum(0))
+    if total_t == 0:
+        gs.check_empty_field(0, float(host[-1].max()), float(iso))
+    t_ax, pts, wds = [[], [], []], [], []
+    for s in range(len(parts)):
+        tv, packed, bincl = (h.numpy() for h in host[3 * s : 3 * s + 3])
+        tci = int(tot[s, 2])
+        off = s * W * PY * PZ
+        pw = native.unpack_compact(packed, bincl, tci, off) if tv.dtype != np.float64 else None
+        p, w = pw if pw is not None else gs._unpack_compact(packed, bincl, tci, off)
+        na = np.cumsum([0] + [int(((w >> (8 + a)) & 1).sum()) for a in range(3)])
+        for a in range(3):
+            t_ax[a].append(tv[na[a] : na[a + 1]])
+        pts.append(p)
+        wds.append(w)
+    t_all = np.concatenate([seg for a in range(3) for seg in t_ax[a]])
+    verts, tris = gs.decode_encoded_points(
+        t_all, np.concatenate(pts), np.concatenate(wds), total_v, total_t, total_c, grid
+    )
+    clock.lap("decode")
+    return torch.from_numpy(verts), torch.from_numpy(tris)
 
 
 def reconstruct_surface_slabbed(
@@ -159,7 +220,8 @@ def reconstruct_surface_slabbed(
     particle neighbour lists. The per-particle densities stay a device
     tensor. ``LAST_RUN["stage_s"]`` holds the stages "densities",
     "selection and raster", "sweep" and "marching cubes" (summed over the
-    slabs), "merge and pull" and, when asked, "neighbour lists". Only the
+    slabs), "merge and pull", with the encoded pull "decode" (the host
+    merge and decode), and, when asked, "neighbour lists". Only the
     first ``n_valid`` rows of ``positions`` are particles, where that is
     given."""
     if n_valid is not None:
