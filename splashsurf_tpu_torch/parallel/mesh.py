@@ -198,6 +198,7 @@ STEP_LAYOUT = dict(positions=None, values=None, shards=0)
 def _levelset_mc_step(
     mesh: DeviceMesh, positions, values, shards, sd, compact_support_radius, iso,
     chunk_bytes: int = S.CHUNK_BYTES, clock: Optional[StageClock] = None,
+    encode: Optional[bool] = None,
 ):
     """Splat, halo and marching cubes over the subdomain batch, sharded.
 
@@ -211,11 +212,20 @@ def _levelset_mc_step(
     cubes over its rows in ascending id. With ``clock``, the stages
     "splat", "halo" and "marching cubes" are lapped on it.
 
+    With ``encode`` (a bool: whether t is quantized to u16), marching
+    cubes is the encoded one: each shard's chunks give their per-row
+    counts and owned-point packs (``subdomains._encode_chunk``), decoded
+    on the host by ``subdomains._mc_encoded_mesh`` into the single-device
+    mesh (the reference's ``sharded_mc_counts_encoded`` and
+    ``sharded_scan_mc_encode``).
+
     Returns per shard a dict: "vertices", "keys", "triangles" (lists of its
     marching-cubes chunks' patches), "ls_max" (its largest level-set value,
-    where it has no triangle), and "B",
+    where it has no triangle), or with ``encode`` "enc", the record of its
+    encoded chunks; and "B",
     "n_pairs", "splat_chunks" and "stage_s" (its splat and marching-cubes
-    seconds, its device synchronised). Concatenated in device order, the
+    seconds, its device synchronised where
+    ``subdomains.enable_profile_sync(True)`` asks). Concatenated in device order, the
     patches are in the single-device order."""
     dtype = positions.dtype
     itemsize = torch.finfo(dtype).bits // 8
@@ -230,7 +240,7 @@ def _levelset_mc_step(
 
     out, ls, own, nb_idx, nb_flat, sub_ijk = [], [], [], [], [], []
     for d, (dev, s) in enumerate(zip(mesh.devices, shards)):
-        c = StageClock(dev)
+        c = StageClock(dev, sync=S._PROFILE_SYNC)
         rows = slice(int(offs[d]), int(offs[d + 1]))
         sub_ijk.append(torch.as_tensor(sub_ijk_np[rows], device=dev))
         own.append(torch.as_tensor(occ_ids[rows], device=dev))
@@ -261,13 +271,20 @@ def _levelset_mc_step(
 
     mc_rows = max(1, chunk_bytes // (S.MC_POINT_BYTES * P**3))
     for d, dev in enumerate(mesh.devices):
-        c = StageClock(dev)
+        c = StageClock(dev, sync=S._PROFILE_SYNC)
+        if encode is not None:
+            out[d]["enc"] = S.encode_record()
         for b0 in range(0, ls[d].shape[0], mc_rows):
-            v, k, t = S.chunk_mc(ls[d][b0 : b0 + mc_rows], sub_ijk[d][b0 : b0 + mc_rows], sd, iso)
+            chunk = ls[d][b0 : b0 + mc_rows]
+            if encode is not None:
+                rows = np.arange(offs[d] + b0, offs[d] + b0 + chunk.shape[0])
+                S._encode_chunk(chunk, rows, sd, iso, encode, out[d]["enc"])
+                continue
+            v, k, t = S.chunk_mc(chunk, sub_ijk[d][b0 : b0 + mc_rows], sd, iso)
             out[d]["vertices"].append(v)
             out[d]["keys"].append(k)
             out[d]["triangles"].append(t)
-        if not any(t.shape[0] for t in out[d]["triangles"]):
+        if encode is None and not any(t.shape[0] for t in out[d]["triangles"]):
             out[d]["ls_max"] = float(ls[d].max()) if ls[d].numel() else -np.inf
         ls[d] = None
         c.lap("marching cubes")

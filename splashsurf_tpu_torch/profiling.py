@@ -137,15 +137,17 @@ def enable(on: bool = True):
 
 class StageClock:
     """Seconds per stage of one run, the device synchronised at each stage
-    boundary (the routes read counts back to the host anyway, so the few
-    extra waits cost next to nothing). ``times`` maps each stage to its
-    seconds, summed over the laps of that name. With ``track_peaks`` on a
-    CUDA device, ``peaks`` maps each stage to the most device memory
-    allocated during any of its laps (the allocator's peak statistics are
-    reset at every boundary); otherwise it is None."""
+    boundary unless ``sync`` is False (then the seconds are those of the
+    host's dispatch, and work queued on the device lands in whichever later
+    stage waits for it). ``times`` maps each stage to its seconds, summed
+    over the laps of that name. With ``track_peaks`` on a CUDA device,
+    ``peaks`` maps each stage to the most device memory allocated during
+    any of its laps (the allocator's peak statistics are reset at every
+    boundary); otherwise it is None."""
 
-    def __init__(self, device: torch.device, track_peaks: bool = False):
+    def __init__(self, device: torch.device, track_peaks: bool = False, sync: bool = True):
         self.device = device
+        self.sync = sync
         self.times: Dict[str, float] = {}
         self.peaks: Optional[Dict[str, int]] = None
         if track_peaks and device.type == "cuda":
@@ -154,7 +156,7 @@ class StageClock:
         self.t = self._now()
 
     def _now(self) -> float:
-        if self.device.type == "cuda":
+        if self.sync and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return time.perf_counter()
 

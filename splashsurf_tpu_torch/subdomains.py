@@ -24,6 +24,13 @@ margin, get a level set: a (P, P, P) block of point values, P = n_sub + 1.
   6. ``stitch``: one sort-unique over the global edge keys merges the
      vertices that neighbouring subdomains both emit.
 
+With ``SPLASHSURF_TPU_SUB_ENCODED_PULL=1`` (the reference's default; the
+port's is the stitch) steps 5-6 are the encoded pull instead: each
+subdomain emits the words and edge parameters of the points it owns
+(``chunk_mc_encode``), the streams come to the host in one copy in the
+reference's run order, and the host decodes the mesh (``mc_decode_sub``),
+with no duplicate vertex to merge (``use_encoded_pull``).
+
 Eager PyTorch reads counts back where it needs them, so the pair list and
 the overflow lists have their exact sizes: the reference's capacity retries,
 jit shape buckets and overflow caps have no counterpart here. Every
@@ -72,6 +79,7 @@ from splashsurf_tpu_torch.mc.dense import _local_edge_coeffs, edge_layout, lut_t
 from splashsurf_tpu_torch.mesh import TriMesh3d
 from splashsurf_tpu_torch.neighbors import compute_particle_densities, particle_neighbor_lists
 from splashsurf_tpu_torch.ops.global_sweep import check_empty_field
+from splashsurf_tpu_torch.ops.global_sweep import pull_quant as _pull_quant
 from splashsurf_tpu_torch.ops.splat_kernels import splat_sweep_cuda
 from splashsurf_tpu_torch.params import Parameters
 from splashsurf_tpu_torch.profiling import StageClock
@@ -98,10 +106,26 @@ _ABSENT = torch.iinfo(torch.int64).max  # no neighbour subdomain
 # Facts about the last run, read by tests and chip_smoke.py, never by the
 # pipeline (the reference keeps the same record): occupied subdomains "B",
 # resident level-set bytes "ls_bytes", "streamed", the streamed mode's
-# "shell_bytes", pair, raster-overflow and chunk counts, "stage_s", the
-# seconds of each stage, and, where STAGE_PEAKS is set on a CUDA run,
+# "shell_bytes", pair, raster-overflow and chunk counts, the encoded pull's
+# "pull_bytes", "stage_s", the seconds of each stage (device seconds only
+# with ``enable_profile_sync(True)``; otherwise the host's, up to the
+# stage's end of dispatch), and, where STAGE_PEAKS is set on a CUDA run,
 # "peak_bytes", each stage's peak of allocated device memory.
 LAST_RUN: dict = {}
+
+# When True, the route's stage clock synchronises the device at each stage
+# boundary, so that ``LAST_RUN["stage_s"]`` holds device seconds; off by
+# default (the reference's ``_PROFILE_SYNC``), when the route waits only
+# where it reads counts back and the stage seconds are those of dispatch.
+_PROFILE_SYNC = False
+
+
+def enable_profile_sync(on: bool = True):
+    """Synchronise the subdomain route's stage clock at its stage
+    boundaries (``on``), or not (the default)."""
+    global _PROFILE_SYNC
+    _PROFILE_SYNC = on
+
 
 # Per-stage device memory peaks: the clock resets the allocator's peak
 # statistics at every stage boundary, which would hide a caller's own
@@ -642,6 +666,329 @@ def stitch(vertices: List[torch.Tensor], keys: List[torch.Tensor], triangles: Li
 
 
 # ---------------------------------------------------------------------------
+# the encoded mesh pull: owned-point streams and the host decode
+# ---------------------------------------------------------------------------
+#
+# (the reference's subdomains.py:1416-1885, the default there.) Every
+# global grid point has one owner subdomain: the point of local coordinates
+# (i, j, k) is owned iff i, j, k < n_sub (the far planes are the +1
+# neighbour's local 0). A point's cell case and its +x/+y/+z edges are then
+# computable in its block, and every cell and edge of the grid is emitted
+# by exactly one subdomain: no duplicate vertex, no stitch. A cell's
+# far-face edges belong to neighbour subdomains' points, which the host
+# decoder finds by their global point id; the halo makes the shared planes'
+# values, and so the edges' activity and t, equal across blocks.
+#
+# Each subdomain's stream is a run of u32 words (local id << 11 | case |
+# edge bits) and a run of its owned edges' t, point-major; the runs come
+# to the host in the reference's canonical order, the active rows sorted
+# by max(owned edges, triangles) (``encoded_run_order``), whatever order the
+# chunks, the streamed mode or the shards computed them in.
+
+
+def use_encoded_pull(sd: SubdomainGridParams) -> bool:
+    """The encoded pull on the subdomain route: ``SPLASHSURF_TPU_SUB_
+    ENCODED_PULL`` "1" (read at each call; the port's default is "0", the
+    stitch; the reference's is "1") and (P - 1)^3 <= 2^21, so that a local
+    point id fits the word's 21 bits (the reference's gate,
+    subdomains.py:2408-2415)."""
+    return (os.environ.get("SPLASHSURF_TPU_SUB_ENCODED_PULL", "0") == "1"
+            and (sd.points_per_dim - 1) ** 3 <= (1 << 21))
+
+
+def _owned_words(ls: torch.Tensor, iso: float) -> torch.Tensor:
+    """The (C, n, n, n) int64 words of a chunk's owned points (n = P - 1):
+    the cell case where the cell is neither all inside nor all outside, in
+    bits 0-7, and the three origin edges' activity in bits 8-10."""
+    n = ls.shape[1] - 1
+    inside = ls >= iso
+    case = torch.zeros((ls.shape[0], n, n, n), dtype=torch.int64, device=ls.device)
+    for c8 in range(8):
+        oi, oj, ok = (c8 >> 2) & 1, (c8 >> 1) & 1, c8 & 1
+        case |= inside[:, oi : oi + n, oj : oj + n, ok : ok + n].long() << c8
+    word = torch.where((case != 0) & (case != 255), case, 0)
+    base = inside[:, :n, :n, :n]
+    for a in range(3):
+        nb = inside[:, int(a == 0) : int(a == 0) + n, int(a == 1) : int(a == 1) + n,
+                    int(a == 2) : int(a == 2) + n]
+        word |= (base != nb).long() << (8 + a)
+    return word
+
+
+def chunk_mc_counts_encoded(ls: torch.Tensor, sd: SubdomainGridParams, iso):
+    """Per-block (active owned points, owned active edges, triangles) of a
+    (C, P, P, P) chunk, three (C,) int64 tensors on its device: the exact
+    sizes of its encoded streams and their totals (the reference's
+    ``chunk_mc_counts_encoded``)."""
+    word = _owned_words(ls, kernels.rounded(iso, ls.dtype)).flatten(1)
+    count_t, _ = lut_tensors(ls.device)
+    edges = sum((word >> (8 + a)) & 1 for a in range(3))
+    return (word != 0).sum(1), edges.sum(1), count_t[word & 0xFF].sum(1)
+
+
+def chunk_mc_encode(ls: torch.Tensor, sd: SubdomainGridParams, iso,
+                    pack_point_capacity: Optional[int] = None,
+                    pack_vertex_capacity: Optional[int] = None, quant_t: bool = False):
+    """Encoded marching cubes over a (C, P, P, P) chunk: its active owned
+    points in (block, local id) order, each a u32 word ``local_id << 11 |
+    case (8 bits) | edge bits (3 bits)``, and one edge parameter t per owned
+    active edge in (point, axis) order (the reference's
+    ``chunk_mc_encode``, subdomains.py:1481-1583). Global ids stay off the
+    device: the host rebuilds them from the per-block counts and the
+    blocks' coordinates.
+
+    Returns (packed u32, t, counts (C,) int64, total_v): with the
+    capacities, lists of those sizes (zero past the active points and
+    edges) and nothing read back; without them, of their exact sizes. t is
+    u16 (round(t * 65535)) with ``quant_t``."""
+    dtype, dev = ls.dtype, ls.device
+    C, P = ls.shape[0], ls.shape[1]
+    ns = P - 1
+    n3 = ns * ns * ns
+    if n3 > (1 << 21):
+        raise ValueError("the encoded pull supports n_sub <= 128")
+    iso = kernels.rounded(iso, dtype)
+    wflat = _owned_words(ls, iso).reshape(-1)
+    active = wflat != 0
+    src = kernels.compact_indices(active, pack_point_capacity)
+    valid = src < C * n3
+    src = src.clamp_max(C * n3 - 1)
+    w = torch.where(valid, wflat[src], 0)
+    local = src % n3
+    packed = torch.where(valid, (local << 11) | w, 0).to(torch.uint32)
+    counts = active.reshape(C, n3).sum(1)
+
+    e = [(w >> (8 + a)) & 1 for a in range(3)]
+    nedges = e[0] + e[1] + e[2]
+    vbase = torch.cumsum(nedges, 0) - nedges
+    total_v = nedges.sum()
+    vcap = int(total_v) if pack_vertex_capacity is None else pack_vertex_capacity
+    row = src // n3
+    li, lj, lk = local // (ns * ns), (local // ns) % ns, local % ns
+    p0 = row * (P * P * P) + (li * P + lj) * P + lk
+    ls_flat = ls.reshape(-1)
+    v0 = ls_flat[p0]
+    tvals = torch.zeros(vcap + 1, dtype=dtype, device=dev)  # vcap: a drop slot
+    offs = (torch.zeros_like(e[0]), e[0], e[0] + e[1])
+    for a in range(3):
+        denom = ls_flat[(p0 + (P * P, P, 1)[a]).clamp_max(ls_flat.numel() - 1)] - v0
+        t_a = torch.clamp(
+            (iso - v0) / torch.where(denom == 0, torch.ones_like(denom), denom), 0.0, 1.0
+        )
+        dest = torch.where(e[a] == 1, (vbase + offs[a]).clamp_max(vcap), vcap)
+        tvals.index_put_((dest,), t_a)
+    tvals = tvals[:vcap]
+    if quant_t:
+        tvals = torch.round(tvals * 65535.0).to(torch.uint16)
+    return packed, tvals, counts, total_v
+
+
+def encoded_run_order(ap: np.ndarray, oe: np.ndarray, tc: np.ndarray) -> np.ndarray:
+    """The reference's run order of the encoded streams: the rows with an
+    active point, stably sorted by max(owned edges, triangles)."""
+    active = np.nonzero(ap > 0)[0]
+    return active[np.argsort(np.maximum(oe, tc)[active], kind="stable")]
+
+
+def _grouped_arange(starts: torch.Tensor, lens: torch.Tensor, total: int) -> torch.Tensor:
+    """The concatenation of arange(s, s + l) over (starts, lens), on their
+    device, ``total`` = sum(lens) entries."""
+    excl = torch.cumsum(lens, 0) - lens
+    return (torch.repeat_interleave(starts - excl, lens, output_size=total)
+            + torch.arange(total, device=lens.device))
+
+
+def _compact_streams(packs, order_rows, rows_stream, ap, oe):
+    """One stream pair in the canonical run order from the packs computed
+    in another: ``packs`` is a list of (packed, t, rows) per chunk, its
+    rows' runs in the order of ``rows`` (int64 host array); the packs are
+    concatenated on the first one's device, and, where the chunks' order is
+    not ``order_rows``, their runs regathered there into it (the
+    reference's ``_compact_streams`` drops its packs' padding instead; the
+    port's packs have none). Returns (packed, t) device tensors."""
+    dev = packs[0][0].device
+    packed = torch.cat([p[0].to(dev) for p in packs])
+    t = torch.cat([p[1].to(dev) for p in packs])
+    if len(rows_stream) == len(order_rows) and np.array_equal(rows_stream, order_rows):
+        return packed, t
+    pos = np.full(len(ap), -1, np.int64)
+    pos[rows_stream] = np.arange(len(rows_stream))
+    out = []
+    for x, lens in ((packed, ap), (t, oe)):
+        ls_stream = lens[rows_stream]
+        starts = (np.cumsum(ls_stream) - ls_stream)[pos[order_rows]]
+        total = int(lens[order_rows].sum())
+        idx = _grouped_arange(torch.as_tensor(starts, device=dev),
+                              torch.as_tensor(lens[order_rows], device=dev), total)
+        # CUDA gathers no unsigned words: gather their signed view
+        signed = {torch.uint32: torch.int32, torch.uint16: torch.int16}.get(x.dtype)
+        out.append(x[idx] if signed is None else x.view(signed)[idx].view(x.dtype))
+    return tuple(out)
+
+
+def _decode_sub_mesh_np(packed, tstr, run_counts, run_base, ns: int, grid: UniformGrid,
+                        quant_t: bool):
+    """The numpy decoder of the owned-point streams (the reference's
+    ``_decode_sub_mesh_np``, subdomains.py:1633-1731): the mesh of the
+    native ``mc_decode_sub``, up to the multiply-add of the vertex
+    positions, in the streams' dtype (the decoder of f64 streams and of
+    hosts without a compiler). Returns (vertices, triangles int32)."""
+    from splashsurf_tpu_torch.mc import lut
+
+    packed = np.asarray(packed, np.uint32)
+    total_c = packed.shape[0]
+    tstr = np.asarray(tstr)
+    if quant_t:
+        tstr = tstr.astype(np.float32) * np.float32(1.0 / 65535.0)
+    dtype = tstr.dtype
+    npy, npz = int(grid.n_points[1]), int(grid.n_points[2])
+
+    base = np.repeat(np.asarray(run_base, np.int64), np.asarray(run_counts), axis=0)
+    local = (packed >> 11).astype(np.int64)
+    word = (packed & 0x7FF).astype(np.int64)
+    g = base + np.stack([local // (ns * ns), (local // ns) % ns, local % ns], axis=1)
+    gflat = (g[:, 0] * npy + g[:, 1]) * npz + g[:, 2]
+
+    ebits = np.stack([(word >> (8 + a)) & 1 for a in range(3)], axis=1)
+    nedges = ebits.sum(1)
+    vbase = np.cumsum(nedges) - nedges
+    total_v = int(nedges.sum())
+    if total_v != tstr.shape[0]:
+        raise RuntimeError("encoded transfer decode inconsistency (vertices)")
+
+    # vertices: point-major, axes in order
+    mn = np.asarray(grid.min, dtype)
+    cs = np.asarray(grid.cell_size, dtype)
+    vaxis = np.empty(total_v, np.int8)
+    vslot = np.empty(total_v, np.int64)
+    for a in range(3):
+        sel = ebits[:, a] == 1
+        vo = vbase[sel] + ebits[sel, :a].sum(1)
+        vaxis[vo] = a
+        vslot[vo] = np.nonzero(sel)[0]
+    verts = mn[None, :] + g[vslot].astype(dtype) * cs
+    verts[np.arange(total_v), vaxis] += tstr * cs
+
+    # neighbour slots: sorted global ids, one search per offset
+    order = np.argsort(gflat, kind="stable")
+    sg = gflat[order]
+    nbr = np.empty((8, total_c), np.int64)
+    nbr[0] = np.arange(total_c)
+    pzy = npy * npz
+    for off in range(1, 8):
+        di, dj, dk = (off >> 2) & 1, (off >> 1) & 1, off & 1
+        tgt = gflat + (di * pzy + dj * npz + dk)
+        pos_s = np.searchsorted(sg, tgt)
+        pos_c = np.minimum(pos_s, total_c - 1)
+        hit = (pos_s < total_c) & (sg[pos_c] == tgt)
+        nbr[off] = np.where(hit, order[pos_c], -1)
+
+    # triangles in stream order
+    case = word & 0xFF
+    counts = np.asarray(lut.TRI_COUNT, np.int64)[case]
+    total_t = int(counts.sum())
+    owner = np.repeat(np.arange(total_c), counts)
+    slot_in = np.arange(total_t) - (np.cumsum(counts) - counts)[owner]
+    tri_tab = np.where(lut.TRI_TABLE >= 0, lut.TRI_TABLE, 0)
+    ea = np.asarray(lut.EDGE_AXIS, np.int64)
+    eb = np.asarray(lut.EDGE_BASE_OFFSET, np.int64)
+    eoff = eb[:, 0] * 4 + eb[:, 1] * 2 + eb[:, 2]
+    tris = np.empty((total_t, 3), np.int32)
+    acase = case[owner]
+    for corner in range(3):
+        le = tri_tab[acase, slot_in, corner]
+        a = ea[le]
+        nslot = nbr[eoff[le], owner]
+        if np.any(nslot < 0):
+            raise RuntimeError("encoded transfer decode inconsistency (owner)")
+        if np.any(ebits[nslot, a] == 0):
+            raise RuntimeError("encoded transfer decode inconsistency (edge)")
+        below = np.zeros(total_t, np.int64)
+        for b in range(2):
+            below += np.where(a > b, ebits[nslot, b], 0)
+        tris[:, corner] = (vbase[nslot] + below).astype(np.int32)
+    return verts, tris
+
+
+def _decode_encoded_streams(packed_h, t_h, run_counts, run_base, ns: int, grid: UniformGrid,
+                            dtype: torch.dtype, quant: bool, total_v: int, total_t: int):
+    """The host mesh of the owned-point streams: the native decoder
+    (``native.mc_decode_sub``) in f32, the numpy one in f64 or where the
+    native library cannot be built, both counted in
+    ``native.DECODE_STATS``."""
+    from splashsurf_tpu_torch import native
+
+    res = None
+    if dtype == torch.float32:
+        res = native.mc_decode_sub(
+            t_h, packed_h, run_counts, run_base, total_v, total_t, ns,
+            int(grid.n_points[1]), int(grid.n_points[2]), grid.min, grid.cell_size, quant,
+        )
+    if res is None:
+        native.DECODE_STATS["numpy"] += 1
+        res = _decode_sub_mesh_np(packed_h, t_h, run_counts, run_base, ns, grid, quant)
+    return res
+
+
+def encode_record() -> dict:
+    """An empty record of encoded chunks: their global rows, per-row counts
+    ((3, C) device tensors), packs and level-set maxima."""
+    return dict(rows=[], counts=[], packs=[], ls_max=[])
+
+
+def _encode_chunk(ls, rows: np.ndarray, sd: SubdomainGridParams, iso, quant: bool, enc: dict):
+    """Append a chunk's per-row encoded counts and its packs (exact sizes)
+    to ``enc`` (``encode_record()``): ``ls`` holds the level sets of the
+    global rows ``rows``, after the halo."""
+    counts = chunk_mc_counts_encoded(ls, sd, iso)
+    packed, t, _, _ = chunk_mc_encode(ls, sd, iso, quant_t=quant)
+    enc["rows"].append(np.asarray(rows, np.int64))
+    enc["counts"].append(torch.stack(counts))
+    enc["packs"].append((packed, t))
+    enc["ls_max"].append(ls.max())
+
+
+def _mc_encoded_mesh(encs, occ_ids, sd: SubdomainGridParams, iso, dtype, clock: StageClock):
+    """The host mesh of the encoded packs (the reference's
+    ``_mc_encoded_mesh``, subdomains.py:1762-1862): ``encs`` are the
+    ``_encode_chunk`` records (one per device, in device order, or one),
+    their rows together every occupied row once. The per-row counts come
+    back to the host, the runs are regathered into ``encoded_run_order``
+    and pulled in one copy, then decoded (``mc_decode_sub``). Laps "pull"
+    and "decode"; ``LAST_RUN`` gets "pull_bytes"."""
+    from splashsurf_tpu_torch.ops.global_sweep import PendingPull
+
+    dev0 = next(p[0].device for e in encs for p in e["packs"])
+    rows = np.concatenate([r for e in encs for r in e["rows"]])
+    counts = torch.cat([c.to(dev0) for e in encs for c in e["counts"]], dim=1).cpu().numpy()
+    B = len(occ_ids)
+    ap, oe, tc = (np.zeros(B, np.int64) for _ in range(3))
+    ap[rows], oe[rows], tc[rows] = counts
+    order = encoded_run_order(ap, oe, tc)
+    ns_ = sd.points_per_dim - 1
+    quant = _pull_quant(dtype)
+    total_v, total_t = int(oe.sum()), int(tc.sum())
+    if len(order) == 0:
+        check_empty_field(0, max(float(m) for e in encs for m in e["ls_max"]), float(iso))
+        return None
+    packs = [p for e in encs for p in e["packs"]]
+    packed, t = _compact_streams(packs, order, rows, ap, oe)
+    del packs
+    host = PendingPull(None, [packed, t]).host_parts()
+    LAST_RUN["pull_bytes"] = sum(h.numel() * h.element_size() for h in host)
+    clock.lap("pull")
+    nsub = sd.num_subdomains
+    oid = occ_ids[order]
+    sub_ijk = np.stack([oid // (nsub[1] * nsub[2]), (oid // nsub[2]) % nsub[1], oid % nsub[2]], 1)
+    verts, tris = _decode_encoded_streams(
+        host[0].numpy(), host[1].numpy(), ap[order], sub_ijk * ns_, ns_, sd.global_grid,
+        dtype, quant, total_v, total_t,
+    )
+    clock.lap("decode")
+    return TriMesh3d(vertices=verts, triangles=tris)
+
+
+# ---------------------------------------------------------------------------
 # orchestration
 # ---------------------------------------------------------------------------
 
@@ -767,7 +1114,8 @@ def reconstruct_surface_subdomain_grid(
     P = sd.points_per_dim
     mesh = shard_mesh(sharded, n, dev)
     LAST_RUN.clear()
-    clock = StageClock(dev, track_peaks=STAGE_PEAKS)
+    clock = StageClock(dev, track_peaks=STAGE_PEAKS, sync=_PROFILE_SYNC)
+    encoded = use_encoded_pull(sd)
 
     if mesh is None:
         rho = compute_particle_densities(positions[:nv], h, parameters.particle_rest_mass)
@@ -824,7 +1172,9 @@ def reconstruct_surface_subdomain_grid(
         # resident, on one device or sharded: each device's store of level
         # sets, the halo across them, marching cubes in ascending id
         dmesh = mesh if mesh is not None else DeviceMesh((dev,))
-        out = _levelset_mc_step(dmesh, positions, values, shards, sd, h, iso, chunk_bytes, clock)
+        quant = _pull_quant(dtype) if encoded else None
+        out = _levelset_mc_step(dmesh, positions, values, shards, sd, h, iso, chunk_bytes, clock,
+                                encode=quant)
         del shards
         if mesh is not None:
             LAST_RUN["shards"] = [
@@ -834,6 +1184,10 @@ def reconstruct_surface_subdomain_grid(
             ]
             LAST_RUN["shell_bytes"] = 6 * B * P * P * itemsize
         LAST_RUN["splat_chunks"] = sum(o["splat_chunks"] for o in out)
+        if encoded:
+            encs = [o["enc"] for o in out]
+            del out
+            return result(_mc_encoded_mesh(encs, occ_ids, sd, iso, dtype, clock) or empty())
         # stitched on the mesh's first device, the patches in device order
         dev = dmesh.devices[0]
         verts, keys, tris = ([x.to(dev) for o in out for x in o[k]]
@@ -864,6 +1218,7 @@ def reconstruct_surface_subdomain_grid(
     plan = stream_plan(counts, sd, itemsize, chunk_bytes)
     ls_max = torch.full((), -torch.inf, dtype=dtype, device=dev)
     verts, keys, tris = [], [], []
+    enc = encode_record()
     for rows_np in plan:
         b0, b1 = int(rows_np[0]), int(rows_np[-1]) + 1
         ls = splat_rows(positions, values, s["pids"], s["cells"], s["ranks"], starts_d, counts_d,
@@ -873,14 +1228,19 @@ def reconstruct_surface_subdomain_grid(
         halo_from_shells(ls, own_flat[b0:b1], nb_idx[:, b0:b1], nb_flat[:, b0:b1], shells)
         ls_max = torch.maximum(ls_max, ls.max())
         clock.lap("halo")
-        v, k, t = chunk_mc(ls, sub_ijk[b0:b1], sd, iso)
-        verts.append(v)
-        keys.append(k)
-        tris.append(t)
+        if encoded:
+            _encode_chunk(ls, rows_np, sd, iso, _pull_quant(dtype), enc)
+        else:
+            v, k, t = chunk_mc(ls, sub_ijk[b0:b1], sd, iso)
+            verts.append(v)
+            keys.append(k)
+            tris.append(t)
         del ls
         clock.lap("marching cubes")
     del shells, s
     LAST_RUN["splat_chunks"] = len(plan)
+    if encoded:
+        return result(_mc_encoded_mesh([enc], occ_ids, sd, iso, dtype, clock) or empty())
     return result(_stitched(verts, keys, tris, ls_max, iso, empty, clock))
 
 
