@@ -36,11 +36,6 @@ REFERENCE_SUBMODULES = (
     "io", "mesh", "profiling", "postprocess", "pipeline", "mc", "neighbors", "density",
     "subdomains", "sph_interpolation", "sequence", "parallel", "cli", "studio",
 )
-_ENCODED = (
-    "the encoded / u16 mesh pull and its native decoder: built to cut remote-link "
-    "bytes, and lossy by default (SPLASHSURF_TPU_PULL_QUANT=1), where the port's "
-    "float mesh pull is exact"
-)
 _SHARD_MAP = (
     "a jit(shard_map) factory: the port's per-shard step in parallel/mesh.py "
     "(_levelset_mc_step, sharded_halo_overwrite) does this work over a device list"
@@ -49,17 +44,8 @@ _SHARD_MAP = (
 # module path relative to the package (a whole module where the path names
 # one), each with its reason. Nothing else may be missing.
 NOT_PORTED = {
-    "subdomains.chunk_mc_counts_encoded": _ENCODED,
-    "subdomains.chunk_mc_encode": _ENCODED,
-    "native.mc_decode": _ENCODED,
-    "native.mc_decode_sub": _ENCODED,
-    "native.unpack_compact": _ENCODED,
-    "parallel.mesh.sharded_mc_counts_encoded": _ENCODED,
-    "parallel.mesh.sharded_scan_mc_encode": _ENCODED,
-    "ops.global_sweep.mc_global_packed": (
-        "edge-major marching cubes, reached only by SPLASHSURF_TPU_MC=edges; the "
-        "port's cell-major mc_global_cells gives the same mesh"
-    ),
+    "parallel.mesh.sharded_mc_counts_encoded": _SHARD_MAP,
+    "parallel.mesh.sharded_scan_mc_encode": _SHARD_MAP,
     "parallel.mesh.sharded_splat_scatter": _SHARD_MAP,
     "parallel.mesh.sharded_splat_raster": _SHARD_MAP,
     "parallel.mesh.sharded_scan_splat": _SHARD_MAP,
@@ -67,10 +53,6 @@ NOT_PORTED = {
     "parallel.mesh.sharded_mc_counts": _SHARD_MAP,
     "parallel.mesh.sharded_scan_mc": _SHARD_MAP,
     "parallel.mesh.sharded_chunk_mc": _SHARD_MAP,
-    "subdomains.enable_profile_sync": (
-        "profile synchronisation: the port's profiling.StageClock always "
-        "synchronises the device at stage boundaries"
-    ),
     "ops.prefix": "the MXU blocked prefix sum; the port uses torch.cumsum",
     "ops.splat_pallas": "the Pallas kernels; the port's are ops/splat_kernels.py with csrc/",
     "workspace": "the JAX persistent compile cache; the port compiles no programs",
@@ -101,8 +83,6 @@ SIGNATURE_NOT_PORTED = {
     "ops.global_sweep.density_weights_from_rasters:backend": _BACKEND,
     "ops.global_sweep.reconstruct_global_dense:backend": _BACKEND,
     "ops.global_sweep.sweep_global:backend": _BACKEND,
-    "ops.global_sweep.mc_global_cells:encode": _ENCODED,
-    "ops.global_sweep.mc_global_cells:quant_t": _ENCODED,
     "ops.global_sweep.rasterize_global:lane_align": (
         "the TPU sweep's (8, 128) tile alignment of the raster's minor dims"
     ),

@@ -1,11 +1,11 @@
 """The port's process-global density state, as the reference's is: the
 geoslot hysteresis and the speculative frame plans (the density plan, the
-grid plan, the dense route's overflow, MC and pull plans) with their
-``SPECULATION_STATS``. Port test files share worker processes, so a port
-test module that reaches a density gate or the dense route imports this
-autouse fixture: each of its tests starts and ends with no recorded octant
-collision, no plan and zero counts, whatever test ran before it in the same
-worker."""
+grid plan, the dense route's overflow, MC and pull plans, packed and
+encoded) with their ``SPECULATION_STATS``. Port test files share worker
+processes, so a port test module that reaches a density gate or the dense
+route imports this autouse fixture: each of its tests starts and ends with
+no recorded octant collision, no plan and zero counts, whatever test ran
+before it in the same worker."""
 
 import pytest
 
@@ -18,7 +18,8 @@ def clear_port_plans():
     neighbors.clear_density_plan()
     reconstruction.clear_grid_plan()
     reconstruction._PENDING_NOSPEC.clear()
-    for plan in (global_sweep._OVER_PLAN, global_sweep._MC_CAPS, global_sweep._PULL_PLAN):
+    for plan in (global_sweep._OVER_PLAN, global_sweep._MC_CAPS, global_sweep._PULL_PLAN,
+                 global_sweep._PULL_PLAN_ENC):
         plan.clear()
     for k in global_pipeline.SPECULATION_STATS:
         global_pipeline.SPECULATION_STATS[k] = 0
