@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase 18   # phases 0, 1 and 18 alone, no result line
+    python3 chip_smoke.py --phase 19   # phases 0, 1 and 19 alone, no result line
 
 Phases (each prints progress; any failure raises and exits non-zero):
   0. the card: its name and power limit, torch and CUDA versions;
@@ -136,6 +137,22 @@ Phases (each prints progress; any failure raises and exits non-zero):
      (counts, vertices within 1e-6); the warm and plan-cleared seconds,
      synchronising calls and the card's idle share (``torch.profiler``); a
      frame shifted past a grid cell misses its grid plan.
+ 19. the mesh pulls (run after phase 16, while the canyon is on the card):
+     the 2M dam break on the dense route with the packed pull, the encoded
+     pull with u16 and with f32 edge parameters, and edge-major marching
+     cubes (``SPLASHSURF_TPU_PULL``, ``_PULL_QUANT``, ``_MC``), each a cold
+     and five warm frames on the plans (no synchronising call up to
+     ``resolve()``, K1 and K2 once): the bytes copied, the host decode and
+     device MC seconds, the frame seconds; every mode's mesh the packed
+     one's triangle list, vertices within 4 float32 ulps (plus cell_size /
+     65535 * 1.01 with u16 t); every f32 decode native. The 8M canyon on default
+     parameters (slabs), packed against encoded, and on the subdomain route,
+     the stitch against the encoded pull (``SPLASHSURF_TPU_SUB_ENCODED_PULL``)
+     with the stage split and without the stage synchronisation, then one
+     streamed and one four-shard encoded frame, both the resident encoded
+     mesh. The subdomain route's stage clock synchronises the card only
+     with ``subdomains.enable_profile_sync(True)``, which this script turns
+     on for every phase that prints its stage seconds.
 
 Each kernel's line carries its bound: the larger of the bytes it must move
 (rasters read once, output written once) over 3.35 TB/s and the float
@@ -2122,7 +2139,7 @@ def clear_plans():
 
     neighbors.clear_density_plan()
     reconstruction.clear_grid_plan()
-    for plan in (gs._OVER_PLAN, gs._MC_CAPS, gs._PULL_PLAN):
+    for plan in (gs._OVER_PLAN, gs._MC_CAPS, gs._PULL_PLAN, gs._PULL_PLAN_ENC):
         plan.clear()
 
 
@@ -2233,6 +2250,232 @@ def phase_plans(pt, pts, params, ident):
     log(f"  the shifted frame: SPECULATION_STATS moved {moved}; the cold frame's mesh")
 
 
+class switches:
+    """The environment switches ``env`` (name -> value, None unsets) for the
+    body of a ``with`` block, restored after."""
+
+    def __init__(self, **env):
+        self.env, self.saved = env, {}
+
+    def __enter__(self):
+        for k, v in self.env.items():
+            self.saved[k] = os.environ.get(k)
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+# phase 19's pull modes of the dense route: label -> switches
+PULL_MODES = {
+    "packed": dict(SPLASHSURF_TPU_PULL="packed", SPLASHSURF_TPU_MC=None),
+    "encoded, u16 t": dict(SPLASHSURF_TPU_PULL="encoded", SPLASHSURF_TPU_PULL_QUANT="1",
+                           SPLASHSURF_TPU_MC=None),
+    "encoded, f32 t": dict(SPLASHSURF_TPU_PULL="encoded", SPLASHSURF_TPU_PULL_QUANT="0",
+                           SPLASHSURF_TPU_MC=None),
+    "edges": dict(SPLASHSURF_TPU_PULL="packed", SPLASHSURF_TPU_MC="edges"),
+}
+
+
+def pull_tol(mesh, cs, quant):
+    """How far a decoded vertex may lie from the card's: cell_size / 65535 *
+    1.01 with u16 t (the reference's bar), plus 4 float32 ulps of the
+    largest coordinate (the host rounds mn + ijk cs and then + t cs apart,
+    where the card may fuse them; at the canyon's 44 m an ulp is 3.8e-6)."""
+    ulp = float(np.spacing(np.float32(np.abs(mesh.vertices).max())))
+    return (cs / 65535 * 1.01 if quant else 0.0) + 4 * ulp
+
+
+def phase_encoded(pt, dev, canyon, pts_np, ident):
+    """Phase 19: the encoded mesh pull and edge-major marching cubes.
+
+    (a) The 2M dam break on the dense route in each of ``PULL_MODES``: the
+    plans cleared, one cold frame and five warm ones (``pts + k 1e-6``),
+    each warm frame dispatched under ``set_sync_debug_mode("error")`` up to
+    its ``resolve()`` with K1 and K2 launched once; the bytes of its mesh
+    copy, the host decode seconds, the device seconds of marching cubes in
+    the mode (CUDA events on the cold frame's level set) and the frame
+    seconds. Every mode's last mesh has the packed mesh's triangle list and
+    its vertices within ``pull_tol``; every f32 decode ran in the native
+    decoder. (b) The 8M canyon on default parameters (the slab route, 8
+    slabs), a packed and an encoded frame: stage seconds, bytes, the same
+    triangle list and the vertices within ``pull_tol``. (c) The 8M canyon
+    on the subdomain route (decomposition forced), resident: the stitch
+    against the encoded pull with the stage split
+    (``enable_profile_sync(True)``), then a frame of each without the
+    synchronisation: equal counts, a sample of the encoded vertices within
+    ``pull_tol`` of the stitched ones, the encoded mesh closed; one
+    streamed encoded frame and one on four virtual shards, both the
+    resident encoded mesh bit for bit (within 1e-6 where a sum ran with
+    atomics)."""
+    from scipy.spatial import cKDTree
+
+    from splashsurf_tpu_torch import native
+    from splashsurf_tpu_torch import neighbors as N
+    from splashsurf_tpu_torch import subdomains as S
+    from splashsurf_tpu_torch.global_pipeline import SPECULATION_STATS
+    from splashsurf_tpu_torch.ops import global_sweep as gs
+    from splashsurf_tpu_torch.ops import slab_sweep as slab
+    from splashsurf_tpu_torch.ops import splat_kernels as sk
+    from splashsurf_tpu_torch.parallel import mesh as pmesh
+
+    params = pt.Parameters.new_relative(RADIUS, 4.0, 1.5)
+    h = params.compact_support_radius
+    pts = torch.as_tensor(pts_np, device=dev)
+    frames = [pts + k * 1e-6 for k in range(6)]
+    log(f"phase 19: the mesh pulls, {len(pts_np)}-particle dam break ({ident})")
+    native.DECODE_STATS.update(native=0, numpy=0)
+    meshes, rows = {}, []
+    for label, env in PULL_MODES.items():
+        with switches(**env):
+            clear_plans()
+            N.reset_geoslot_hysteresis()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cold = pt.reconstruct_surface(frames[0], params)
+            torch.cuda.synchronize()
+            cold_s = time.perf_counter() - t0
+            cold_bytes = gs.LAST_PULL["bytes"]
+            warm_s, decode_s, nbytes_ = [], [], []
+            for k, f in enumerate(frames[1:], 1):
+                before = dict(SPECULATION_STATS)
+                reset_launches(sk)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    rec = pt.reconstruct_surface(f, params, _defer_pull=True)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                rec.resolve()
+                torch.cuda.synchronize()
+                warm_s.append(time.perf_counter() - t0)
+                launches = (sk.sweep_global_cuda.launches, sk.density_sweep_cuda.launches)
+                if launches != (1, 1):
+                    raise AssertionError(f"{label} warm frame {k}: (K1, K2) launches {launches}")
+                if stats_delta(before) != {"frames": 1}:
+                    raise AssertionError(f"{label} warm frame {k}: {stats_delta(before)}")
+                decode_s.append(gs.LAST_PULL["decode_s"])
+                nbytes_.append(gs.LAST_PULL["bytes"])
+                if gs.LAST_PULL["mode"] != ("edges" if "edges" in label else label.split(",")[0]):
+                    raise AssertionError(f"{label}: the pull ran as {gs.LAST_PULL['mode']}")
+            # device seconds of marching cubes in this mode, on frame 0's level set
+            grid = cold.grid
+            hsc = pt.kernel_extents(h, grid.cell_size).half_supported_cells
+            rho = N.compute_particle_densities(frames[0], h, params.particle_rest_mass)
+            r, o = gs.rasterize_global(frames[0], params.particle_rest_mass / rho, grid, 2, hsc)
+            ls = gs.sweep_global(r, o, grid, h, hsc)
+            del r, o, rho
+            caps = gs._MC_CAPS[(grid.n_points, str(ls.dtype))]
+            iso = params.iso_surface_threshold
+            mc_ms = cuda_ms(lambda: gs._dense_mc(ls, grid, iso, caps), 5)
+            del ls
+        meshes[label] = rec.mesh
+        rows.append((label, cold_s, warm_s, cold_bytes, nbytes_, decode_s, mc_ms))
+        log(f"  {label}: cold frame {cold_s:.4f} s, warm {[round(x, 5) for x in warm_s]}, "
+            f"median {statistics.median(warm_s):.5f} s; bytes copied cold {cold_bytes}, warm "
+            f"{nbytes_[-1]}; host decode {[round(x, 5) for x in decode_s]} s; device MC "
+            f"{mc_ms:.3f} ms; no synchronising call up to resolve(), K1 and K2 once")
+    if native.DECODE_STATS["numpy"] or not native.DECODE_STATS["native"]:
+        raise AssertionError(f"the f32 decodes did not all run natively: {native.DECODE_STATS}")
+    base = meshes["packed"]
+    cs = float(params.cube_size)
+    for label, mesh in meshes.items():
+        tol = pull_tol(base, cs, "u16" in label)
+        check_same_mesh(f"{label} / packed", mesh, base, ordered=True, tol=tol)
+        if not (mesh.triangles == base.triangles).all():
+            raise AssertionError(f"{label}: the triangle list differs from the packed one")
+    log(f"  native decodes {native.DECODE_STATS}")
+    del frames, pts
+
+    # (b) the slab route on default parameters
+    sparams = pt.Parameters.new_relative(RADIUS, 4.0, 1.5)
+    slab_mesh = {}
+    for label in ("packed", "encoded, u16 t"):
+        with switches(**PULL_MODES[label]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec = pt.reconstruct_surface(canyon, sparams)
+            torch.cuda.synchronize()
+            secs = [time.perf_counter() - t0]
+        run = slab.LAST_RUN
+        if not run.get("slabbed"):
+            raise AssertionError("the canyon on default parameters did not take the slab route")
+        mesh = rec.mesh
+        nbytes_ = run.get("pull_bytes", mesh.vertices.nbytes + mesh.triangles.nbytes)
+        slab_mesh[label] = mesh
+        log(f"  slab route, {label}: {run['n_slabs']} slabs; frame {secs[0]:.4f} s (warm: "
+            f"phase 13 built the kernels); bytes copied {nbytes_}; stages "
+            + ", ".join(f"{k} {v:.4f}" for k, v in run["stage_s"].items()))
+    check_same_mesh("slab route encoded / packed", slab_mesh["encoded, u16 t"],
+                    slab_mesh["packed"], ordered=True,
+                    tol=pull_tol(slab_mesh["packed"], cs, True))
+    if not (slab_mesh["encoded, u16 t"].triangles == slab_mesh["packed"].triangles).all():
+        raise AssertionError("slab route: the encoded triangle list differs from the packed one")
+    del slab_mesh  # the packed mesh's triangles, which phase 13 found closed
+
+    # (c) the subdomain route, decomposition forced
+    cparams = canyon_params(pt)
+    sub = {}
+    for label, enc in (("stitch", "0"), ("encoded", "1")):
+        with switches(SPLASHSURF_TPU_SUB_ENCODED_PULL=enc, SPLASHSURF_TPU_STREAM="0"):
+            S.enable_profile_sync(True)
+            rec, secs, runs = subdomain_frames(pt, canyon, cparams, 1)
+            S.enable_profile_sync(False)
+            _, free, _ = subdomain_frames(pt, canyon, cparams, 1)
+        sub[label] = (rec.mesh, runs[-1])
+        mesh = rec.mesh
+        nbytes_ = runs[-1].get("pull_bytes", mesh.vertices.nbytes + mesh.triangles.nbytes)
+        log(f"  subdomain route, {label}: frames synchronised {[round(x, 4) for x in secs]} s, "
+            f"not synchronised {free[0]:.4f} s; bytes copied {nbytes_}; stages (synchronised) "
+            + ", ".join(f"{k} {v:.4f}" for k, v in runs[-1]["stage_s"].items()))
+    S.enable_profile_sync(True)
+    enc_mesh, enc_run = sub["encoded"]
+    check_closed(pt, "subdomain encoded", enc_mesh)
+    stitched = sub.pop("stitch")[0]
+    if (enc_mesh.num_vertices, enc_mesh.num_triangles) != (
+            stitched.num_vertices, stitched.num_triangles):
+        raise AssertionError("subdomain route: the encoded and stitched counts differ")
+    # the vertex sets: a seeded sample of 500,000 encoded vertices, each
+    # within pull_tol of a stitched one (the whole sets both ways take a
+    # minute of host time; the CPU tests compare them whole)
+    sample = np.random.default_rng(0).choice(enc_mesh.num_vertices, 500_000, replace=False)
+    d = float(cKDTree(stitched.vertices).query(enc_mesh.vertices[sample], workers=-1)[0].max())
+    if d > pull_tol(enc_mesh, cs, True):
+        raise AssertionError(f"subdomain encoded / stitch: a vertex {d} from the stitched set")
+    log(f"  subdomain encoded / stitch: {enc_mesh.num_vertices} vertices, "
+        f"{enc_mesh.num_triangles} triangles in both; sampled vertices within {d:.3e}")
+    del stitched
+    with switches(SPLASHSURF_TPU_SUB_ENCODED_PULL="1", SPLASHSURF_TPU_STREAM="1"):
+        rec, secs, runs = subdomain_frames(pt, canyon, cparams, 1)
+    if not runs[0]["streamed"]:
+        raise AssertionError("the streamed frame did not stream")
+    d = check_streamed_mesh("streamed encoded", rec.mesh, enc_mesh,
+                            runs[0]["atomics"] or enc_run["atomics"])
+    log(f"  streamed encoded: {secs[0]:.4f} s, {runs[0]['splat_chunks']} chunks, max vertex "
+        f"diff to resident {d}; stages " + ", ".join(
+            f"{k} {v:.4f}" for k, v in runs[0]["stage_s"].items()))
+    pmesh.set_devices([dev] * 4)
+    try:
+        with switches(SPLASHSURF_TPU_SUB_ENCODED_PULL="1", SPLASHSURF_TPU_STREAM="0"):
+            rec, secs, runs = subdomain_frames(pt, canyon, cparams, 1)
+    finally:
+        pmesh.set_devices(None)
+    if not runs[0]["sharded"] or len(runs[0]["devices"]) != 4:
+        raise AssertionError(f"the sharded frame ran on {runs[0]['devices']}")
+    d = check_streamed_mesh("four shards encoded", rec.mesh, enc_mesh,
+                            runs[0]["atomics"] or enc_run["atomics"])
+    log(f"  four virtual shards, encoded: {secs[0]:.4f} s, max vertex diff to resident {d}; "
+        "stages " + ", ".join(f"{k} {v:.4f}" for k, v in runs[0]["stage_s"].items()))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2269,8 +2512,18 @@ def main() -> int:
     log(f"  scene: {n_main} particles, grid {grid.n_cells} "
         f"({grid.total_cells} cells), hsc {hsc}")
     kernels = {}
+    # the subdomain route's stage seconds, printed by phases 7, 15, 16 and 19,
+    # are device seconds only with its stage clock synchronised
+    from splashsurf_tpu_torch import subdomains as S
+
+    S.enable_profile_sync(True)
     if sys.argv[1:] == ["--phase", "18"]:  # a quick look at phase 18 alone
         phase_plans(pt, pts, params, ident)
+        return 0
+    if sys.argv[1:] == ["--phase", "19"]:  # a quick look at phase 19 alone
+        del pts
+        phase_encoded(pt, dev, torch.as_tensor(bench.make_canyon(N_CANYON, RADIUS), device=dev),
+                      pts_np, ident)
         return 0
 
     # --- 2. K1 ---------------------------------------------------------------
@@ -2420,6 +2673,9 @@ def main() -> int:
         kernels[name]["launches"] += n
     log(f"  launches of phases 4 and 7 with phase 16's added: "
         + ", ".join(f"{k} {kernels[k]['launches']}" for k in more))
+
+    # --- 19. the encoded mesh pull, edge-major marching cubes ----------------
+    phase_encoded(pt, dev, canyon, pts_np, ident)
     del canyon, canyon_mesh
     phase_neighbors(pt, dev, cross, pts_np, ident)
 
