@@ -613,14 +613,20 @@ def decode_encoded(t, packed, bincl, total_v: int, total_t: int, total_c: int,
     streams, the numpy one (``_decode_cellwise_mesh``) for f64 streams or
     where the native library cannot be built, as the reference chooses.
     Returns (vertices (V, 3), triangles (T, 3) int32) numpy arrays."""
+    pw = unpack_points(t, packed, bincl, total_c, point_offset)
+    return decode_encoded_points(t, *pw, total_v, total_t, total_c, grid)
+
+
+def unpack_points(t, packed, bincl, total_c: int, point_offset: int = 0):
+    """(points int64, words) of a packed stream whose edge parameters are
+    ``t``: the native ``unpack_compact`` beside f32 and u16 t, numpy beside
+    f64 t or where the native library cannot be built."""
     from splashsurf_tpu_torch import native
 
     pw = None
     if np.asarray(t).dtype != np.float64:
         pw = native.unpack_compact(packed, bincl, total_c, point_offset)
-    if pw is None:
-        pw = _unpack_compact(packed, bincl, total_c, point_offset)
-    return decode_encoded_points(t, *pw, total_v, total_t, total_c, grid)
+    return pw if pw is not None else _unpack_compact(packed, bincl, total_c, point_offset)
 
 
 def decode_encoded_points(t, points, words, total_v: int, total_t: int, total_c: int,

@@ -175,8 +175,6 @@ def _decode_slab_streams(parts, W: int, grid: UniformGrid, ls_max, iso, clock: S
     ``LAST_RUN`` gets "pull_bytes", the bytes copied; laps "merge and pull"
     at the end of the copy and "decode" at the end of the host merge and
     decode."""
-    from splashsurf_tpu_torch import native
-
     PY, PZ = grid.n_points[1], grid.n_points[2]
     flat = [x for p in parts for x in p[:3]]
     totals = torch.stack([torch.stack(p[3:]) for p in parts]).reshape(-1)
@@ -190,10 +188,7 @@ def _decode_slab_streams(parts, W: int, grid: UniformGrid, ls_max, iso, clock: S
     t_ax, pts, wds = [[], [], []], [], []
     for s in range(len(parts)):
         tv, packed, bincl = (h.numpy() for h in host[3 * s : 3 * s + 3])
-        tci = int(tot[s, 2])
-        off = s * W * PY * PZ
-        pw = native.unpack_compact(packed, bincl, tci, off) if tv.dtype != np.float64 else None
-        p, w = pw if pw is not None else gs._unpack_compact(packed, bincl, tci, off)
+        p, w = gs.unpack_points(tv, packed, bincl, int(tot[s, 2]), s * W * PY * PZ)
         na = np.cumsum([0] + [int(((w >> (8 + a)) & 1).sum()) for a in range(3)])
         for a in range(3):
             t_ax[a].append(tv[na[a] : na[a + 1]])
