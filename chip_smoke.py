@@ -2284,6 +2284,23 @@ PULL_MODES = {
 }
 
 
+def closed_on_card(name, mesh, dev):
+    """Every directed edge of the mesh's triangles once and its reverse
+    once: each undirected edge in exactly two triangles, with opposite
+    orientations (a closed, consistently oriented surface). On the card:
+    ``check_mesh_consistency`` takes tens of host seconds on 18.6M
+    triangles."""
+    t = torch.as_tensor(mesh.triangles, device=dev).long()
+    a = t.reshape(-1)
+    b = t[:, [1, 2, 0]].reshape(-1)
+    n = int(mesh.num_vertices)
+    fwd = torch.sort(a * n + b).values
+    rev = torch.sort(b * n + a).values
+    once = bool((fwd[1:] != fwd[:-1]).all())
+    if not (once and torch.equal(fwd, rev)) or not np.isfinite(mesh.vertices).all():
+        raise AssertionError(f"{name}: the mesh is not closed and consistently oriented")
+
+
 def pull_tol(mesh, cs, quant):
     """How far a decoded vertex may lie from the card's: cell_size / 65535 *
     1.01 with u16 t (the reference's bar), plus 4 float32 ulps of the
@@ -2311,7 +2328,8 @@ def phase_encoded(pt, dev, canyon, pts_np, ident):
     against the encoded pull with the stage split
     (``enable_profile_sync(True)``), then a frame of each without the
     synchronisation: equal counts, a sample of the encoded vertices within
-    ``pull_tol`` of the stitched ones, the encoded mesh closed; one
+    ``pull_tol`` of the stitched ones, the encoded mesh closed and
+    consistently oriented (``closed_on_card``); one
     streamed encoded frame and one on four virtual shards, both the
     resident encoded mesh bit for bit (within 1e-6 where a sum ran with
     atomics)."""
@@ -2326,6 +2344,7 @@ def phase_encoded(pt, dev, canyon, pts_np, ident):
     from splashsurf_tpu_torch.ops import splat_kernels as sk
     from splashsurf_tpu_torch.parallel import mesh as pmesh
 
+    t_phase = time.perf_counter()
     params = pt.Parameters.new_relative(RADIUS, 4.0, 1.5)
     h = params.compact_support_radius
     pts = torch.as_tensor(pts_np, device=dev)
@@ -2438,7 +2457,7 @@ def phase_encoded(pt, dev, canyon, pts_np, ident):
             + ", ".join(f"{k} {v:.4f}" for k, v in runs[-1]["stage_s"].items()))
     S.enable_profile_sync(True)
     enc_mesh, enc_run = sub["encoded"]
-    check_closed(pt, "subdomain encoded", enc_mesh)
+    closed_on_card("subdomain encoded", enc_mesh, dev)
     stitched = sub.pop("stitch")[0]
     if (enc_mesh.num_vertices, enc_mesh.num_triangles) != (
             stitched.num_vertices, stitched.num_triangles):
@@ -2474,6 +2493,7 @@ def phase_encoded(pt, dev, canyon, pts_np, ident):
                             runs[0]["atomics"] or enc_run["atomics"])
     log(f"  four virtual shards, encoded: {secs[0]:.4f} s, max vertex diff to resident {d}; "
         "stages " + ", ".join(f"{k} {v:.4f}" for k, v in runs[0]["stage_s"].items()))
+    log(f"  phase 19 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
