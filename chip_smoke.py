@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --phase 18   # phases 0, 1 and 18 alone, no result line
     python3 chip_smoke.py --phase 19   # phases 0, 1 and 19 alone, no result line
+    python3 chip_smoke.py --phase 20   # phases 0, 1 and 20 alone, no result line
 
 Phases (each prints progress; any failure raises and exits non-zero):
   0. the card: its name and power limit, torch and CUDA versions;
@@ -153,6 +154,15 @@ Phases (each prints progress; any failure raises and exits non-zero):
      mesh. The subdomain route's stage clock synchronises the card only
      with ``subdomains.enable_profile_sync(True)``, which this script turns
      on for every phase that prints its stage seconds.
+ 20. the single-dispatch warm frame (run after phase 18), one CUDA graph
+     per plan set: with ``SPLASHSURF_TPU_MONO_FRAME=1`` and ``_PREWARM=1``
+     the planning frame captures the graph and five warm frames of phase
+     18's ``pts + k 1e-6`` replay it, K1 and K2 once each, the meshes and
+     densities those of the per-stage frames on the same plans bit for
+     bit; the seconds, idle shares, graph pool, capture seconds and the
+     planning frame's cost; a caps, a density and a grid miss each give
+     the per-stage mesh and a fresh graph; the encoded pull's replays
+     within ``pull_tol`` of the packed ones (``phase_mono``).
 
 Each kernel's line carries its bound: the larger of the bytes it must move
 (rasters read once, output written once) over 3.35 TB/s and the float
@@ -222,8 +232,7 @@ def log(msg):
 
 def reset_launches(sk):
     """Set every kernel's launch count to 0, just before a main path runs."""
-    for fn in (sk.sweep_global_cuda, sk.density_sweep_cuda, sk.splat_sweep_cuda,
-               sk.pair_sweep_cuda, sk.occupancy_masks_cuda, sk.bin_occupancy_cuda):
+    for fn in sk.COUNTED:
         fn.launches = 0
 
 
@@ -2496,6 +2505,242 @@ def phase_encoded(pt, dev, canyon, pts_np, ident):
     log(f"  phase 19 took {time.perf_counter() - t_phase:.1f} s")
 
 
+def with_room(pts):
+    """The scene with its last 8 particles moved into a 2 x 2 x 2 droplet
+    beyond its top corner: room in the bounding box for ``spikes``."""
+    s = 2 * RADIUS
+    f = pts.clone()
+    lo, hi = f[:-8].amin(0), f[:-8].amax(0)
+    cube = torch.stack(torch.meshgrid(*[torch.arange(2, device=f.device)] * 3, indexing="ij"),
+                       -1).reshape(-1, 3).to(f.dtype) * s
+    corner = torch.stack([hi[0] + 3.5 * s, hi[1] + 3.5 * s, (lo[2] + hi[2]) / 2])
+    f[-8:] = corner + cube
+    return f
+
+
+def spikes(f):
+    """Every other particle of the block's top and +x faces (a
+    checkerboard) moved out by 3 spacings: isolated blobs, each with a
+    surface of its own, inside the bounding box of ``with_room``."""
+    s = 2 * RADIUS
+    f = f.clone()
+    for axis, (a, b) in ((1, (0, 2)), (0, (1, 2))):
+        c = f[:-8, axis]
+        face = torch.nonzero(c > c.max() - 0.5 * s)[:, 0]
+        parity = (torch.round(f[face, a] / s) + torch.round(f[face, b] / s)).long() % 2
+        f[face[parity == 0], axis] += 3 * s
+    return f
+
+
+def plan_state():
+    """A copy of every plan of the port (to run a frame twice on them)."""
+    from splashsurf_tpu_torch import neighbors, reconstruction
+    from splashsurf_tpu_torch.ops import global_sweep as gs
+
+    return [(d, type(d)(d)) for d in (
+        neighbors._DENSITY_PLAN, reconstruction._GRID_PLAN, reconstruction._GRID_NOSPEC,
+        reconstruction._PENDING_NOSPEC, gs._OVER_PLAN, gs._MC_CAPS, gs._PULL_PLAN,
+        gs._PULL_PLAN_ENC)] + [(neighbors._GEOSLOT_MISSES, list(neighbors._GEOSLOT_MISSES))]
+
+
+def restore_plans(state):
+    for live, saved in state:
+        live.clear()
+        (live.extend if isinstance(live, list) else live.update)(saved)
+
+
+def phase_mono(pt, pts, params, ident):
+    """Phase 20: the single-dispatch warm frame (``SPLASHSURF_TPU_MONO_FRAME=1``)
+    as one CUDA graph per plan set, on phase 18's frames ``pts + k 1e-6``.
+
+    (a) With ``SPLASHSURF_TPU_PREWARM=1``, the cold frame 0, whose
+    discarded warm frame captures the graph; then warm frames 1-5, each the
+    replay of that graph: K1 and K2 counted once, the mask pre-passes with
+    them, ``SPECULATION_STATS`` moved by one frame, no capture, the
+    synchronising calls printed (the one read of the pull at most). (b)
+    Each warm frame's mesh and densities against the per-stage warm frame
+    (``MONO_FRAME=0``) of the same input on the same plans: equal triangle
+    lists and vertices, bit for bit. (c) The seconds of the replayed frames
+    against the per-stage ones of (b), taken in turns; kernels, seconds and
+    idle share of one frame of each under ``torch.profiler``; the graph
+    pool's bytes, the peak device memory of a frame of each, the capture's
+    seconds, and a planning frame's seconds with ``PREWARM`` "1" and "0".
+    (d) On the scene with room for spikes (``with_room``): a caps miss
+    (``spikes``), a density miss (a particle on another's position) and a
+    grid miss (a shift of two cells), each the per-stage frame's mesh on
+    the plans it found (bit for bit), then the same frame again: warm, on a
+    graph captured after the miss. (e) With ``SPLASHSURF_TPU_PULL=encoded``: the replayed frames'
+    mesh within ``pull_tol`` of (a)'s packed one. The switches and the
+    plans are restored after. Returns the K1 and K2 launches of (a)."""
+    from splashsurf_tpu_torch import frame_graph as FG
+    from splashsurf_tpu_torch import global_pipeline as gp
+    from splashsurf_tpu_torch import neighbors as N
+    from splashsurf_tpu_torch.global_pipeline import SPECULATION_STATS
+    from splashsurf_tpu_torch.ops import splat_kernels as sk
+
+    log(f"phase 20: the mono frame, one CUDA graph per plan set ({ident})")
+    t_phase = time.perf_counter()
+    frames = [pts + k * 1e-6 for k in range(N_FRAMES)]
+    outcomes = []
+    try_warm = gp._try_warm_frame
+
+    def spy(*args, **kwargs):
+        try:
+            out = try_warm(*args, **kwargs)
+        except Exception as e:
+            outcomes.append(type(e).__name__)
+            raise
+        outcomes.append(out is not None or gp.LAST_WARM["outcome"])
+        return out
+
+    def frame(f, mono):
+        """(the frame's result, its seconds, its synchronising calls up to
+        the synchronise that ends it)"""
+        with switches(SPLASHSURF_TPU_MONO_FRAME=mono):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec, n_sync = sync_calls(lambda: pt.reconstruct_surface(f, params))
+            torch.cuda.synchronize()
+            return rec, time.perf_counter() - t0, n_sync
+
+    def same(label, a, b):
+        if not (np.array_equal(a.mesh.triangles, b.mesh.triangles)
+                and np.array_equal(a.mesh.vertices, b.mesh.vertices)):
+            d = (float(np.abs(a.mesh.vertices - b.mesh.vertices).max())
+                 if a.mesh.vertices.shape == b.mesh.vertices.shape else None)
+            raise AssertionError(f"{label}: the mono mesh is not the per-stage one (max {d})")
+        if not torch.equal(a.particle_densities, b.particle_densities):
+            raise AssertionError(f"{label}: the densities differ from the per-stage ones")
+
+    launches = {"sweep_global": 0, "density_sweep": 0}
+    gp._try_warm_frame = spy
+    try:
+        with switches(SPLASHSURF_TPU_MONO_FRAME="1", SPLASHSURF_TPU_PULL="packed",
+                      SPLASHSURF_TPU_MC=None, SPLASHSURF_TPU_DENSITY_CELLRASTER=None):
+            # (c) planning frames without and with their discarded frame, in
+            # turns; the last one's plans and graph serve the warm frames
+            plan_s = {"0": [], "1": []}
+            for pre in ("0", "1", "0", "1"):
+                clear_plans()
+                N.reset_geoslot_hysteresis()
+                captures = FG.STATS["captures"]
+                with switches(SPLASHSURF_TPU_PREWARM=pre):
+                    plan_s[pre].append(frame(frames[0], "1")[1])
+                if FG.STATS["captures"] - captures != int(pre):
+                    raise AssertionError(f"PREWARM={pre}: {FG.STATS['captures'] - captures} "
+                                         "captures in the planning frame")
+            capture_s, pool = FG.STATS["capture_s"], FG.pool_bytes()
+            # (a), (b), (c): warm frames, mono then per-stage on the same plans
+            mono_s, stage_s, syncs = [], [], []
+            for k, f in enumerate(frames[1:], 1):
+                before, replays = dict(SPECULATION_STATS), FG.STATS["replays"]
+                captures = FG.STATS["captures"]
+                reset_launches(sk)
+                outcomes.clear()
+                state = plan_state()
+                mono, dt, n_sync = frame(f, "1")
+                k12 = (sk.sweep_global_cuda.launches, sk.density_sweep_cuda.launches)
+                if k12 != (1, 1) or outcomes != [True]:
+                    raise AssertionError(f"warm frame {k}: (K1, K2) {k12}, outcomes {outcomes}")
+                check_mask_launches(sk, 1)
+                if stats_delta(before) != {"frames": 1}:
+                    raise AssertionError(f"warm frame {k}: {stats_delta(before)}")
+                moved = (FG.STATS["replays"] - replays, FG.STATS["captures"] - captures)
+                if moved != (1, 0):
+                    raise AssertionError(f"warm frame {k}: (replays, captures) {moved}, want "
+                                         "(1, 0)")
+                if n_sync > 1:
+                    raise AssertionError(f"warm frame {k}: {n_sync} synchronising calls")
+                for name, n in zip(launches, k12):
+                    launches[name] += n
+                mono_s.append(dt)
+                restore_plans(state)
+                stage, dt, stage_sync = frame(f, "0")
+                stage_s.append(dt)
+                syncs.append((n_sync, stage_sync))
+                same(f"warm frame {k}", mono, stage)
+            log(f"  warm frames replayed: seconds {mono_s}, median {statistics.median(mono_s)}; "
+                f"per-stage on the same plans: {stage_s}, median {statistics.median(stage_s)}; "
+                f"K1 and K2 once in each replay; synchronising calls (replayed, per-stage) "
+                f"{syncs}; meshes and densities equal to the per-stage frames bit for bit")
+            mono_wall, mono_idle = idle_share(lambda: frame(frames[2], "1"), top=8)
+            stage_wall, stage_idle = idle_share(lambda: frame(frames[2], "0"), top=8)
+            last_packed, peaks = mono, {}
+            for switch in ("1", "0"):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                frame(frames[3], switch)
+                peaks[switch] = torch.cuda.max_memory_allocated() - base
+            log(f"  one frame under the profiler: replayed {mono_wall} s, idle {mono_idle}; "
+                f"per-stage {stage_wall} s, idle {stage_idle}")
+            log(f"  graph pool {pool} B; peak above the frame's inputs: replayed {peaks['1']} "
+                f"B, per-stage {peaks['0']} B; capture {capture_s} s; planning frame "
+                f"seconds with PREWARM=1 {plan_s['1']}, with 0 {plan_s['0']}")
+
+            # (d) misses on the scene with room for spikes
+            room = with_room(pts)
+            clear_plans()
+            N.reset_geoslot_hysteresis()
+            with switches(SPLASHSURF_TPU_PREWARM="1"):
+                frame(room, "1")
+            interior = len(room) // 2
+            collided = room.clone()
+            collided[interior] = collided[interior + 1]
+            # (label, frame, the mono frame's first outcome)
+            misses = [("caps miss", spikes(room + 1e-6), "caps"),
+                      ("density miss", collided + 2e-6, "density"),
+                      ("grid miss", room + 2.0 * params.cube_size, "GridPlanMiss")]
+            for j, (label, f, want) in enumerate(misses):
+                state = plan_state()
+                outcomes.clear()
+                old = list(FG._GRAPHS.values())
+                c0 = FG.STATS["captures"]
+                mono = frame(f, "1")[0]
+                seen, c1 = list(outcomes), FG.STATS["captures"]
+                restore_plans(state)
+                same(label, mono, frame(f, "0")[0])
+                outcomes.clear()
+                # the same frame again, warm on the plans its miss made (a
+                # frame shifted by 1e-6 may miss the raster densities' tight
+                # overflow capacity: 1e-6 moves tens of particles across bins)
+                frame(f, "1")
+                c2 = FG.STATS["captures"]
+                # it runs a graph captured after the miss (a frame on the cold
+                # grid after a grid miss is a mono frame too)
+                fresh = all(g is not o for g in FG._GRAPHS.values() for o in old)
+                del old
+                if seen[0] != want or outcomes != [True] or not fresh or c2 == c0:
+                    raise AssertionError(f"{label}: outcomes {seen}, then {outcomes}; "
+                                         f"captures {c1 - c0}, then {c2 - c1}")
+                log(f"  {label}: mono outcomes {seen} ({c1 - c0} captures), the per-stage "
+                    f"mesh bit for bit; the next warm frame {outcomes} ({c2 - c1} captures) "
+                    "on a fresh graph")
+            log(f"  captures in phase 20 so far: {FG.STATS['captures']}, replays "
+                f"{FG.STATS['replays']}, graphs live {FG.live()}")
+
+            # (e) the encoded pull
+            with switches(SPLASHSURF_TPU_PULL="encoded", SPLASHSURF_TPU_PREWARM="1"):
+                clear_plans()
+                N.reset_geoslot_hysteresis()
+                frame(frames[0], "1")
+                replays = FG.STATS["replays"]
+                for f in frames[1:]:
+                    enc = frame(f, "1")[0]
+                if FG.STATS["replays"] - replays != N_FRAMES - 1:
+                    raise AssertionError("the encoded warm frames did not replay")
+            cs = float(params.cube_size)
+            check_same_mesh("encoded mono / packed mono", enc.mesh, last_packed.mesh,
+                            ordered=True, tol=pull_tol(last_packed.mesh, cs, True))
+            if not np.array_equal(enc.mesh.triangles, last_packed.mesh.triangles):
+                raise AssertionError("the encoded mono triangle list differs from the packed one")
+    finally:
+        gp._try_warm_frame = try_warm
+        clear_plans()
+    log(f"  phase 20 took {time.perf_counter() - t_phase:.1f} s; launches {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2539,6 +2784,9 @@ def main() -> int:
     S.enable_profile_sync(True)
     if sys.argv[1:] == ["--phase", "18"]:  # a quick look at phase 18 alone
         phase_plans(pt, pts, params, ident)
+        return 0
+    if sys.argv[1:] == ["--phase", "20"]:  # a quick look at phase 20 alone
+        phase_mono(pt, pts, params, ident)
         return 0
     if sys.argv[1:] == ["--phase", "19"]:  # a quick look at phase 19 alone
         del pts
@@ -2640,6 +2888,13 @@ def main() -> int:
 
     # --- 18. warm frames on the frame plans ------------------------------------
     phase_plans(pt, pts, params, ident)
+
+    # --- 20. the mono frame as one CUDA graph per plan set --------------------
+    more = phase_mono(pt, pts, params, ident)
+    for name, n in more.items():
+        kernels[name]["launches"] += n
+    log("  launches of phase 4 with phase 20's added: "
+        + ", ".join(f"{k} {kernels[k]['launches']}" for k in more))
 
     # --- 17. the splat API, padded MC, the hysteresis, the kernel helpers -----
     more = phase_splat_api(pt, dev, pts, grid, hsc, params, kernels, ident)

@@ -19,6 +19,18 @@ tensors, "1cpu" for CPU tensors too. As in the reference
 previous frame of the same (grid, N) left no raster overflow (its overflow
 plan is 0) and the MC capacities of its grid are planned; a frame whose own
 raster overflows then runs again with the legacy densities.
+
+The single-dispatch warm frame (``_try_warm_frame``, the reference's
+``SPLASHSURF_TPU_MONO_FRAME``, read per call, default "0") runs a frame
+whose density, MC and pull plans are all in place as one function with no
+read of the card (``_warm_frame``): eagerly on the CPU, and on the card as
+the replay of one CUDA graph per plan set (``frame_graph``). It comes back
+to the host in one copy and is checked there, as the reference checks it;
+a miss updates the plan concerned and hands the frame to the per-stage
+path, counting nothing in ``SPECULATION_STATS``. As in the reference it is
+tried first, before the cell-raster densities, and takes the cell-major
+marching cubes only; its pull is the mode of ``ops.global_sweep.pull_mode``
+(the reference's mono frame always encodes).
 """
 
 from __future__ import annotations
@@ -26,12 +38,12 @@ from __future__ import annotations
 import functools
 import math
 import os
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from splashsurf_tpu_torch import kernels, neighbors
+from splashsurf_tpu_torch import frame_graph, kernels, neighbors
 from splashsurf_tpu_torch.mesh import TriMesh3d
 from splashsurf_tpu_torch.ops import global_sweep as gs
 from splashsurf_tpu_torch.params import Parameters
@@ -138,6 +150,182 @@ def _legacy_frame(positions: torch.Tensor, parameters: Parameters, grid: Uniform
     )
 
 
+# What the last ``_try_warm_frame`` found, read by tests and chip_smoke.py,
+# never by the pipeline: "outcome" is "off" (the switch, or edge-major MC),
+# "no plan", "grid", "density", "overflow", "caps", "bucket" (a miss of that
+# plan) or "hit".
+LAST_WARM: dict = {}
+
+
+class FrameKey(NamedTuple):
+    """What one captured warm frame is fixed to: the reference's static
+    arguments of ``_warm_frame`` (global_pipeline.py:43-50 of the
+    reference; ``backend`` is the kernels or the plain versions, by the
+    device), and what the port passes into its kernels and ops as Python
+    numbers."""
+
+    grid: UniformGrid
+    bgrid: neighbors.BinGrid
+    kind: str
+    kslots: int
+    u_cap: int
+    ocap: int
+    ccap: int
+    csr: float
+    hsc: int
+    slots: int
+    backend: str
+    ofc: int
+    vcap: int
+    tcap: int
+    nv_b: int
+    nc_b: int
+    has_n_valid: bool
+    dtype: str
+    n: int
+    device: str
+    mass: float
+    iso: float
+    pull: tuple
+
+
+def _warm_frame(positions: torch.Tensor, parameters: Parameters, grid: UniformGrid, hsc: int,
+                dplan: dict, ofc: int, caps, pull_plan):
+    """The whole warm dense frame on its plans, with no read of the card
+    (the reference's ``_warm_frame``, global_pipeline.py:43-108): the
+    densities on the density plan ``dplan``, the weights m / rho, the raster
+    with an overflow list of ``ofc`` rows, the level set (K1), marching
+    cubes at the MC capacities ``caps`` in the mode of ``gs.pull_mode``, and
+    its streams cut to the buckets ``pull_plan``.
+
+    Returns ``(buf, rho, layout, mode)``: one uint8 tensor that packs the
+    scalars (vertices, triangles and active points, the overflow count, the
+    level set's maximum and the density check, as float64) and the cut
+    streams (``gs.pack_parts``; ``layout`` takes it apart), the densities,
+    and the pull's mode."""
+    h = parameters.compact_support_radius
+    m = parameters.particle_rest_mass
+    rho, dcheck = neighbors._densities_planned(positions, h, m, dplan)
+    values = kernels.rounded(m, rho.dtype) / rho
+    rasters, overflow, n_over = gs.rasterize_global(positions, values, grid, 2, hsc, ofc)
+    ls = gs.sweep_global(rasters, overflow, grid, h, hsc)
+    del rasters, overflow
+    iso = kernels.rounded(parameters.iso_surface_threshold, ls.dtype)
+    streams, totals = gs._dense_mc(ls, grid, iso, caps)
+    f64 = lambda x: x.reshape(-1).to(torch.float64)
+    scalars = torch.cat([f64(totals), f64(n_over), f64(ls.max()), f64(dcheck)])
+    buf, layout = gs.pack_parts([scalars] + streams.parts(*pull_plan))
+    return buf, rho, layout, streams.mode
+
+
+def _try_warm_frame(positions: torch.Tensor, parameters: Parameters, grid: UniformGrid,
+                    hsc: int, grid_check, has_n_valid: bool = False):
+    """The single-dispatch warm frame, where ``SPLASHSURF_TPU_MONO_FRAME`` is
+    "1" and the density, MC and pull plans are all in place (the
+    reference's ``_try_warm_frame``, global_pipeline.py:111-234).
+
+    Returns (vertices, triangles, rho) (host tensors, and rho a tensor of
+    its own on the positions' device), or None where a plan is missing or
+    missed: the caller runs the per-stage frame. The frame reads back once
+    and is checked as the reference checks it, in its order: a stale
+    speculated grid raises ``GridPlanMiss``; a density miss clears the
+    density plan; a raster overflow past the plan grows the overflow plan;
+    an MC total past its capacity replans the capacities and drops the
+    pull plans; a stream past its bucket records the larger buckets.
+    ``SPECULATION_STATS`` counts none of them. A miss drops the frame's
+    CUDA graph; a hit records the pull plan and fits the overflow plan."""
+    LAST_WARM["outcome"] = "off"
+    if os.environ.get("SPLASHSURF_TPU_MONO_FRAME", "0") != "1":
+        return None
+    edges, encoded, quant = gs.pull_mode(positions.dtype)
+    if edges:
+        return None  # the reference's mono frame is cell-major only
+    LAST_WARM["outcome"] = "no plan"
+    n, dtype = positions.shape[0], str(positions.dtype)
+    h = float(parameters.compact_support_radius)
+    dplan = neighbors._DENSITY_PLAN.get((n, dtype, h, None))
+    key = (grid.n_points, dtype)
+    caps = gs._MC_CAPS.get(key)
+    plans = gs._PULL_PLAN_ENC if encoded else gs._PULL_PLAN
+    # an encoded plan starts from the packed one, as in the reference:
+    # active points <= triangles, so the triangle bucket is a safe start
+    pull_plan = plans.get(key) or gs._PULL_PLAN.get(key)
+    if dplan is None or caps is None or pull_plan is None:
+        return None
+    vcap, tcap = caps
+    nv_b, n2_b = pull_plan
+    if nv_b > vcap or n2_b > tcap:
+        return None
+    okey = (grid.n_points, n)
+    ofc = gs._OVER_PLAN.get(okey)
+    if ofc is None:
+        ofc = gs._pow2(n // 64, lo=4096)
+    dev = positions.device
+    fkey = FrameKey(
+        grid=grid, bgrid=dplan["grid"], kind=dplan["kind"], kslots=dplan["slots"],
+        u_cap=dplan["u_cap"], ocap=dplan["ocap"], ccap=dplan["ccap"], csr=h, hsc=hsc, slots=2,
+        backend="cuda" if dev.type == "cuda" else "plain", ofc=ofc, vcap=vcap, tcap=tcap,
+        nv_b=nv_b, nc_b=n2_b, has_n_valid=has_n_valid, dtype=dtype, n=n, device=str(dev),
+        mass=float(parameters.particle_rest_mass),
+        iso=float(parameters.iso_surface_threshold), pull=(encoded, quant),
+    )
+    slot = (grid, n, dtype, str(dev))
+    neighbors.LAST_GATE["kind"] = dplan["kind"]
+    frame = functools.partial(
+        _warm_frame, parameters=parameters, grid=grid, hsc=hsc, dplan=dplan, ofc=ofc,
+        caps=caps, pull_plan=pull_plan,
+    )
+    if dev.type == "cuda":
+        buf, rho, layout, mode = frame_graph.run(slot, fkey, frame, positions)
+        rho = rho.clone()  # the next replay overwrites the graph's own
+    else:
+        buf, rho, layout, mode = frame(positions)
+    checks = [grid_check] if grid_check is not None else []
+    host_buf, *host_checks = gs.PendingPull(None, [buf] + checks).host_parts()
+    sc, *host = gs.unpack_parts(host_buf, layout)
+    total_v, total_t, total_c, total_over, ls_max, density_ok = sc.tolist()
+    total_v, total_t, total_c, total_over = (int(x) for x in (total_v, total_t, total_c,
+                                                              total_over))
+    if host_checks and not bool(host_checks[0]):
+        LAST_WARM["outcome"] = "grid"
+        frame_graph.drop(slot)
+        raise GridPlanMiss("speculated background grid is stale")
+    if not density_ok:
+        LAST_WARM["outcome"] = "density"
+        neighbors.clear_density_plan()  # drops every graph
+        return None
+    if total_over > ofc:
+        # the per-stage frame rasterizes at the grown capacity
+        LAST_WARM["outcome"] = "overflow"
+        gs._OVER_PLAN[okey] = min(gs._pow2(total_over * 2, lo=4096), gs._pow2(n))
+        frame_graph.drop(slot)
+        return None
+    if total_v > vcap or total_t > tcap or total_c > tcap:  # the points' list has tcap
+        LAST_WARM["outcome"] = "caps"
+        gs._MC_CAPS[key] = (gs._bucket16(total_v * 5 // 4), gs._bucket16(total_t * 5 // 4))
+        gs._PULL_PLAN.pop(key, None)
+        gs._PULL_PLAN_ENC.pop(key, None)
+        frame_graph.drop(slot)
+        return None
+    n2 = total_c if encoded else total_t
+    bucketed = (min(vcap, gs._bucket16(total_v)), min(tcap, gs._bucket16(n2)))
+    if total_v > nv_b or n2 > n2_b:
+        LAST_WARM["outcome"] = "bucket"
+        plans[key] = bucketed  # the per-stage frame copies at these buckets
+        frame_graph.drop(slot)
+        return None
+    LAST_WARM["outcome"] = "hit"
+    plans[key] = bucketed
+    gs._note_overflow_plan(okey, total_over)
+    if total_t == 0:
+        gs.check_empty_field(0, ls_max, parameters.iso_surface_threshold)
+    second = 2 if encoded else 1
+    _, verts, tris = gs._MeshStreams(mode, None, [], second, grid).mesh(
+        host, total_v, total_t, total_c
+    )
+    return verts, tris, rho
+
+
 def reconstruct_surface_global(
     positions: torch.Tensor,
     parameters: Parameters,
@@ -164,6 +352,17 @@ def reconstruct_surface_global(
         positions = positions[: int(n_valid)]
     hsc = kernel_extents(parameters.compact_support_radius, grid.cell_size).half_supported_cells
     SPECULATION_STATS["frames"] += 1
+    pad = lambda rho: torch.cat([rho, rho.new_zeros(n - rho.shape[0])]) if rho.shape[0] < n else rho
+    warm = _try_warm_frame(positions, parameters, grid, hsc, grid_check, positions.shape[0] < n)
+    if warm is not None:
+        # synchronous, as the reference's, even where the pull could wait
+        verts, tris, rho = warm
+        return SurfaceReconstruction(
+            grid=grid, mesh=TriMesh3d(vertices=verts.numpy(), triangles=tris.numpy()),
+            particle_densities=pad(rho),
+            particle_neighbors=neighbors.particle_neighbor_lists(positions, parameters),
+            particle_inside_aabb=particle_inside_aabb,
+        )
     defer_pull = defer_pull and not parameters.global_neighborhood_list
     out = None
     if (
@@ -175,9 +374,8 @@ def reconstruct_surface_global(
     if out is None:
         out = _legacy_frame(positions, parameters, grid, hsc, grid_check, defer_pull)
     pull, rho = out
-    rho = torch.cat([rho, rho.new_zeros(n - rho.shape[0])]) if rho.shape[0] < n else rho
     rec = SurfaceReconstruction(
-        grid=grid, mesh=None, particle_densities=rho,
+        grid=grid, mesh=None, particle_densities=pad(rho),
         particle_neighbors=neighbors.particle_neighbor_lists(positions, parameters),
         particle_inside_aabb=particle_inside_aabb,
     )

@@ -676,7 +676,12 @@ class DensityPlanMiss(RuntimeError):
 
 
 def clear_density_plan() -> None:
+    """Forget the density plans, and drop the warm frames' CUDA graphs
+    (each was captured on one)."""
+    from splashsurf_tpu_torch import frame_graph
+
     _DENSITY_PLAN.clear()
+    frame_graph.drop()
 
 
 def _lattice_end(grid: BinGrid, d: int, dtype) -> float:

@@ -874,6 +874,29 @@ class SpeculationMiss(RuntimeError):
         self.flags = tuple(flags)
 
 
+def pack_parts(arrs):
+    """Tensors of one device packed into one uint8 tensor, each part
+    8-byte aligned, and its layout: per part (dtype, shape, bytes), which
+    ``unpack_parts`` takes back apart."""
+    chunks, layout = [], []
+    for p in arrs:
+        b = p.contiguous().reshape(-1).view(torch.uint8)
+        layout.append((p.dtype, tuple(p.shape), b.numel()))
+        chunks.append(b)
+        if b.numel() % 8:
+            chunks.append(b.new_zeros(8 - b.numel() % 8))
+    return torch.cat(chunks), layout
+
+
+def unpack_parts(buf: torch.Tensor, layout) -> list:
+    """Views of the parts of a ``pack_parts`` buffer (or a copy of it)."""
+    out, o = [], 0
+    for dtype, shape, nb in layout:
+        out.append(buf[o : o + nb].view(dtype).reshape(shape))
+        o += -(-nb // 8) * 8
+    return out
+
+
 class PendingPull:
     """A dense frame's mesh on its way to the host (reference
     ``PendingPull``, ``ops/global_sweep.py:1372-1395``).
@@ -896,14 +919,7 @@ class PendingPull:
         if not arrs or arrs[0].device.type != "cuda":
             return
         dev = arrs[0].device
-        chunks, self._layout = [], []
-        for p in arrs:
-            b = p.contiguous().reshape(-1).view(torch.uint8)
-            self._layout.append((p.dtype, tuple(p.shape), b.numel()))
-            chunks.append(b)
-            if b.numel() % 8:  # keep every part 8-byte aligned
-                chunks.append(b.new_zeros(8 - b.numel() % 8))
-        buf = torch.cat(chunks)
+        buf, self._layout = pack_parts(arrs)
         stream = _copy_stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
@@ -917,10 +933,8 @@ class PendingPull:
         """The parts on the host (waits for the copy)."""
         if self._event is not None:
             self._event.synchronize()
-            self._event, o, self._host = None, 0, []
-            for dtype, shape, nb in self._layout:
-                self._host.append(self._buf[o : o + nb].view(dtype).reshape(shape))
-                o += -(-nb // 8) * 8
+            self._event = None
+            self._host = unpack_parts(self._buf, self._layout)
         return self._host
 
     def resolve(self):

@@ -273,7 +273,7 @@ def sweep_runs(hsc: int, pad: int, h_over_cs: float) -> np.ndarray:
     return split_runs(_runs(offs[keep] + pad))
 
 
-@functools.lru_cache(maxsize=16)
+@functools.cache  # never evicted: a captured warm frame reads it (frame_graph)
 def _runs_on(hsc: int, pad: int, h_over_cs: float, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(sweep_runs(hsc, pad, h_over_cs), device=device)
 
@@ -683,3 +683,26 @@ def pair_sweep_cuda(fx, fy, fz, cs, h, reach, h_over_cs, pad, n_cells):
 
 
 pair_sweep_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# launch counts across a CUDA graph
+# ---------------------------------------------------------------------------
+
+COUNTED = (
+    occupancy_masks_cuda, sweep_global_cuda, bin_occupancy_cuda, density_sweep_cuda,
+    splat_sweep_cuda, pair_sweep_cuda,
+)
+
+
+def launch_counts() -> tuple:
+    """Every wrapper's launch count, in ``COUNTED`` order."""
+    return tuple(fn.launches for fn in COUNTED)
+
+
+def add_launches(delta) -> None:
+    """Add ``delta`` (one count per ``COUNTED`` wrapper) to the counts. A
+    captured graph launches its kernels where it is replayed, not where its
+    wrappers ran: the capture takes its counts back, each replay adds them."""
+    for fn, d in zip(COUNTED, delta):
+        fn.launches += d

@@ -94,6 +94,10 @@ class SurfaceReconstruction:
 _GRID_PLAN: dict = {}
 _GRID_NOSPEC: set = set()
 _PENDING_NOSPEC: dict = {}
+# Keys whose planning frame ran its discarded warm frame
+# (``SPLASHSURF_TPU_PREWARM``; reference reconstruction.py:62-65): once per
+# key, not again after a miss re-plans it.
+_WARMED: set = set()
 
 
 class GridPlanMiss(RuntimeError):
@@ -101,8 +105,14 @@ class GridPlanMiss(RuntimeError):
 
 
 def clear_grid_plan() -> None:
+    """Forget the grid plans and the warmed keys, and drop the warm frames'
+    CUDA graphs."""
+    from splashsurf_tpu_torch import frame_graph
+
     _GRID_PLAN.clear()
     _GRID_NOSPEC.clear()
+    _WARMED.clear()
+    frame_graph.drop()
 
 
 def _grid_check_device(positions: torch.Tensor, grid: UniformGrid, grow: float, raw_nc):
@@ -221,7 +231,15 @@ def reconstruct_surface(
     start the mesh copy and return with ``mesh`` None; ``resolve()`` waits
     for it, checks the frame's plans and, where one missed, runs the frame
     again with the same input. The slab and subdomain routes pull their
-    mesh before they return, so there it changes nothing.
+    mesh before they return, and so does the single-dispatch warm frame
+    (``SPLASHSURF_TPU_MONO_FRAME``), so there it changes nothing.
+
+    With ``SPLASHSURF_TPU_PREWARM`` "1" (read per call; the port's default
+    is "0", the reference's "1"), a planning frame (one that records the
+    grid plan of a key for the first time, on a grid it derived itself)
+    then runs one discarded deferred frame on the same input, as the
+    reference does (reconstruction.py:430-455): with the mono frame on,
+    that frame captures its CUDA graph.
     """
     from splashsurf_tpu_torch.global_pipeline import DeferredMesh, reconstruct_surface_global
     from splashsurf_tpu_torch.ops.slab_sweep import reconstruct_surface_slabbed
@@ -251,6 +269,7 @@ def reconstruct_surface(
             float(parameters.compact_support_radius), float(parameters.cube_size),
         )
     rec = None
+    planned_cold = False
     for attempt in range(2):
         cached = (
             attempt == 0 and gkey is not None and gkey in _GRID_PLAN
@@ -298,9 +317,16 @@ def reconstruct_surface(
             if _PENDING_NOSPEC.pop(gkey, None) == (grid, raw_nc):
                 _GRID_NOSPEC.add(gkey)
             else:
+                planned_cold = not cached and gkey not in _WARMED
                 _GRID_PLAN[gkey] = (grid, raw_nc)
         break
     assert rec is not None
+    if planned_cold and os.environ.get("SPLASHSURF_TPU_PREWARM", "0") == "1":
+        _WARMED.add(gkey)
+        try:
+            reconstruct_surface(particle_positions, parameters, device=device, _defer_pull=True)
+        except Exception:
+            _WARMED.discard(gkey)
     if isinstance(rec._pending_mesh, DeferredMesh):
         rec._pending_mesh.redo = functools.partial(
             _redo_frame, gkey, particle_positions, parameters, device

@@ -1,7 +1,8 @@
 """The port's process-global density state, as the reference's is: the
 geoslot hysteresis and the speculative frame plans (the density plan, the
 grid plan, the dense route's overflow, MC and pull plans, packed and
-encoded) with their ``SPECULATION_STATS``. Port test files share worker
+encoded, the keys warmed by ``SPLASHSURF_TPU_PREWARM`` and the mono
+frame's graphs) with their ``SPECULATION_STATS``. Port test files share worker
 processes, so a port test module that reaches a density gate or the dense
 route imports this autouse fixture: each of its tests starts and ends with
 no recorded octant collision, no plan and zero counts, whatever test ran
@@ -14,9 +15,10 @@ from splashsurf_tpu_torch.ops import global_sweep
 
 
 def clear_port_plans():
-    """Forget every speculative plan of the port and zero its counts."""
+    """Forget every speculative plan of the port, the warmed keys and the
+    warm frames' graphs, and zero its counts."""
     neighbors.clear_density_plan()
-    reconstruction.clear_grid_plan()
+    reconstruction.clear_grid_plan()  # the warmed keys and the graphs too
     reconstruction._PENDING_NOSPEC.clear()
     for plan in (global_sweep._OVER_PLAN, global_sweep._MC_CAPS, global_sweep._PULL_PLAN,
                  global_sweep._PULL_PLAN_ENC):
