@@ -157,7 +157,9 @@ Phases (each prints progress; any failure raises and exits non-zero):
  20. the single-dispatch warm frame (run after phase 18), one CUDA graph
      per plan set: with ``SPLASHSURF_TPU_MONO_FRAME=1`` and ``_PREWARM=1``
      the planning frame captures the graph and five warm frames of phase
-     18's ``pts + k 1e-6`` replay it, K1 and K2 once each, the meshes and
+     18's ``pts + k 1e-6`` replay it, K1 and K2 once each in a profiler
+     trace of each replay (the wrappers count eager launches only), the
+     replays' device milliseconds between CUDA events, the meshes and
      densities those of the per-stage frames on the same plans bit for
      bit; the seconds, idle shares, graph pool, capture seconds and the
      planning frame's cost; a caps, a density and a grid miss each give
@@ -183,6 +185,7 @@ times and bounds; the last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits non-zero before printing any result.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -230,9 +233,15 @@ def log(msg):
     print(msg, flush=True)
 
 
+def wrappers(sk):
+    """Every kernel wrapper of the port, each counting its launches."""
+    return (sk.occupancy_masks_cuda, sk.sweep_global_cuda, sk.bin_occupancy_cuda,
+            sk.density_sweep_cuda, sk.splat_sweep_cuda, sk.pair_sweep_cuda)
+
+
 def reset_launches(sk):
     """Set every kernel's launch count to 0, just before a main path runs."""
-    for fn in sk.COUNTED:
+    for fn in wrappers(sk):
         fn.launches = 0
 
 
@@ -2106,13 +2115,11 @@ def sync_calls(fn):
     return out, sum("synchroniz" in str(w.message) for w in caught)
 
 
-def idle_share(fn, top=None):
-    """(wall seconds, idle share) of one call of ``fn`` that ends in a
-    synchronise: the idle share is 1 - the summed time of the card's kernels
-    in a ``torch.profiler`` trace (CUDA activity only) over the wall time;
-    None when the trace holds no kernel. The profiler's own host cost is in
-    the wall time, so the share is an upper bound. With ``top``, also logs
-    the ``top`` kernels by summed time (name, launches, ms)."""
+def kernel_trace(fn):
+    """(wall seconds, the card's kernels) of one call of ``fn`` that ends
+    in a synchronise, under ``torch.profiler`` (CUDA activity only): the
+    kernels as the trace's events, each with its ``name`` and ``dur`` (us);
+    the kernels of a replayed CUDA graph are among them."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -2128,7 +2135,17 @@ def idle_share(fn, top=None):
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f).get("traceEvents", [])
-    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return wall, [e for e in events if e.get("cat") == "kernel"]
+
+
+def idle_share(fn, top=None):
+    """(wall seconds, idle share) of one call of ``fn`` that ends in a
+    synchronise: the idle share is 1 - the summed time of the card's kernels
+    in a ``torch.profiler`` trace (``kernel_trace``) over the wall time;
+    None when the trace holds no kernel. The profiler's own host cost is in
+    the wall time, so the share is an upper bound. With ``top``, also logs
+    the ``top`` kernels by summed time (name, launches, ms)."""
+    wall, kernels = kernel_trace(fn)
     busy_us = sum(e.get("dur", 0) for e in kernels)
     if top:
         by_name = {}
@@ -2549,29 +2566,68 @@ def restore_plans(state):
         (live.extend if isinstance(live, list) else live.update)(saved)
 
 
+# the kernels of the mono frame's path and their pre-passes as a trace names
+# them (K3's tile kernel has K1's name; K3 is not on this path)
+TRACED = {"sweep_global": "level_set_tiles", "occupancy_masks": "occupancy_mask_kernel",
+          "density_sweep": "density_sweep_kernel", "bin_occupancy": "bin_occupancy_kernel"}
+
+
+def traced_launches(kernels):
+    """The launches of each kernel of ``TRACED`` among a trace's kernels."""
+    return {k: sum(name in e["name"] for e in kernels) for k, name in TRACED.items()}
+
+
+@contextlib.contextmanager
+def replay_spans(FG):
+    """Within it, each replay of a warm frame's graph (its input copy
+    included) lies between two CUDA events on its stream; yields the list
+    of (start, end) event pairs, one per replay."""
+    spans = []
+    replay = FG._FrameGraph.replay
+
+    def timed(self, positions):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = replay(self, positions)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    FG._FrameGraph.replay = timed
+    try:
+        yield spans
+    finally:
+        FG._FrameGraph.replay = replay
+
+
 def phase_mono(pt, pts, params, ident):
     """Phase 20: the single-dispatch warm frame (``SPLASHSURF_TPU_MONO_FRAME=1``)
     as one CUDA graph per plan set, on phase 18's frames ``pts + k 1e-6``.
 
     (a) With ``SPLASHSURF_TPU_PREWARM=1``, the cold frame 0, whose
     discarded warm frame captures the graph; then warm frames 1-5, each the
-    replay of that graph: K1 and K2 counted once, the mask pre-passes with
-    them, ``SPECULATION_STATS`` moved by one frame, no capture, the
-    synchronising calls printed (the one read of the pull at most). (b)
+    replay of that graph: no kernel launched eagerly (the wrappers' counts
+    stay 0), ``SPECULATION_STATS`` moved by one frame, no capture, the
+    synchronising calls printed (the one read of the pull at most); the
+    same frame again on the same plans under ``torch.profiler``, whose
+    trace holds K1 and K2 once each and their pre-passes once each. (b)
     Each warm frame's mesh and densities against the per-stage warm frame
     (``MONO_FRAME=0``) of the same input on the same plans: equal triangle
     lists and vertices, bit for bit. (c) The seconds of the replayed frames
-    against the per-stage ones of (b), taken in turns; kernels, seconds and
-    idle share of one frame of each under ``torch.profiler``; the graph
-    pool's bytes, the peak device memory of a frame of each, the capture's
-    seconds, and a planning frame's seconds with ``PREWARM`` "1" and "0".
+    against the per-stage ones of (b), taken in turns, and the device
+    milliseconds of each replay between CUDA events (``replay_spans``),
+    with no profiler; kernels, seconds and idle share of one frame of each
+    under ``torch.profiler``; the graph pool's bytes, the peak device
+    memory of a frame of each, the capture's seconds, and a planning
+    frame's seconds with ``PREWARM`` "1" and "0".
     (d) On the scene with room for spikes (``with_room``): a caps miss
     (``spikes``), a density miss (a particle on another's position) and a
     grid miss (a shift of two cells), each the per-stage frame's mesh on
     the plans it found (bit for bit), then the same frame again: warm, on a
     graph captured after the miss. (e) With ``SPLASHSURF_TPU_PULL=encoded``: the replayed frames'
     mesh within ``pull_tol`` of (a)'s packed one. The switches and the
-    plans are restored after. Returns the K1 and K2 launches of (a)."""
+    plans are restored after. Returns the K1 and K2 launches that the
+    traces of (a) hold."""
     from splashsurf_tpu_torch import frame_graph as FG
     from splashsurf_tpu_torch import global_pipeline as gp
     from splashsurf_tpu_torch import neighbors as N
@@ -2631,18 +2687,20 @@ def phase_mono(pt, pts, params, ident):
                                          "captures in the planning frame")
             capture_s, pool = FG.STATS["capture_s"], FG.pool_bytes()
             # (a), (b), (c): warm frames, mono then per-stage on the same plans
-            mono_s, stage_s, syncs = [], [], []
+            mono_s, stage_s, syncs, span_ms = [], [], [], []
             for k, f in enumerate(frames[1:], 1):
                 before, replays = dict(SPECULATION_STATS), FG.STATS["replays"]
                 captures = FG.STATS["captures"]
                 reset_launches(sk)
                 outcomes.clear()
                 state = plan_state()
-                mono, dt, n_sync = frame(f, "1")
-                k12 = (sk.sweep_global_cuda.launches, sk.density_sweep_cuda.launches)
-                if k12 != (1, 1) or outcomes != [True]:
-                    raise AssertionError(f"warm frame {k}: (K1, K2) {k12}, outcomes {outcomes}")
-                check_mask_launches(sk, 1)
+                with replay_spans(FG) as spans:
+                    mono, dt, n_sync = frame(f, "1")
+                eager = {fn.__name__: fn.launches for fn in wrappers(sk) if fn.launches}
+                if eager or outcomes != [True] or len(spans) != 1:
+                    raise AssertionError(f"warm frame {k}: eager launches {eager}, outcomes "
+                                         f"{outcomes}, {len(spans)} replays")
+                span_ms.append(spans[0][0].elapsed_time(spans[0][1]))
                 if stats_delta(before) != {"frames": 1}:
                     raise AssertionError(f"warm frame {k}: {stats_delta(before)}")
                 moved = (FG.STATS["replays"] - replays, FG.STATS["captures"] - captures)
@@ -2651,18 +2709,31 @@ def phase_mono(pt, pts, params, ident):
                                          "(1, 0)")
                 if n_sync > 1:
                     raise AssertionError(f"warm frame {k}: {n_sync} synchronising calls")
-                for name, n in zip(launches, k12):
-                    launches[name] += n
                 mono_s.append(dt)
+                # the same frame on the same plans under the profiler: what
+                # the replay ran
+                restore_plans(state)
+                outcomes.clear()
+                traced = traced_launches(kernel_trace(lambda: frame(f, "1"))[1])
+                if traced != dict.fromkeys(TRACED, 1) or outcomes != [True]:
+                    raise AssertionError(f"warm frame {k} traced: launches {traced}, "
+                                         f"outcomes {outcomes}")
+                for name in launches:
+                    launches[name] += traced[name]
                 restore_plans(state)
                 stage, dt, stage_sync = frame(f, "0")
                 stage_s.append(dt)
                 syncs.append((n_sync, stage_sync))
                 same(f"warm frame {k}", mono, stage)
+            busy = [ms * 1e-3 / s for ms, s in zip(span_ms, mono_s)]
             log(f"  warm frames replayed: seconds {mono_s}, median {statistics.median(mono_s)}; "
                 f"per-stage on the same plans: {stage_s}, median {statistics.median(stage_s)}; "
-                f"K1 and K2 once in each replay; synchronising calls (replayed, per-stage) "
-                f"{syncs}; meshes and densities equal to the per-stage frames bit for bit")
+                f"no eager launch, and K1, K2 and their pre-passes once each in the trace of "
+                f"each replay; synchronising calls (replayed, per-stage) {syncs}; meshes and "
+                f"densities equal to the per-stage frames bit for bit")
+            log(f"  the replays' device span (CUDA events, no profiler): ms {span_ms}, median "
+                f"{statistics.median(span_ms)}; share of the frame's wall time {busy}, median "
+                f"{statistics.median(busy)} ({ident})")
             mono_wall, mono_idle = idle_share(lambda: frame(frames[2], "1"), top=8)
             stage_wall, stage_idle = idle_share(lambda: frame(frames[2], "0"), top=8)
             last_packed, peaks = mono, {}
@@ -2893,7 +2964,7 @@ def main() -> int:
     more = phase_mono(pt, pts, params, ident)
     for name, n in more.items():
         kernels[name]["launches"] += n
-    log("  launches of phase 4 with phase 20's added: "
+    log("  launches of phase 4 with phase 20's traced replays added: "
         + ", ".join(f"{k} {kernels[k]['launches']}" for k in more))
 
     # --- 17. the splat API, padded MC, the hysteresis, the kernel helpers -----

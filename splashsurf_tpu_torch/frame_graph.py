@@ -22,9 +22,9 @@ At most one graph lives per ``slot`` (the frame's grid, N, dtype and
 device): a new key for a slot drops the old graph, and so do ``drop(slot)``
 (a plan that missed) and ``drop()`` (the plans cleared).
 
-The kernel wrappers count a launch where their kernel is queued. Capture
-queues nothing, so its counts are taken back, and each replay adds them
-(``splat_kernels.add_launches``): the counts stay the kernels that ran.
+The kernel wrappers count the launches that run eagerly: a launch queued
+during the capture is not counted, and a replay counts nothing. What a
+replay ran is read from a trace of the card (``chip_smoke.py`` phase 20).
 """
 
 from __future__ import annotations
@@ -34,8 +34,6 @@ import time
 import traceback
 
 import torch
-
-from splashsurf_tpu_torch.ops import splat_kernels as sk
 
 # slot -> _FrameGraph
 _GRAPHS: dict = {}
@@ -51,12 +49,12 @@ def _warmup_stream(device: torch.device) -> torch.cuda.Stream:
 
 
 class _FrameGraph:
-    """A captured frame: its key, its input, its static outputs, the graph
-    and the launch counts of one replay."""
+    """A captured frame: its key, its input, its static outputs and the
+    graph."""
 
     def __init__(self, key):
         self.key = key
-        self.graph = self.input = self.out = self.delta = None
+        self.graph = self.input = self.out = None
 
     def capture(self, fn, positions: torch.Tensor):
         dev = positions.device
@@ -71,7 +69,6 @@ class _FrameGraph:
             if isinstance(t, torch.Tensor):
                 t.record_stream(cur)
         self.input = torch.empty_like(positions)
-        before = sk.launch_counts()
         t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
         try:
@@ -85,9 +82,6 @@ class _FrameGraph:
                 f"the warm frame cannot be captured as a CUDA graph: {where.filename}:"
                 f"{where.lineno} `{where.line}` raised {type(e).__name__}: {e}"
             ) from e
-        finally:
-            self.delta = tuple(a - b for a, b in zip(sk.launch_counts(), before))
-            sk.add_launches(tuple(-d for d in self.delta))
         STATS["captures"] += 1
         STATS["capture_s"] = time.perf_counter() - t0
         return out
@@ -95,7 +89,6 @@ class _FrameGraph:
     def replay(self, positions: torch.Tensor):
         self.input.copy_(positions)
         self.graph.replay()
-        sk.add_launches(self.delta)
         STATS["replays"] += 1
         return self.out
 

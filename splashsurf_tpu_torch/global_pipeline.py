@@ -106,9 +106,8 @@ def _cellrast_frame(positions: torch.Tensor, parameters: Parameters, grid: Unifo
         SPECULATION_STATS["grid_miss"] += 1
         raise GridPlanMiss(str(e)) from e
     if out is None:
-        # later frames go legacy until a frame fits the plan to 0 again
-        SPECULATION_STATS["overflow_retry"] += 1
-        gs._OVER_PLAN[okey] = gs._pow2(gs._LAST_OVERFLOW[0] * 2, lo=4096)
+        # the overflow plan has grown: later frames go legacy until a frame
+        # fits it to 0 again
         return None
     return out, rho
 
@@ -189,6 +188,13 @@ class FrameKey(NamedTuple):
     pull: tuple
 
 
+def mono_frame_on(dtype: torch.dtype) -> bool:
+    """Whether ``SPLASHSURF_TPU_MONO_FRAME`` is "1" and the marching cubes
+    of ``dtype``'s pull mode are cell-major, as the reference's mono frame
+    is: whether a frame tries the single-dispatch warm frame."""
+    return os.environ.get("SPLASHSURF_TPU_MONO_FRAME", "0") == "1" and not gs.pull_mode(dtype)[0]
+
+
 def _warm_frame(positions: torch.Tensor, parameters: Parameters, grid: UniformGrid, hsc: int,
                 dplan: dict, ofc: int, caps, pull_plan):
     """The whole warm dense frame on its plans, with no read of the card
@@ -229,17 +235,16 @@ def _try_warm_frame(positions: torch.Tensor, parameters: Parameters, grid: Unifo
     missed: the caller runs the per-stage frame. The frame reads back once
     and is checked as the reference checks it, in its order: a stale
     speculated grid raises ``GridPlanMiss``; a density miss clears the
-    density plan; a raster overflow past the plan grows the overflow plan;
-    an MC total past its capacity replans the capacities and drops the
-    pull plans; a stream past its bucket records the larger buckets.
+    density plan; then ``gs._check_plans``, as the per-stage frame's
+    checks: a raster overflow past the plan grows the overflow plan, an MC
+    total past its capacity replans the capacities and drops the pull
+    plans, a stream past its bucket records the larger buckets.
     ``SPECULATION_STATS`` counts none of them. A miss drops the frame's
     CUDA graph; a hit records the pull plan and fits the overflow plan."""
     LAST_WARM["outcome"] = "off"
-    if os.environ.get("SPLASHSURF_TPU_MONO_FRAME", "0") != "1":
+    if not mono_frame_on(positions.dtype):
         return None
-    edges, encoded, quant = gs.pull_mode(positions.dtype)
-    if edges:
-        return None  # the reference's mono frame is cell-major only
+    _, encoded, quant = gs.pull_mode(positions.dtype)
     LAST_WARM["outcome"] = "no plan"
     n, dtype = positions.shape[0], str(positions.dtype)
     h = float(parameters.compact_support_radius)
@@ -283,43 +288,26 @@ def _try_warm_frame(positions: torch.Tensor, parameters: Parameters, grid: Unifo
     checks = [grid_check] if grid_check is not None else []
     host_buf, *host_checks = gs.PendingPull(None, [buf] + checks).host_parts()
     sc, *host = gs.unpack_parts(host_buf, layout)
-    total_v, total_t, total_c, total_over, ls_max, density_ok = sc.tolist()
-    total_v, total_t, total_c, total_over = (int(x) for x in (total_v, total_t, total_c,
-                                                              total_over))
     if host_checks and not bool(host_checks[0]):
         LAST_WARM["outcome"] = "grid"
         frame_graph.drop(slot)
         raise GridPlanMiss("speculated background grid is stale")
-    if not density_ok:
+    if not bool(sc[5]):  # the density check
         LAST_WARM["outcome"] = "density"
         neighbors.clear_density_plan()  # drops every graph
         return None
-    if total_over > ofc:
-        # the per-stage frame rasterizes at the grown capacity
-        LAST_WARM["outcome"] = "overflow"
-        gs._OVER_PLAN[okey] = min(gs._pow2(total_over * 2, lo=4096), gs._pow2(n))
-        frame_graph.drop(slot)
-        return None
-    if total_v > vcap or total_t > tcap or total_c > tcap:  # the points' list has tcap
-        LAST_WARM["outcome"] = "caps"
-        gs._MC_CAPS[key] = (gs._bucket16(total_v * 5 // 4), gs._bucket16(total_t * 5 // 4))
-        gs._PULL_PLAN.pop(key, None)
-        gs._PULL_PLAN_ENC.pop(key, None)
-        frame_graph.drop(slot)
-        return None
-    n2 = total_c if encoded else total_t
-    bucketed = (min(vcap, gs._bucket16(total_v)), min(tcap, gs._bucket16(n2)))
-    if total_v > nv_b or n2 > n2_b:
-        LAST_WARM["outcome"] = "bucket"
-        plans[key] = bucketed  # the per-stage frame copies at these buckets
-        frame_graph.drop(slot)
-        return None
-    LAST_WARM["outcome"] = "hit"
-    plans[key] = bucketed
-    gs._note_overflow_plan(okey, total_over)
-    if total_t == 0:
-        gs.check_empty_field(0, ls_max, parameters.iso_surface_threshold)
+    # a miss hands the frame to the per-stage path, which runs on the
+    # updated plan (the overflow growth capped at N, as the reference's)
     second = 2 if encoded else 1
+    outcome, (total_v, total_t, total_c, _) = gs._check_plans(
+        sc, okey=okey, ocap=ofc, key=key, caps=caps, plans=plans, second=second,
+        iso=parameters.iso_surface_threshold, pulled=pull_plan, count=False,
+        over_max=gs._pow2(n), drop_both=True,
+    )
+    LAST_WARM["outcome"] = "hit" if outcome == "ok" else outcome
+    if outcome != "ok":
+        frame_graph.drop(slot)
+        return None
     _, verts, tris = gs._MeshStreams(mode, None, [], second, grid).mesh(
         host, total_v, total_t, total_c
     )

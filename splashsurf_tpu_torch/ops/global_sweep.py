@@ -856,8 +856,6 @@ _MC_CAPS: dict = {}
 _PULL_PLAN: dict = {}
 _PULL_PLAN_ENC: dict = {}
 _OVER_PLAN: dict = {}
-# the overflow count of the last frame that ran past its plan, for the retry
-_LAST_OVERFLOW = [0]
 
 
 def _note_overflow_plan(okey, total_over: int) -> None:
@@ -966,8 +964,6 @@ def reconstruct_global_dense(
     a :class:`PendingPull` instead, whose ``resolve()`` validates the plans
     and checks as the reference's does and reports a miss as a redo.
     """
-    from splashsurf_tpu_torch.global_pipeline import SPECULATION_STATS
-
     n = positions.shape[0]
     okey = (grid.n_points, n)
     ocap = _OVER_PLAN.get(okey)
@@ -982,14 +978,13 @@ def reconstruct_global_dense(
         ls = sweep_global(rasters, overflow, grid, compact_support_radius, hsc)
         del rasters, overflow
         out = _finish_global_dense(
-            ls, grid, iso, okey, ocap, n_over, deferred_checks, defer_pull, check_labels
+            ls, grid, iso, okey, ocap, n_over, deferred_checks, defer_pull, check_labels,
+            over_max=_pow2(n),
         )
         if out is not None:
             return out if defer_pull else out.resolve()[1:]
-        # the level set misses the dropped overflow splats: grow the plan
-        SPECULATION_STATS["overflow_retry"] += 1
-        ocap = min(_pow2(_LAST_OVERFLOW[0] * 2, lo=4096), _pow2(n))
-        _OVER_PLAN[okey] = ocap
+        # the level set misses the dropped overflow splats: the plan has grown
+        ocap = _OVER_PLAN[okey]
     raise RuntimeError(f"raster overflow exceeded capacity {ocap} after retries")
 
 
@@ -1069,7 +1064,8 @@ def _dense_mc(ls, grid: UniformGrid, iso, caps):
 
 
 def _finish_global_dense(ls, grid: UniformGrid, iso, okey, overflow_capacity, n_over,
-                         deferred_checks=(), defer_pull=False, check_labels=()):
+                         deferred_checks=(), defer_pull=False, check_labels=(),
+                         over_max=None):
     """Marching cubes and the mesh copy of a dense frame (reference
     ``ops/global_sweep.py:1397-1565``), in the mode of ``pull_mode``: the
     packed pull copies the mesh; the encoded pull copies the streams of
@@ -1086,17 +1082,16 @@ def _finish_global_dense(ls, grid: UniformGrid, iso, okey, overflow_capacity, n_
     copies the exact streams.
 
     Returns a :class:`PendingPull`, or None when the frame's raster overflow
-    exceeded ``overflow_capacity`` (the caller rasterizes again). With
-    ``defer_pull`` on a frame with every plan, the returned pull has not
-    been read: its ``resolve()`` runs the checks below, updates the plans
-    on a miss exactly as they do, and reports the miss as a redo.
-    Otherwise the checks run here: a False deferred check raises
-    :class:`SpeculationMiss`, an MC total past its capacity grows the
-    capacities and runs MC again (``caps_retry``); a stream past its
-    bucket is copied again at its exact size.
+    exceeded ``overflow_capacity``: the overflow plan has grown (to at most
+    ``over_max``) and the caller rasterizes again. With ``defer_pull`` on a
+    frame with every plan, the returned pull has not been read: its
+    ``resolve()`` runs the checks below, updates the plans on a miss
+    exactly as they do, and reports the miss as a redo. Otherwise the
+    checks run here: a False deferred check raises
+    :class:`SpeculationMiss`, and then ``_check_plans``: an MC total past
+    its capacity grows the capacities and runs MC again (``caps_retry``); a
+    stream past its bucket is copied again at its exact size.
     """
-    from splashsurf_tpu_torch.global_pipeline import SPECULATION_STATS
-
     iso = kernels.rounded(iso, ls.dtype)
     key = (grid.n_points, str(ls.dtype))
     f64 = lambda x: x.reshape(1).to(torch.float64)
@@ -1123,29 +1118,75 @@ def _finish_global_dense(ls, grid: UniformGrid, iso, okey, overflow_capacity, n_
             sc, *host = PendingPull(None, pull_parts).host_parts()
         else:
             sc, host = scalars.cpu(), None
-        total_v, total_t, total_c, total_over, ls_max, *flags = sc.tolist()
-        total_v, total_t, total_c, total_over = (
-            int(x) for x in (total_v, total_t, total_c, total_over)
-        )
+        flags = sc[5:].tolist()
         if not all(flags):
             raise SpeculationMiss([bool(f) for f in flags])
-        if total_over > overflow_capacity:
-            _LAST_OVERFLOW[0] = total_over
+        outcome, (total_v, total_t, total_c, n2) = _check_plans(
+            sc, okey=okey, ocap=overflow_capacity, key=key, caps=caps, plans=plans,
+            second=streams.second, iso=iso,
+            pulled=None if host is None else (host[0].shape[0], host[1].shape[0]),
+            over_max=over_max,
+        )
+        if outcome == "overflow":
             return None
-        if total_v > vcap or total_t > tcap or total_c > tcap:
-            SPECULATION_STATS["caps_retry"] += 1
-            _MC_CAPS[key] = (_bucket16(total_v * 5 // 4), _bucket16(total_t * 5 // 4))
-            plans.pop(key, None)
+        if outcome == "caps":
             continue
-        n2 = (total_v, total_t, total_c)[streams.second]
-        plans[key] = (min(vcap, _bucket16(total_v)), min(tcap, _bucket16(n2)))
-        if total_t == 0:
-            check_empty_field(0, ls_max, iso)
-        _note_overflow_plan(okey, total_over)
-        if host is None or total_v > host[0].shape[0] or n2 > host[1].shape[0]:
+        if outcome == "bucket":
             exact = streams.parts(total_v, n2)
             return PendingPull(lambda *h: streams.mesh(h, total_v, total_t, total_c), exact)
         return PendingPull(lambda: streams.mesh(host, total_v, total_t, total_c), [])
+
+
+def _check_plans(sc, *, okey, ocap, key, caps, plans, second, iso, pulled=None, count=True,
+                 over_max=None, drop_both=False):
+    """The plan checks of a dense frame on its pulled scalars ``sc``
+    (vertices, triangles and active points, the raster overflow count and
+    the level set's maximum first), in the reference's order. A miss
+    re-plans here and nowhere else:
+
+    - "overflow": the overflow count is past the capacity ``ocap``; the
+      overflow plan grows to twice the count, a power of two (at most
+      ``over_max``);
+    - "caps": an MC total is past the capacities ``caps``; they are planned
+      anew from the totals and the pull plan of ``plans`` is dropped (both
+      pull plans with ``drop_both``);
+    - otherwise the frame's buckets go into ``plans``, the overflow plan is
+      fitted to the count and an empty mesh is checked; "bucket" where a
+      stream outgrew the buckets ``pulled`` (None: nothing was pulled),
+      else "ok".
+
+    ``second`` indexes the totals of the stream that the second bucket
+    counts. ``count``: count the overflow and caps retries in
+    ``SPECULATION_STATS`` (the single-dispatch frame counts nothing).
+    Returns (outcome, (vertices, triangles, active points, the second
+    bucket's total))."""
+    from splashsurf_tpu_torch.global_pipeline import SPECULATION_STATS
+
+    total_v, total_t, total_c, total_over, ls_max = sc[:5].tolist()
+    total_v, total_t, total_c, total_over = (
+        int(x) for x in (total_v, total_t, total_c, total_over)
+    )
+    n2 = (total_v, total_t, total_c)[second]
+    totals = (total_v, total_t, total_c, n2)
+    vcap, tcap = caps
+    if total_over > ocap:
+        grown = _pow2(total_over * 2, lo=4096)
+        _OVER_PLAN[okey] = grown if over_max is None else min(grown, over_max)
+        SPECULATION_STATS["overflow_retry"] += count
+        return "overflow", totals
+    if total_v > vcap or total_t > tcap or total_c > tcap:  # the points' list has tcap
+        SPECULATION_STATS["caps_retry"] += count
+        _MC_CAPS[key] = (_bucket16(total_v * 5 // 4), _bucket16(total_t * 5 // 4))
+        for dropped in (_PULL_PLAN, _PULL_PLAN_ENC) if drop_both else (plans,):
+            dropped.pop(key, None)
+        return "caps", totals
+    plans[key] = (min(vcap, _bucket16(total_v)), min(tcap, _bucket16(n2)))
+    _note_overflow_plan(okey, total_over)
+    if total_t == 0:
+        check_empty_field(0, ls_max, iso)
+    if pulled is None or total_v > pulled[0] or n2 > pulled[1]:
+        return "bucket", totals
+    return "ok", totals
 
 
 def _resolve_deferred(sc, *host, streams, iso, caps, key, okey, overflow_capacity,
@@ -1158,12 +1199,7 @@ def _resolve_deferred(sc, *host, streams, iso, caps, key, okey, overflow_capacit
     from splashsurf_tpu_torch import neighbors
     from splashsurf_tpu_torch.global_pipeline import SPECULATION_STATS
 
-    total_v, total_t, total_c, total_over, ls_max, *flags = sc.tolist()
-    total_v, total_t, total_c, total_over = (
-        int(x) for x in (total_v, total_t, total_c, total_over)
-    )
-    vcap, tcap = caps
-    plans = _PULL_PLAN_ENC if streams.mode == "encoded" else _PULL_PLAN
+    flags = sc[5:].tolist()
     if not all(flags):
         failed = {check_labels[i] for i, ok in enumerate(flags) if not ok}
         if "grid" in failed:
@@ -1172,21 +1208,14 @@ def _resolve_deferred(sc, *host, streams, iso, caps, key, okey, overflow_capacit
         SPECULATION_STATS["density_miss"] += 1
         neighbors.clear_density_plan()
         return ("redo",)
-    if total_over > overflow_capacity:
-        SPECULATION_STATS["overflow_retry"] += 1
-        _OVER_PLAN[okey] = _pow2(total_over * 2, lo=4096)
+    outcome, (total_v, total_t, total_c, n2) = _check_plans(
+        sc, okey=okey, ocap=overflow_capacity, key=key, caps=caps,
+        plans=_PULL_PLAN_ENC if streams.mode == "encoded" else _PULL_PLAN,
+        second=streams.second, iso=iso, pulled=(host[0].shape[0], host[1].shape[0]),
+    )
+    if outcome in ("overflow", "caps"):
         return ("redo",)
-    if total_v > vcap or total_t > tcap or total_c > tcap:
-        SPECULATION_STATS["caps_retry"] += 1
-        _MC_CAPS[key] = (_bucket16(total_v * 5 // 4), _bucket16(total_t * 5 // 4))
-        plans.pop(key, None)
-        return ("redo",)
-    n2 = (total_v, total_t, total_c)[streams.second]
-    if total_v > host[0].shape[0] or n2 > host[1].shape[0]:
-        # a bucket miss: copy the exact streams (one more read)
+    if outcome == "bucket":
+        # copy the exact streams (one more read)
         host = PendingPull(None, streams.parts(total_v, n2)).host_parts()
-    plans[key] = (min(vcap, _bucket16(total_v)), min(tcap, _bucket16(n2)))
-    _note_overflow_plan(okey, total_over)
-    if total_t == 0:
-        check_empty_field(0, ls_max, iso)
     return streams.mesh(host, total_v, total_t, total_c)

@@ -33,7 +33,9 @@ unchanged.
 
 A wrapper given CPU tensors runs the plain version. Given CUDA tensors it
 launches its kernel on the current stream or raises; it never falls back.
-Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+Each wrapper counts its kernel launches in ``<wrapper>.launches``; a launch
+queued while its stream is captured into a CUDA graph runs only where the
+graph is replayed, and is not counted (``_count``).
 
 The kernels evaluate q = sqrt(d2) * (2/h) and scale once at the end; the
 plain versions of K1-K3 go through ``kernels.cubic_kernel`` (q = (r + r) / h,
@@ -209,6 +211,13 @@ def _launch(fn, *args):
         raise RuntimeError(f"{fn.__name__}: CUDA error {rc} at launch")
 
 
+def _count(wrapper) -> None:
+    """Count one launch of ``wrapper``'s kernel, unless the current stream
+    is being captured into a CUDA graph: that launch runs nowhere here."""
+    if not torch.cuda.is_current_stream_capturing():
+        wrapper.launches += 1
+
+
 def _suffix(dtype) -> str:
     return "f64" if dtype == torch.float64 else "f32"
 
@@ -337,7 +346,7 @@ def occupancy_masks_cuda(fv: torch.Tensor, fractions: bool = False) -> torch.Ten
             fv.data_ptr(), fv.numel() // max(Zp, 1), Zp, W, int(fractions),
             out.data_ptr(), stream,
         )
-    occupancy_masks_cuda.launches += 1
+    _count(occupancy_masks_cuda)
     return out
 
 
@@ -399,7 +408,7 @@ def sweep_global_cuda(fx, fy, fz, fv, cell_size, compact_support_radius, hsc, n_
             masks.shape[-1], PX, PY, PZ, pad, float(cell_size),
             float(compact_support_radius), out.data_ptr(), stream,
         )
-    sweep_global_cuda.launches += 1
+    _count(sweep_global_cuda)
     return out
 
 
@@ -476,7 +485,7 @@ def bin_occupancy_cuda(fx: torch.Tensor) -> torch.Tensor:
             getattr(lib, "bin_occupancy_" + _suffix(fx.dtype)),
             fx.data_ptr(), out.numel(), out.data_ptr(), stream,
         )
-    bin_occupancy_cuda.launches += 1
+    _count(bin_occupancy_cuda)
     return out
 
 
@@ -508,7 +517,7 @@ def density_sweep_cuda(fx, fy, fz, LX, bin_size, compact_support_radius):
             float(bin_size), float(compact_support_radius),
             support_cut2(compact_support_radius, fx.dtype), out.data_ptr(), stream,
         )
-    density_sweep_cuda.launches += 1
+    _count(density_sweep_cuda)
     return out
 
 
@@ -562,7 +571,7 @@ def splat_sweep_cuda(rx, ry, rz, rv, cell_size, compact_support_radius, hsc, mar
             masks.shape[-1], P, pad, float(cell_size),
             float(compact_support_radius), out.data_ptr(), stream,
         )
-    splat_sweep_cuda.launches += 1
+    _count(splat_sweep_cuda)
     return out
 
 
@@ -678,31 +687,9 @@ def pair_sweep_cuda(fx, fy, fz, cs, h, reach, h_over_cs, pad, n_cells):
             ncx, ncy, ncz, pad, float(cs), float(t(2.0) / t(h)),
             support_cut2(h, fx.dtype), out.data_ptr(), stream,
         )
-    pair_sweep_cuda.launches += 1
+    _count(pair_sweep_cuda)
     return out
 
 
 pair_sweep_cuda.launches = 0
 
-
-# ---------------------------------------------------------------------------
-# launch counts across a CUDA graph
-# ---------------------------------------------------------------------------
-
-COUNTED = (
-    occupancy_masks_cuda, sweep_global_cuda, bin_occupancy_cuda, density_sweep_cuda,
-    splat_sweep_cuda, pair_sweep_cuda,
-)
-
-
-def launch_counts() -> tuple:
-    """Every wrapper's launch count, in ``COUNTED`` order."""
-    return tuple(fn.launches for fn in COUNTED)
-
-
-def add_launches(delta) -> None:
-    """Add ``delta`` (one count per ``COUNTED`` wrapper) to the counts. A
-    captured graph launches its kernels where it is replayed, not where its
-    wrappers ran: the capture takes its counts back, each replay adds them."""
-    for fn, d in zip(COUNTED, delta):
-        fn.launches += d

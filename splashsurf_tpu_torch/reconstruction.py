@@ -234,14 +234,19 @@ def reconstruct_surface(
     mesh before they return, and so does the single-dispatch warm frame
     (``SPLASHSURF_TPU_MONO_FRAME``), so there it changes nothing.
 
-    With ``SPLASHSURF_TPU_PREWARM`` "1" (read per call; the port's default
-    is "0", the reference's "1"), a planning frame (one that records the
-    grid plan of a key for the first time, on a grid it derived itself)
-    then runs one discarded deferred frame on the same input, as the
-    reference does (reconstruction.py:430-455): with the mono frame on,
-    that frame captures its CUDA graph.
+    With the single-dispatch warm frame on (``global_pipeline.
+    mono_frame_on``) and ``SPLASHSURF_TPU_PREWARM`` "1" (read per call, by
+    default "1", as in the reference), a planning frame (one that records
+    the grid plan of a key for the first time, on a grid it derived
+    itself) then runs one discarded deferred frame on the same input, as
+    the reference does (reconstruction.py:430-455): on the card that frame
+    captures the warm frame's CUDA graph. Without the mono frame the
+    discarded frame would build nothing, and none runs. An error in it
+    raises.
     """
-    from splashsurf_tpu_torch.global_pipeline import DeferredMesh, reconstruct_surface_global
+    from splashsurf_tpu_torch.global_pipeline import (
+        DeferredMesh, mono_frame_on, reconstruct_surface_global,
+    )
     from splashsurf_tpu_torch.ops.slab_sweep import reconstruct_surface_slabbed
     from splashsurf_tpu_torch.parallel.mesh import devices
     from splashsurf_tpu_torch.subdomains import reconstruct_surface_subdomain_grid
@@ -321,12 +326,14 @@ def reconstruct_surface(
                 _GRID_PLAN[gkey] = (grid, raw_nc)
         break
     assert rec is not None
-    if planned_cold and os.environ.get("SPLASHSURF_TPU_PREWARM", "0") == "1":
+    if (planned_cold and mono_frame_on(positions.dtype)
+            and os.environ.get("SPLASHSURF_TPU_PREWARM", "1") == "1"):
         _WARMED.add(gkey)
         try:
             reconstruct_surface(particle_positions, parameters, device=device, _defer_pull=True)
         except Exception:
             _WARMED.discard(gkey)
+            raise
     if isinstance(rec._pending_mesh, DeferredMesh):
         rec._pending_mesh.redo = functools.partial(
             _redo_frame, gkey, particle_positions, parameters, device

@@ -10,7 +10,8 @@ the same counts, plans (keys without N), densities and meshes.
 With ``SPLASHSURF_TPU_PREWARM=1`` a planning frame runs one discarded warm
 frame in both packages: the same counts, the key warmed once (not again
 after its plans are cleared and made anew), and ``clear_grid_plan`` forgets
-it. The port's default, "0", runs none."""
+it. The port runs it only with the mono frame on: without it the
+discarded frame would build nothing."""
 
 import numpy as np
 import pytest
@@ -89,14 +90,47 @@ def test_prewarm_runs_one_discarded_frame_per_planned_key(monkeypatch):
 
 
 def test_prewarm_off_by_default_in_the_port(monkeypatch):
-    """The port's default runs no discarded frame (the reference's is "1");
-    "1" runs one whether or not the mono frame is on."""
+    """The port's defaults run no discarded frame: ``PREWARM`` defaults to
+    "1", as the reference's, but acts only with the mono frame on (not with
+    edge-major marching cubes either); "0" turns it off."""
     tp = tm.params("float32")[1]
     f = torch.as_tensor(tm.dam_script()[0][1])
-    for env, frames in ((None, 1), ("1", 2)):
+    cases = [
+        (dict(SPLASHSURF_TPU_MONO_FRAME=None, SPLASHSURF_TPU_PREWARM=None), 1),
+        (dict(SPLASHSURF_TPU_MONO_FRAME=None, SPLASHSURF_TPU_PREWARM="1"), 1),
+        (dict(SPLASHSURF_TPU_MONO_FRAME="1", SPLASHSURF_TPU_PREWARM="1",
+              SPLASHSURF_TPU_MC="edges"), 1),
+        (dict(SPLASHSURF_TPU_MONO_FRAME="1", SPLASHSURF_TPU_PREWARM="0"), 1),
+        (dict(SPLASHSURF_TPU_MONO_FRAME="1", SPLASHSURF_TPU_PREWARM=None), 2),
+    ]
+    for env, frames in cases:
         clear_port_plans()
         with monkeypatch.context() as mp:
-            tm.set_switches(mp, SPLASHSURF_TPU_MONO_FRAME=None, SPLASHSURF_TPU_PREWARM=env)
+            tm.set_switches(mp, **env)
             pt.reconstruct_surface(f, tp)
         assert tgp.SPECULATION_STATS["frames"] == frames, env
-        assert len(tr._WARMED) == frames - 1
+        assert len(tr._WARMED) == frames - 1, env
+
+
+def test_an_error_in_the_discarded_frame_raises(monkeypatch):
+    """The discarded frame of a planning frame does not hide an error (on
+    the card, a warm frame that cannot be captured): it raises, and its
+    key is not warmed."""
+    tp = tm.params("float32")[1]
+    f = torch.as_tensor(tm.dam_script()[0][1])
+    tm.set_switches(monkeypatch, SPLASHSURF_TPU_PREWARM="1")
+
+    def fail(*args, **kwargs):
+        raise RuntimeError("the warm frame cannot be captured")
+
+    frame = tgp.reconstruct_surface_global
+    calls = []
+
+    def second_fails(*args, **kwargs):
+        calls.append(kwargs.get("defer_pull"))
+        return (fail if len(calls) > 1 else frame)(*args, **kwargs)
+
+    monkeypatch.setattr(tgp, "reconstruct_surface_global", second_fails)
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        pt.reconstruct_surface(f, tp)
+    assert calls == [False, True] and not tr._WARMED
