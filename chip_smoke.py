@@ -155,16 +155,19 @@ Phases (each prints progress; any failure raises and exits non-zero):
      with ``subdomains.enable_profile_sync(True)``, which this script turns
      on for every phase that prints its stage seconds.
  20. the single-dispatch warm frame (run after phase 18), one CUDA graph
-     per plan set: with ``SPLASHSURF_TPU_MONO_FRAME=1`` and ``_PREWARM=1``
-     the planning frame captures the graph and five warm frames of phase
-     18's ``pts + k 1e-6`` replay it, K1 and K2 once each in a profiler
-     trace of each replay (the wrappers count eager launches only), the
-     replays' device milliseconds between CUDA events, the meshes and
-     densities those of the per-stage frames on the same plans bit for
-     bit; the seconds, idle shares, graph pool, capture seconds and the
-     planning frame's cost; a caps, a density and a grid miss each give
-     the per-stage mesh and a fresh graph; the encoded pull's replays
-     within ``pull_tol`` of the packed ones (``phase_mono``).
+     per plan set, at most one live: with ``SPLASHSURF_TPU_MONO_FRAME=1``
+     and ``_PREWARM=1`` the planning frame captures the graph and five
+     warm frames of phase 18's ``pts + k 1e-6`` replay it, K1 and K2 once
+     each in a profiler trace of each replay (the wrappers count eager
+     launches only), the replays' device milliseconds between CUDA events,
+     the meshes and densities those of the per-stage frames on the same
+     plans bit for bit; the seconds, idle shares, graph pool, capture
+     seconds and the planning frame's cost; a caps, a density and a grid
+     miss each give the per-stage mesh and a fresh graph; the encoded
+     pull's replays within ``pull_tol`` of the packed ones; numpy frames
+     on six grid origins one cell apart, a capture each with one graph
+     live after each and the reserved memory bounded by one graph pool
+     (``phase_mono``).
 
 Each kernel's line carries its bound: the larger of the bytes it must move
 (rasters read once, output written once) over 3.35 TB/s and the float
@@ -2549,6 +2552,37 @@ def spikes(f):
     return f
 
 
+# the axes along which each frame of phase 20 (f) moves its grid origin
+ORIGIN_MOVES = [(1, 0, 0), (0, 1, 0), (0, 0, 1), (1, 1, 0), (0, 1, 1), (1, 1, 1)]
+
+
+def moved_origin_frames(pt, pts_np, params, moves=ORIGIN_MOVES, eps=1e-4):
+    """Numpy frames whose grids differ in their origin alone: ``pts_np``
+    translated so that the minimum of its grown AABB lies ``eps`` above a
+    cell boundary on each axis (the plan frame), then that frame moved by
+    -2 ``eps`` along the axes of each of ``moves``, which puts the grid's
+    origin one cell lower there. No particle moves by more than 2 ``eps``,
+    so the plans of the plan frame hold. (A move by a whole cell keeps the
+    grid's phase but moves every particle by 3/4 of a geoslot octant, so
+    the density plan's octant check fails; a move by a whole particle
+    spacing keeps the octants but changes the grid's phase, and the mesh's
+    counts with it, past the pull plan's buckets.) Returns the plan frame
+    and the moved frames, each grid checked on the host: one size, and an
+    origin of its own."""
+    from splashsurf_tpu_torch.reconstruction import _bucket_grid
+    from splashsurf_tpu_torch.uniform_grid import kernel_extents
+
+    r, h, cs = params.particle_radius, params.compact_support_radius, params.cube_size
+    low = pts_np.min(0).astype(np.float64) - r - kernel_extents(h, cs).kernel_evaluation_radius
+    base = (pts_np + (np.ceil(low / cs) * cs - low + eps)).astype(np.float32)
+    frames = [(base - np.float32(2 * eps) * np.float32(m)).astype(np.float32) for m in moves]
+    grids = [_bucket_grid(pt.grid_for_reconstruction(torch.as_tensor(f), r, h, cs))
+             for f in [base] + frames]
+    if len({g.n_points for g in grids}) != 1 or len({g.min for g in grids}) != len(grids):
+        raise AssertionError(f"moved origins: grids {[(g.min, g.n_points) for g in grids]}")
+    return base, frames
+
+
 def plan_state():
     """A copy of every plan of the port (to run a frame twice on them)."""
     from splashsurf_tpu_torch import neighbors, reconstruction
@@ -2625,9 +2659,15 @@ def phase_mono(pt, pts, params, ident):
     grid miss (a shift of two cells), each the per-stage frame's mesh on
     the plans it found (bit for bit), then the same frame again: warm, on a
     graph captured after the miss. (e) With ``SPLASHSURF_TPU_PULL=encoded``: the replayed frames'
-    mesh within ``pull_tol`` of (a)'s packed one. The switches and the
-    plans are restored after. Returns the K1 and K2 launches that the
-    traces of (a) hold."""
+    mesh within ``pull_tol`` of (a)'s packed one. (f) Numpy frames, whose
+    grid is derived anew each frame: after a planning frame, six frames on
+    grid origins one cell apart (``moved_origin_frames``), each a mono
+    frame that captures; after each, one live graph, its pool within 1.1 x
+    (c)'s; the reserved memory after the sixth less that after the second
+    below one pool; the sixth frame's mesh and densities the per-stage
+    frame's bit for bit; then that frame three times more, replayed. The
+    switches and the plans are restored after. Returns the K1 and K2
+    launches that the traces of (a) hold."""
     from splashsurf_tpu_torch import frame_graph as FG
     from splashsurf_tpu_torch import global_pipeline as gp
     from splashsurf_tpu_torch import neighbors as N
@@ -2805,6 +2845,53 @@ def phase_mono(pt, pts, params, ident):
                             ordered=True, tol=pull_tol(last_packed.mesh, cs, True))
             if not np.array_equal(enc.mesh.triangles, last_packed.mesh.triangles):
                 raise AssertionError("the encoded mono triangle list differs from the packed one")
+
+            # (f) numpy frames on moved grid origins: a capture each, one
+            # live graph, the card's memory bounded by one pool
+            with switches(SPLASHSURF_TPU_PREWARM="1"):
+                base, moved = moved_origin_frames(pt, pts.cpu().numpy(), params)
+                clear_plans()
+                N.reset_geoslot_hysteresis()
+                planning_s = frame(base, "1")[1]
+                secs, capture, reserved, pools = [], [], [], []
+                for k, f in enumerate(moved, 1):
+                    outcomes.clear()
+                    captures = FG.STATS["captures"]
+                    state = plan_state()
+                    mono, dt, _ = frame(f, "1")
+                    secs.append(dt)
+                    capture.append(FG.STATS["capture_s"])
+                    reserved.append(torch.cuda.memory_reserved())
+                    pools.append(FG.pool_bytes())
+                    got = (outcomes, FG.STATS["captures"] - captures, FG.live())
+                    if got != ([True], 1, 1) or pools[-1] > 1.1 * pool:
+                        raise AssertionError(f"moved origin {k}: (outcomes, captures, live "
+                                             f"graphs) {got}, pool {pools[-1]} B against {pool}")
+                growth = reserved[-1] - reserved[1]
+                if growth >= pool:
+                    raise AssertionError(f"moved origins: reserved memory grew by {growth} B "
+                                         f"from frame 2 to frame {len(moved)}, one pool is "
+                                         f"{pool} B")
+                restore_plans(state)
+                same(f"moved origin {len(moved)}", mono, frame(moved[-1], "0")[0])
+                # the last origin again: replays of its graph
+                restore_plans(state)
+                replays, again = FG.STATS["replays"], []
+                for _ in range(3):
+                    outcomes.clear()
+                    again.append(frame(moved[-1], "1")[1])
+                    if outcomes != [True]:
+                        raise AssertionError(f"the last moved origin again: {outcomes}")
+                if (FG.STATS["replays"] - replays, FG.live()) != (3, 1):
+                    raise AssertionError("the last moved origin did not replay its graph")
+            log(f"  (f) {len(moved)} numpy frames on moved grid origins, one cell apart "
+                f"(planning frame {planning_s} s): one capture and one live graph after each; "
+                f"frame seconds (eager run and capture) {secs}; capture seconds {capture}; "
+                f"pool bytes {pools} (one pool {pool}); memory reserved {reserved}, "
+                f"growth from frame 2 to {len(moved)}: {growth} B; frame {len(moved)} "
+                f"the per-stage mesh and densities bit for bit; the same frame replayed: "
+                f"seconds {again}; this run's replayed tensor frames (a) median "
+                f"{statistics.median(mono_s)} s ({ident})")
     finally:
         gp._try_warm_frame = try_warm
         clear_plans()

@@ -18,9 +18,22 @@ frame. Capture and replay never fall back: an operation that cannot be
 captured (one that reads the card, or copies from pageable host memory)
 raises, naming the line that made it.
 
-At most one graph lives per ``slot`` (the frame's grid, N, dtype and
-device): a new key for a slot drops the old graph, and so do ``drop(slot)``
-(a plan that missed) and ``drop()`` (the plans cleared).
+At most one graph lives per card. Each graph holds its own memory pool
+(593,494,016 B for a 2M-particle frame, ``chip_smoke.py`` phase 20 on an
+NVIDIA H100 80GB HBM3 at 700 W), and a new grid origin is a new ``slot``
+(the frame's grid, N, dtype and device): a sequence of numpy frames, whose
+grid follows the fluid, would otherwise keep one pool per origin, where the
+reference keeps compiled programs that hold no buffers. So before a capture
+``run`` drops every graph of the positions' card, whatever its slot, and
+does so before the eager run: nothing then holds the old graph's input or
+outputs when the capture begins, and the capture's entry (a synchronise
+and an emptied allocator cache) returns the old pool to the card. The slot
+and the key still decide whether a frame replays; frames that alternate
+between two plan sets capture each time. ``drop(slot)`` drops the slot's
+graph (a plan that missed), ``drop()`` every graph (the plans cleared).
+The caller keeps no tensor of a graph past the next frame
+(``global_pipeline`` clones rho and copies the packed buffer to the host),
+so nothing pins a dropped pool.
 
 The kernel wrappers count the launches that run eagerly: a launch queued
 during the capture is not counted, and a replay counts nothing. What a
@@ -35,7 +48,7 @@ import traceback
 
 import torch
 
-# slot -> _FrameGraph
+# slot -> _FrameGraph; at most one per card
 _GRAPHS: dict = {}
 # captures and replays since the process started, and the host seconds of
 # the last capture (read by chip_smoke.py, never by the pipeline)
@@ -95,12 +108,14 @@ class _FrameGraph:
 
 def run(slot, key, fn, positions: torch.Tensor):
     """``fn(positions)`` for CUDA ``positions``: the replay of the slot's
-    graph where it was captured for ``key``, else an eager run followed by
-    the capture of the slot's new graph (see the module's docstring)."""
+    graph where it was captured for ``key``, else, once every graph of the
+    card is dropped, an eager run followed by the capture of the slot's new
+    graph (see the module's docstring)."""
     g = _GRAPHS.get(slot)
     if g is not None and g.key == key:
         return g.replay(positions)
-    drop(slot)
+    for other in [s for s, o in _GRAPHS.items() if o.input.device == positions.device]:
+        del _GRAPHS[other]
     g = _FrameGraph(key)
     out = g.capture(fn, positions)
     _GRAPHS[slot] = g

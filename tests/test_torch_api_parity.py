@@ -3,7 +3,10 @@
 ``splashsurf_tpu_torch`` to the port's counterpart, ``parallel`` with the
 reference's ``__all__``; every public name that a module of the JAX
 package defines itself resolves on the port's counterpart module, but for
-the written ``NOT_PORTED`` table, whose entries are held absent; the debug outputs
+the written ``NOT_PORTED`` table, whose entries are held absent; every
+``SPLASHSURF_TPU_*`` switch that the JAX package reads, the port reads, but
+for the written ``NOT_READ`` table, with the reference's literal default, but
+for ``DEFAULTS_DIFFER``; the debug outputs
 (``density_map_to_hex_mesh``) and the meshio BGEO plugin give the JAX
 package's results; and the thin pysplashsurf methods behave as the JAX
 package's parity tests hold them, on the CPU."""
@@ -286,6 +289,152 @@ def test_signature_not_ported_entries_are_real(entry):
     port = getattr(_port_module(rel), name)
     assert pname in _parameters(ref), entry
     assert pname not in _parameters(port), entry
+
+
+# The environment switches: the reference's that the port does not read,
+# each with its reason. None changes a route, a formulation or a mesh
+# beyond rounding.
+_TPU_MECHANISM = "a TPU mechanism that the port leaves out"
+NOT_READ = {
+    "SPLASHSURF_TPU_CACHE": f"{_TPU_MECHANISM}: JAX's persistent compile cache (workspace); "
+                            "the port compiles no programs",
+    "SPLASHSURF_TPU_PACK_SCATTER": f"{_TPU_MECHANISM}: two f32 components packed into one "
+                                   "complex scatter, as the TPU's scatters cost per row",
+    "SPLASHSURF_TPU_MXU_CUMSUM": f"{_TPU_MECHANISM}: the MXU blocked prefix sum (ops.prefix); "
+                                 "the port uses torch.cumsum",
+    "SPLASHSURF_TPU_DENSITY_PALLAS": "the TPU's choice of the Pallas density sweep or an XLA "
+                                     "scan, which give the same densities; the port runs K2 "
+                                     "on the card and its plain version on the CPU",
+    "SPLASHSURF_TPU_MC_BITMASK": "a formulation of the marching cubes' point compaction that "
+                                 "gives the same points; the port has one",
+    "SPLASHSURF_TPU_RASTER_SORTFREE": "a formulation of the raster's slot ranks (sort-free or "
+                                      "sorted) that gives the same ranks; the port has one",
+    "SPLASHSURF_TPU_SLAB_TRACE": "a diagnostic: the slab route's per-slab prints",
+    "SPLASHSURF_TPU_SYNC_PROFILE": "a diagnostic: a block after each stage for the profile; "
+                                   "the port's is subdomains.enable_profile_sync",
+    "SPLASHSURF_TPU_DEBUG_CHECKS": "a diagnostic: a host callback that checks the prefix "
+                                   "sum's input range (ops.prefix)",
+}
+# Switches whose literal defaults differ: name -> (reference's, port's, why)
+_DECODE = ("the encoded pull cuts the bytes over a remote TPU link; on the card its "
+           "single-core host decode costs more than the copy saves")
+DEFAULTS_DIFFER = {
+    "SPLASHSURF_TPU_PULL": ("encoded", "packed", _DECODE),
+    "SPLASHSURF_TPU_SUB_ENCODED_PULL": ("1", "0", _DECODE + " (the subdomain route stitches)"),
+}
+# a default that is no literal (an expression of the module)
+_NOT_LITERAL = object()
+
+
+def _literal(node, consts: dict):
+    """The value of a literal, or of a module constant bound to one, as the
+    environment would give it (a string); ``_NOT_LITERAL`` otherwise."""
+    if isinstance(node, ast.Constant) and isinstance(node.value, (str, int, float)):
+        return str(node.value)
+    if isinstance(node, ast.Name) and node.id in consts:
+        return consts[node.id]
+    return _NOT_LITERAL
+
+
+def _environ_call(node):
+    """(name node, default node or None) of ``<x>.environ.get(name[,
+    default])``, ``<x>.getenv(...)`` or ``<x>.environ[name]``; else None."""
+    if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute) and node.args:
+        f = node.func
+        if ((f.attr == "get" and isinstance(f.value, ast.Attribute) and f.value.attr == "environ")
+                or f.attr == "getenv"):
+            return node.args[0], node.args[1] if len(node.args) > 1 else None
+    if (isinstance(node, ast.Subscript) and isinstance(node.value, ast.Attribute)
+            and node.value.attr == "environ"):
+        return node.slice, None
+    return None
+
+
+def _switch_reads(package: str) -> dict:
+    """Every ``SPLASHSURF_TPU_*`` name that a package's source reads from
+    the environment, with the set of its defaults (strings, None where a
+    read has none, ``_NOT_LITERAL``): from the AST of each module, so a
+    name broken across a docstring's lines is no read. A name is a string
+    literal, a module constant bound to one, or the literal argument of a
+    module function that reads its parameter (``_env_int(name, default)``)."""
+    reads: dict = {}
+    for path in sorted((ROOT / package).rglob("*.py")):
+        tree = ast.parse(path.read_text())
+        consts = {t.id: str(n.value.value) for n in tree.body if isinstance(n, ast.Assign)
+                  and isinstance(n.value, ast.Constant)
+                  and isinstance(n.value.value, (str, int, float))
+                  for t in n.targets if isinstance(t, ast.Name)}
+        readers = {}  # function name -> (index of the name, index of the default)
+        for fn in tree.body:
+            if not isinstance(fn, ast.FunctionDef):
+                continue
+            params = [a.arg for a in fn.args.args]
+            for node in ast.walk(fn):
+                call = _environ_call(node)
+                if call and isinstance(call[0], ast.Name) and call[0].id in params:
+                    d = call[1]
+                    readers[fn.name] = (params.index(call[0].id),
+                                        params.index(d.id) if isinstance(d, ast.Name)
+                                        and d.id in params else None)
+        for node in ast.walk(tree):
+            call = _environ_call(node)
+            if call is None and isinstance(node, ast.Call) and isinstance(node.func, ast.Name) \
+                    and node.func.id in readers:
+                i, j = readers[node.func.id]
+                call = (node.args[i], node.args[j] if j is not None and j < len(node.args)
+                        else None)
+            if call is None:
+                continue
+            name = _literal(call[0], consts)
+            if name is _NOT_LITERAL or not name.startswith("SPLASHSURF_TPU_"):
+                continue
+            default = None if call[1] is None else _literal(call[1], consts)
+            reads.setdefault(name, set()).add(default)
+    return reads
+
+
+REF_SWITCHES = _switch_reads("splashsurf_tpu")
+PORT_SWITCHES = _switch_reads("splashsurf_tpu_torch")
+
+
+def test_the_port_reads_every_switch_of_the_reference_but_not_read():
+    assert set(REF_SWITCHES) - set(PORT_SWITCHES) == set(NOT_READ)
+    assert set(PORT_SWITCHES) - set(REF_SWITCHES) == set()  # and no switch of its own
+
+
+@pytest.mark.parametrize("name", sorted(NOT_READ))
+def test_not_read_entries_are_real(name):
+    assert NOT_READ[name]
+    assert name in REF_SWITCHES and name not in PORT_SWITCHES
+
+
+@pytest.mark.parametrize("name", sorted(set(REF_SWITCHES) & set(PORT_SWITCHES)))
+def test_a_switch_has_the_reference_default(name):
+    """Where both packages read a switch with literal defaults, they are
+    the reference's, but for ``DEFAULTS_DIFFER``."""
+    ref = REF_SWITCHES[name] - {None, _NOT_LITERAL}
+    port = PORT_SWITCHES[name] - {None, _NOT_LITERAL}
+    if not (ref and port):
+        return
+    if name in DEFAULTS_DIFFER:
+        theirs, ours, why = DEFAULTS_DIFFER[name]
+        assert why and (ref, port) == ({theirs}, {ours}), name
+    else:
+        assert ref == port, name
+
+
+def test_the_switch_scan_sees_every_form_of_read():
+    """A spot check of the scan: a read split across lines (``_os``), one
+    through a module constant, one through a reading function, literal
+    defaults of either type; and a name broken across a docstring's lines
+    is no read."""
+    assert REF_SWITCHES["SPLASHSURF_TPU_SLAB_MAX_SLABS"] == {"64"}
+    assert PORT_SWITCHES["SPLASHSURF_TPU_SLAB_MAX_SLABS"] == {"64"}  # _env_int(..., 64)
+    assert PORT_SWITCHES["SPLASHSURF_TPU_DENSITY_GEOSLOT"] == {"1"}  # GEOSLOT_ENV
+    assert PORT_SWITCHES["SPLASHSURF_TPU_STREAM_BUDGET_BYTES"] == {"3000000000"}
+    assert REF_SWITCHES["SPLASHSURF_TPU_CACHE"] == {_NOT_LITERAL}
+    assert not any(n.endswith("_SUB_") for n in REF_SWITCHES.keys() | PORT_SWITCHES.keys())
+    assert len(REF_SWITCHES) == 29 and "SPLASHSURF_TPU_MONO_FRAME" in PORT_SWITCHES
 
 
 def test_the_speculation_names_are_ported():
