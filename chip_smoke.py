@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phase 18   # phases 0, 1 and 18 alone, no result line
     python3 chip_smoke.py --phase 19   # phases 0, 1 and 19 alone, no result line
     python3 chip_smoke.py --phase 20   # phases 0, 1 and 20 alone, no result line
+    python3 chip_smoke.py --phase 21   # phases 0, 1 and 21 alone, no result line
 
 Phases (each prints progress; any failure raises and exits non-zero):
   0. the card: its name and power limit, torch and CUDA versions;
@@ -168,6 +169,14 @@ Phases (each prints progress; any failure raises and exits non-zero):
      on six grid origins one cell apart, a capture each with one graph
      live after each and the reserved memory bounded by one graph pool
      (``phase_mono``).
+ 21. array-like inputs under the device rule (run after phase 17): the 2M
+     dam break's positions as a numpy array through
+     ``neighbors.compute_particle_densities`` (K2 must launch), equal bit
+     for bit to the CUDA-tensor call, with the seconds of both (the numpy
+     call copies the positions to the card first); ``cubic_kernel``,
+     ``aabb_from_points``, ``Aabb3d.contains_points`` and the
+     ``UniformGrid`` tensor methods on numpy input, each result on the card
+     and equal to the tensor call's.
 
 Each kernel's line carries its bound: the larger of the bytes it must move
 (rasters read once, output written once) over 3.35 TB/s and the float
@@ -2899,6 +2908,78 @@ def phase_mono(pt, pts, params, ident):
     return launches
 
 
+def phase_array_inputs(pt, dev, pts, grid, params, ident):
+    """Phase 21 (run after phase 17, on its 2M dam break and grid):
+    array-like inputs go to the card by default, and give the tensor call's
+    results bit for bit. Returns the K2 launches of its numpy density call."""
+    from splashsurf_tpu_torch import kernels as K
+    from splashsurf_tpu_torch import neighbors as N
+    from splashsurf_tpu_torch.aabb import aabb_from_points
+    from splashsurf_tpu_torch.ops import splat_kernels as sk
+
+    h, m = params.compact_support_radius, params.particle_rest_mass
+    pts_np = pts.cpu().numpy()
+    log(f"phase 21: array inputs, {len(pts_np)} particles as numpy "
+        f"({pts_np.nbytes / 1e6:.1f} MB)")
+
+    def seconds(fn):
+        times = []
+        for _ in range(3):
+            N.reset_geoslot_hysteresis()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return out, statistics.median(times)
+
+    want, s_tensor = seconds(lambda: N.compute_particle_densities(pts, h, m))
+    N.reset_geoslot_hysteresis()
+    reset_launches(sk)
+    got = N.compute_particle_densities(pts_np, h, m)
+    torch.cuda.synchronize()
+    launches = {"density_sweep": sk.density_sweep_cuda.launches}
+    if launches["density_sweep"] == 0:
+        raise AssertionError("the numpy density call did not launch K2")
+    if got.device != pts.device or not torch.equal(got, want):
+        raise AssertionError("the numpy density call differs from the tensor call")
+    _, s_numpy = seconds(lambda: N.compute_particle_densities(pts_np, h, m))
+    log(f"  compute_particle_densities: numpy input on {got.device}, bit-equal to the "
+        f"tensor call, K2 launched {launches['density_sweep']}; median of 3: tensor "
+        f"{s_tensor:.4f} s, numpy {s_numpy:.4f} s ({ident})")
+
+    rng = np.random.default_rng(21)
+    r_np = rng.uniform(0, 1.2 * h, 1 << 20).astype(np.float32)
+    ijk_np = rng.integers(-1, max(grid.n_points) + 1, (1 << 16, 3))
+    flat_np = rng.integers(0, grid.total_points, 1 << 16)
+    box = pt.Aabb3d.from_points(pts_np).grow_uniformly(-0.05)
+    checks = [
+        ("cubic_kernel", lambda x: K.cubic_kernel(x, h), r_np),
+        ("aabb_from_points", aabb_from_points, pts_np),
+        ("Aabb3d.contains_points", box.contains_points, pts_np),
+        ("UniformGrid.point_coordinates", grid.point_coordinates, ijk_np),
+        ("UniformGrid.enclosing_cell", grid.enclosing_cell, pts_np),
+        ("UniformGrid.flatten_point_index", grid.flatten_point_index, ijk_np),
+        ("UniformGrid.flatten_cell_index", grid.flatten_cell_index, ijk_np),
+        ("UniformGrid.unflatten_point_index", grid.unflatten_point_index, flat_np),
+        ("UniformGrid.unflatten_cell_index", grid.unflatten_cell_index, flat_np),
+        ("UniformGrid.point_in_grid", grid.point_in_grid, ijk_np),
+        ("UniformGrid.cell_in_grid", grid.cell_in_grid, ijk_np),
+        ("UniformGrid.is_boundary_point", grid.is_boundary_point, ijk_np),
+        ("UniformGrid.is_boundary_cell", grid.is_boundary_cell, ijk_np),
+    ]
+    for name, fn, x in checks:
+        got = fn(x)
+        want = fn(torch.as_tensor(x, device=dev))
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        for g, w in zip(got, want):
+            if g.device != dev or g.dtype != w.dtype or not torch.equal(g, w):
+                raise AssertionError(f"{name}: the numpy call differs from the tensor call")
+    log(f"  {len(checks)} helpers on numpy input: each result on {dev}, equal to the "
+        "tensor call's")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2945,6 +3026,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--phase", "20"]:  # a quick look at phase 20 alone
         phase_mono(pt, pts, params, ident)
+        return 0
+    if sys.argv[1:] == ["--phase", "21"]:  # a quick look at phase 21 alone
+        phase_array_inputs(pt, dev, pts, grid, params, ident)
         return 0
     if sys.argv[1:] == ["--phase", "19"]:  # a quick look at phase 19 alone
         del pts
@@ -3059,6 +3143,13 @@ def main() -> int:
     for name, n in more.items():
         kernels[name]["launches"] += n
     log("  launches of phase 4 with phase 17's added: "
+        + ", ".join(f"{k} {kernels[k]['launches']}" for k in more))
+
+    # --- 21. array-like inputs under the device rule ---------------------------
+    more = phase_array_inputs(pt, dev, pts, grid, params, ident)
+    for name, n in more.items():
+        kernels[name]["launches"] += n
+    log("  launches of phase 4 with phase 21's added: "
         + ", ".join(f"{k} {kernels[k]['launches']}" for k in more))
 
     # --- 5. cross-check: plain (CPU) vs kernels (CUDA) ------------------------

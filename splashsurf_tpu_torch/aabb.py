@@ -3,9 +3,12 @@
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterable
 
 import numpy as np
 import torch
+
+from splashsurf_tpu_torch.placement import on_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +34,16 @@ class Aabb3d:
             lo, hi = points.min(axis=0), points.max(axis=0)
         return Aabb3d(tuple(lo.tolist()), tuple(hi.tolist()))
 
+    @staticmethod
+    def par_from_points(points) -> "Aabb3d":
+        """``from_points``: the reduction runs in parallel on every device."""
+        return Aabb3d.from_points(points)
+
+    @staticmethod
+    def from_min_max(min, max) -> "Aabb3d":
+        """AABB with the given min and max corners (pysplashsurf.pyi:29)."""
+        return Aabb3d(tuple(min), tuple(max))
+
     @property
     def mins(self) -> np.ndarray:
         return np.asarray(self.min, dtype=np.float64)
@@ -39,14 +52,27 @@ class Aabb3d:
     def maxs(self) -> np.ndarray:
         return np.asarray(self.max, dtype=np.float64)
 
+    def extents(self) -> np.ndarray:
+        return self.maxs - self.mins
+
+    def centroid(self) -> np.ndarray:
+        return 0.5 * (self.mins + self.maxs)
+
     def is_consistent(self) -> bool:
         return bool(np.all(self.maxs >= self.mins))
 
     def is_degenerate(self) -> bool:
         return bool(np.any(self.maxs <= self.mins))
 
-    def contains_points(self, points: torch.Tensor) -> torch.Tensor:
-        """Inclusive membership test: (N, 3) -> (N,) bool on the points' device."""
+    def contains_point(self, x) -> bool:
+        """Inclusive membership test of one point (aabb.rs ``contains_point``)."""
+        x = np.asarray(x, dtype=np.float64)
+        return bool(np.all(x >= self.mins) and np.all(x <= self.maxs))
+
+    def contains_points(self, points, device=None) -> torch.Tensor:
+        """Inclusive membership test: (N, 3) -> (N,) bool on the points'
+        device (``placement.on_device``)."""
+        points = on_device(points, device=device)
         lo = torch.tensor(self.min, dtype=points.dtype, device=points.device)
         hi = torch.tensor(self.max, dtype=points.dtype, device=points.device)
         return torch.all((points >= lo) & (points <= hi), dim=-1)
@@ -55,8 +81,22 @@ class Aabb3d:
         m = float(margin)
         return Aabb3d(tuple(v - m for v in self.min), tuple(v + m for v in self.max))
 
+    def join(self, other: "Aabb3d") -> "Aabb3d":
+        return Aabb3d(
+            tuple(np.minimum(self.mins, other.mins).tolist()),
+            tuple(np.maximum(self.maxs, other.maxs).tolist()),
+        )
 
-def aabb_from_points(points: torch.Tensor):
+    @staticmethod
+    def join_all(boxes: Iterable["Aabb3d"]) -> "Aabb3d":
+        boxes = list(boxes)
+        out = boxes[0]
+        for b in boxes[1:]:
+            out = out.join(b)
+        return out
+
+
+def aabb_from_points(points, device=None):
     """(N, 3) -> ((3,), (3,)) min / max corners, reduced on the points'
-    device (no host transfer)."""
-    return torch.aminmax(points, dim=0)
+    device (``placement.on_device``; no host transfer)."""
+    return torch.aminmax(on_device(points, device=device), dim=0)

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from splashsurf_tpu_torch import kernels
-from splashsurf_tpu_torch.placement import as_device_tensor
+from splashsurf_tpu_torch.placement import on_device
 from splashsurf_tpu_torch.uniform_grid import UniformGrid, kernel_extents
 
 
@@ -88,9 +88,9 @@ def rasterize_particles(
     ``num_overflow`` keeps the true count. ``ranks``: precomputed slot ranks
     (the particles are then taken in their given order). Cells are clamped
     into the grid. A tensor runs on its own device, anything else on
-    ``device`` (``placement.as_device_tensor``)."""
-    positions = as_device_tensor(positions, device)
-    values = as_device_tensor(values, positions.device)
+    ``device`` (``placement.on_device``)."""
+    positions = on_device(positions, device=device)
+    values = on_device(values, device=positions.device)
     dev = positions.device
     ncx, ncy, ncz = grid.n_cells
     hi = torch.tensor(grid.n_cells, device=dev) - 1
@@ -102,7 +102,7 @@ def rasterize_particles(
         rank = torch.arange(flat_s.shape[0], device=dev) - start
         pos_s, val_s = positions[order], values[order]
     else:
-        rank = as_device_tensor(ranks, dev).to(torch.int64)
+        rank = on_device(ranks, device=dev).to(torch.int64)
         flat_s, pos_s, val_s = flat, positions, values
 
     total = ncx * ncy * ncz * slots
@@ -138,8 +138,8 @@ def splat_level_set_scatter(
     particles are assumed well inside it. Chunked over particles and offset
     blocks (``SCATTER_CHUNK_ENTRIES``). ``index_add_`` runs with atomics on
     CUDA, so the last bits of a point's sum change from run to run."""
-    positions = as_device_tensor(positions, device)
-    values = as_device_tensor(values, positions.device)
+    positions = on_device(positions, device=device)
+    values = on_device(values, device=positions.device)
     dtype, dev = positions.dtype, positions.device
     npts = grid.n_points
     strides = (npts[1] * npts[2], npts[2], 1)

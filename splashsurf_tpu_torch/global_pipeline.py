@@ -47,6 +47,7 @@ from splashsurf_tpu_torch import frame_graph, kernels, neighbors
 from splashsurf_tpu_torch.mesh import TriMesh3d
 from splashsurf_tpu_torch.ops import global_sweep as gs
 from splashsurf_tpu_torch.params import Parameters
+from splashsurf_tpu_torch.placement import on_device
 from splashsurf_tpu_torch.reconstruction import GridPlanMiss, SurfaceReconstruction
 from splashsurf_tpu_torch.uniform_grid import UniformGrid, kernel_extents
 
@@ -315,13 +316,14 @@ def _try_warm_frame(positions: torch.Tensor, parameters: Parameters, grid: Unifo
 
 
 def reconstruct_surface_global(
-    positions: torch.Tensor,
+    positions,
     parameters: Parameters,
     grid: UniformGrid,
     particle_inside_aabb: Optional[np.ndarray] = None,
     grid_check=None,
     n_valid: Optional[int] = None,
     defer_pull: bool = False,
+    device=None,
 ) -> SurfaceReconstruction:
     """Reconstruct on one dense grid on the positions' device. The mesh comes
     back to the host (with ``defer_pull``, at ``resolve()``); the
@@ -334,7 +336,9 @@ def reconstruct_surface_global(
     the mesh, and a False one raises ``reconstruction.GridPlanMiss`` (with
     ``defer_pull``, ``resolve()`` runs the frame again). Only the first
     ``n_valid`` rows of ``positions`` are particles, where that is given;
-    the densities of the rest are 0."""
+    the densities of the rest are 0. An array goes to ``device``
+    (``placement.on_device``)."""
+    positions = on_device(positions, device=device)
     full, n = positions, positions.shape[0]
     if n_valid is not None:
         positions = positions[: int(n_valid)]

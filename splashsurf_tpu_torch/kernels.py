@@ -16,6 +16,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from splashsurf_tpu_torch.placement import on_device
+
 _FOUR_PI = 4.0 * math.pi
 
 
@@ -84,15 +86,17 @@ def scatter_table(dest, values, total: int, fill: float, shape) -> torch.Tensor:
     return tbl[:total].reshape(shape)
 
 
-def cubic_function(q: torch.Tensor) -> torch.Tensor:
+def cubic_function(q, device=None) -> torch.Tensor:
     """The normalized cubic spline f(q), support q in [0, 2)."""
+    q = on_device(q, device=device)
     a = torch.clamp_min(2.0 - q, 0.0)
     b = torch.clamp_min(1.0 - q, 0.0)
     return (a * a * a - 4.0 * (b * b * b)) * (1.0 / _FOUR_PI)
 
 
-def cubic_function_dq(q: torch.Tensor) -> torch.Tensor:
+def cubic_function_dq(q, device=None) -> torch.Tensor:
     """Derivative df/dq of the cubic spline."""
+    q = on_device(q, device=device)
     a = torch.clamp_min(2.0 - q, 0.0)
     b = torch.clamp_min(1.0 - q, 0.0)
     return (-3.0 * a * a + 12.0 * (b * b)) * (1.0 / _FOUR_PI)
@@ -105,29 +109,32 @@ def _sigma(dtype, compact_support_radius):
     return h, h.dtype.type(8.0) / (h * h * h)
 
 
-def cubic_kernel(r: torch.Tensor, compact_support_radius) -> torch.Tensor:
+def cubic_kernel(r, compact_support_radius, device=None) -> torch.Tensor:
     """Cubic spline kernel W(r) with compact support radius h (kernel.rs:104-107)."""
+    r = on_device(r, device=device)
     h, sigma = _sigma(r.dtype, compact_support_radius)
     q = (r + r) / float(h)
     return float(sigma) * cubic_function(q)
 
 
-def cubic_kernel_gradient_norm(r: torch.Tensor, compact_support_radius) -> torch.Tensor:
+def cubic_kernel_gradient_norm(r, compact_support_radius, device=None) -> torch.Tensor:
     """Signed magnitude of the kernel gradient at radius r (kernel.rs:133-140)."""
+    r = on_device(r, device=device)
     h, sigma = _sigma(r.dtype, compact_support_radius)
     q = (r + r) / float(h)
     return float(sigma) * cubic_function_dq(q) * float(h.dtype.type(2.0) / h)
 
 
-def cubic_kernel_rsq(r_sq: torch.Tensor, compact_support_radius) -> torch.Tensor:
+def cubic_kernel_rsq(r_sq, compact_support_radius, device=None) -> torch.Tensor:
     """W evaluated from squared distances."""
-    return cubic_kernel(torch.sqrt(r_sq), compact_support_radius)
+    return cubic_kernel(torch.sqrt(on_device(r_sq, device=device)), compact_support_radius)
 
 
-def cubic_kernel_gradient(dx: torch.Tensor, compact_support_radius) -> torch.Tensor:
+def cubic_kernel_gradient(dx, compact_support_radius, device=None) -> torch.Tensor:
     """Gradient of W at offsets ``dx``: (..., 3) -> (..., 3)
     (kernel.rs:110-130). The gradient at the origin is zero (the reference
     divides by r and leaves r = 0 to its callers; this guards it)."""
+    dx = on_device(dx, device=device)
     h, sigma = _sigma(dx.dtype, compact_support_radius)
     r = torch.linalg.vector_norm(dx, dim=-1, keepdim=True)
     drdx = torch.where(r > 0, dx / torch.where(r > 0, r, 1.0), 0.0)
@@ -164,7 +171,8 @@ class DiscreteSquaredDistanceCubicKernel:
         self._scale = self.n / h**2
         self._on_device = {self.values.device: self.values}
 
-    def evaluate(self, r_sq: torch.Tensor) -> torch.Tensor:
+    def evaluate(self, r_sq, device=None) -> torch.Tensor:
+        r_sq = on_device(r_sq, device=device)
         table = self._on_device.get(r_sq.device)
         if table is None:
             table = self._on_device[r_sq.device] = self.values.to(r_sq.device)

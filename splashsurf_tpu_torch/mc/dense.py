@@ -18,7 +18,7 @@ import torch
 
 from splashsurf_tpu_torch.kernels import rounded
 from splashsurf_tpu_torch.mc import lut
-from splashsurf_tpu_torch.placement import as_device_tensor
+from splashsurf_tpu_torch.placement import on_device
 
 
 def edge_layout(n_points: Tuple[int, int, int]):
@@ -185,8 +185,8 @@ def marching_cubes_padded(
     counts even past the capacities. ``grid_min``/``cell_size`` place the
     grid in space; ``index_offset`` shifts point indices to a global grid
     (subdomains). A tensor runs on its own device, an array on ``device``
-    (``placement.as_device_tensor``)."""
-    values = as_device_tensor(values, device)
+    (``placement.on_device``)."""
+    values = on_device(values, device=device)
     vertices, triangles, edges = _mc_mesh(values, iso, grid_min, cell_size, index_offset)
     count = lambda x: torch.tensor(x.shape[0], device=values.device)
     return MarchingCubesResult(
@@ -203,7 +203,7 @@ def decode_edge_flat(edge_flat, n_points: Tuple[int, int, int], device=None):
     inverse of ``edge_layout``'s x, y, z concatenation. Ids < 0 decode to
     axis 0, ijk 0."""
     _, strides, offsets, _ = edge_layout(n_points)
-    safe = as_device_tensor(edge_flat, device).long().clamp_min(0)
+    safe = on_device(edge_flat, device=device).long().clamp_min(0)
     axis = (safe >= offsets[1]).long() + (safe >= offsets[2]).long()
     local = safe - torch.as_tensor(offsets, device=safe.device)[axis]
     s0 = torch.as_tensor([s[0] for s in strides], device=safe.device)[axis]
@@ -230,7 +230,7 @@ def marching_cubes(
     """
     from splashsurf_tpu_torch.mesh import TriMesh3d
 
-    values = as_device_tensor(values, device)
+    values = on_device(values, device=device)
     vertices, triangles, _ = _mc_mesh(values, iso, translation, cube_size)
     return TriMesh3d(
         vertices=vertices.cpu().numpy(), triangles=triangles.cpu().numpy()

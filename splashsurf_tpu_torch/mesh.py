@@ -17,7 +17,7 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
-from splashsurf_tpu_torch.placement import as_device_tensor
+from splashsurf_tpu_torch.placement import on_device
 
 
 @dataclasses.dataclass
@@ -407,7 +407,7 @@ def _torch_args(vertices, triangles, device):
     array goes to ``device`` (default CUDA), and the caller converts the
     result back."""
     as_numpy = not isinstance(vertices, torch.Tensor)
-    v = as_device_tensor(vertices, device)
+    v = on_device(vertices, device=device)
     t = triangles if isinstance(triangles, torch.Tensor) else torch.as_tensor(np.asarray(triangles))
     return v, t.to(device=v.device, dtype=torch.int64), as_numpy
 

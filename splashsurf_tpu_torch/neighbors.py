@@ -42,7 +42,7 @@ import torch
 from splashsurf_tpu_torch import kernels
 from splashsurf_tpu_torch.aabb import Aabb3d
 from splashsurf_tpu_torch.ops.splat_kernels import density_sweep_cuda
-from splashsurf_tpu_torch.placement import as_device_tensor
+from splashsurf_tpu_torch.placement import on_device
 
 # Largest materializable bin lattice for the raster/geoslot formulations.
 GATE_LATTICE_MAX = 8_000_000
@@ -87,8 +87,9 @@ class BinGrid:
     def lattice(self) -> int:
         return self.dims[0] * self.dims[1] * self.dims[2]
 
-    def bin_ijk(self, positions: torch.Tensor) -> torch.Tensor:
+    def bin_ijk(self, positions, device=None) -> torch.Tensor:
         """(M, 3) int64 bin indices, clipped into the lattice."""
+        positions = on_device(positions, device=device)
         dtype = positions.dtype
         bs = kernels.rounded(self.bin_size, dtype)
         cols = []
@@ -124,8 +125,9 @@ def stencil_on(device: torch.device) -> torch.Tensor:
     return torch.as_tensor(_STENCIL, device=device)
 
 
-def build_cell_list(positions: torch.Tensor, grid: BinGrid) -> CellList:
+def build_cell_list(positions, grid: BinGrid, device=None) -> CellList:
     """Sort particles by flat bin id with a stable sort."""
+    positions = on_device(positions, device=device)
     bins = grid.flatten(grid.bin_ijk(positions))
     sorted_bins, order = torch.sort(bins, stable=True)
     return CellList(
@@ -188,11 +190,14 @@ def _segment_tables(sorted_bins: torch.Tensor, lattice: int):
 
 
 def gather_candidates(query_positions, grid: BinGrid, cell_list: CellList, capacity: int,
-                      tables):
+                      tables, device=None):
     """Candidate particle indices from the 27-bin stencil of each query.
 
     Returns (idx (M, 27*capacity) into the original order, mask (M,
     27*capacity)), stencil offset major and bin-sorted order minor."""
+    query_positions, *tables, _ = on_device(
+        query_positions, *tables, cell_list.order, device=device
+    )
     return stencil_candidates(grid.bin_ijk(query_positions), grid, cell_list, capacity, tables)
 
 
@@ -283,7 +288,7 @@ def _sweep_readback(rasters, slot, bx, by, bz, ok, LX, bin_size, h):
 def compute_particle_densities_raster(
     positions, grid: BinGrid, cell_list: CellList, compact_support_radius,
     particle_rest_mass, slots: int = 8, overflow_capacity: int = 0,
-    candidate_capacity: int = 0, x0: int = 0,
+    candidate_capacity: int = 0, x0: int = 0, device=None,
 ):
     """SPH densities via the dense bin-raster sweep, slots from the
     within-bin rank of the bin-sorted order; with a nonzero
@@ -294,6 +299,7 @@ def compute_particle_densities_raster(
     ``grid`` may be an x-slab of a larger lattice: its bin x = 0 is the
     lattice's bin ``x0``, and the bin corners, hence the fractions, are the
     lattice's (the sharded densities, ``parallel.density``)."""
+    positions, _ = on_device(positions, cell_list.order, device=device)
     dtype = positions.dtype
     dev = positions.device
     n = positions.shape[0]
@@ -417,11 +423,12 @@ def geoslot_rasters(positions, grid: BinGrid, x_lo: int = 0, nx: Optional[int] =
 
 def compute_particle_densities_geoslot(
     positions, grid: BinGrid, compact_support_radius, particle_rest_mass,
-    x_lo: int = 0, nx: Optional[int] = None,
+    x_lo: int = 0, nx: Optional[int] = None, device=None,
 ):
     """Sort-free SPH densities on a phase-aligned lattice (see
     :func:`geoslot_rasters`, also for ``x_lo`` and ``nx``). Returns ``(rho,
     ok)``; ``rho`` holds only when the device bool ``ok`` is true."""
+    positions = on_device(positions, device=device)
     rasters, (slot, bx, by, bz), ok = geoslot_rasters(positions, grid, x_lo, nx)
     every = torch.ones_like(slot, dtype=torch.bool)
     LX = grid.dims[0] if nx is None else nx
@@ -446,7 +453,7 @@ _PAIR_BLOCK_ELEMS = 1 << 25
 def compute_particle_densities_binned(
     positions, grid: BinGrid, cell_list: CellList, compact_support_radius,
     particle_rest_mass, capacity: int, u_cap: int, overflow_capacity: int = 0,
-    candidate_capacity: int = 0, occupied: Optional[int] = None,
+    candidate_capacity: int = 0, occupied: Optional[int] = None, device=None,
 ):
     """SPH densities from per-occupied-bin position tables.
 
@@ -467,6 +474,7 @@ def compute_particle_densities_binned(
     of the tables and corrected exactly (``_overflow_correction``, with
     ``candidate_capacity`` >= the largest occupancy).
     """
+    positions, _ = on_device(positions, cell_list.order, device=device)
     dtype = positions.dtype
     dev = positions.device
     n = positions.shape[0]
@@ -742,12 +750,13 @@ def _densities_planned(positions, compact_support_radius, particle_rest_mass, pl
 
 
 def compute_particle_densities(
-    positions: torch.Tensor,
+    positions,
     compact_support_radius: float,
     particle_rest_mass: float,
     capacity: Optional[int] = None,
     speculate: bool = False,
     n_valid: Optional[int] = None,
+    device=None,
 ):
     """Per-particle SPH densities (self term included) on the positions'
     device (reference ``neighbors.py:1197-1375``). Plans the bin lattice on
@@ -762,8 +771,10 @@ def compute_particle_densities(
     and on False clear the plan (:func:`clear_density_plan`) and recompute.
 
     Only the first ``n_valid`` rows are particles, where that is given; the
-    densities of the rows past them are 0.
+    densities of the rows past them are 0. An array goes to ``device``
+    (``placement.on_device``).
     """
+    positions = on_device(positions, device=device)
     n = positions.shape[0]
     if n_valid is not None and int(n_valid) < n:
         out = compute_particle_densities(
@@ -889,9 +900,10 @@ def _neighbor_chunks(positions, grid: BinGrid, cell_list: CellList, radius, capa
 
 
 def neighbor_counts_and_distsq(positions, grid: BinGrid, cell_list: CellList, radius,
-                               capacity: int) -> torch.Tensor:
+                               capacity: int, device=None) -> torch.Tensor:
     """Neighbour counts within ``radius`` per particle, self excluded
     ((N,) int32)."""
+    positions, _ = on_device(positions, cell_list.order, device=device)
     return torch.cat([
         w.sum(dim=1)
         for _, _, w in _neighbor_chunks(positions, grid, cell_list, radius, capacity)
@@ -899,10 +911,11 @@ def neighbor_counts_and_distsq(positions, grid: BinGrid, cell_list: CellList, ra
 
 
 def neighbor_lists_padded(positions, grid: BinGrid, cell_list: CellList, radius,
-                          capacity: int, max_neighbors: int):
+                          capacity: int, max_neighbors: int, device=None):
     """Fixed-width neighbour lists: (N, max_neighbors) int32, -1 padded, and
     the full counts (N,) int32 (a row keeps its first ``max_neighbors``
     neighbours in candidate order). Use :func:`to_csr` for ragged lists."""
+    positions, _ = on_device(positions, cell_list.order, device=device)
     n = positions.shape[0]
     out = torch.full((n, max_neighbors), -1, dtype=torch.int32, device=positions.device)
     counts = []
@@ -1005,7 +1018,7 @@ def neighborhood_search_spatial_hashing_parallel(
     anything else goes to ``device``, by default CUDA) over the sorted bin
     lattice, in chunks of ``NEIGHBOR_CHUNK_SLOTS`` candidate slots; the
     lists come to the host as one CSR copy."""
-    positions = as_device_tensor(positions, device).contiguous()
+    positions = on_device(positions, device=device).contiguous()
     domain = None
     if isinstance(radius, Aabb3d) or radius is None:
         domain = radius

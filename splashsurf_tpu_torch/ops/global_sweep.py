@@ -57,6 +57,7 @@ from splashsurf_tpu_torch.density import supported_point_offsets
 from splashsurf_tpu_torch.mc import lut
 from splashsurf_tpu_torch.mc.dense import _case_indices, _local_edge_coeffs, edge_layout, lut_tensors
 from splashsurf_tpu_torch.ops.splat_kernels import pair_sweep_cuda, sweep_global_cuda
+from splashsurf_tpu_torch.placement import on_device
 from splashsurf_tpu_torch.uniform_grid import UniformGrid
 
 
@@ -68,7 +69,8 @@ def _cell_of(px: torch.Tensor, mn: float, cs: float, n: int) -> torch.Tensor:
 
 def rasterize_global(positions, values, grid: UniformGrid, slots: int, hsc: int,
                      overflow_capacity: Optional[int] = None, with_meta: bool = False,
-                     slab_ncx: Optional[int] = None, slab_x0: Optional[int] = None):
+                     slab_ncx: Optional[int] = None, slab_x0: Optional[int] = None,
+                     device=None):
     """Rasterize particles into per-cell slot tables over the whole grid.
 
     Returns ``(fx, fy, fz, fv), (opx, opy, opz, oval)``: four (slots, Xp, Yp,
@@ -101,15 +103,17 @@ def rasterize_global(positions, values, grid: UniformGrid, slots: int, hsc: int,
     Slot ranks follow ascending particle index within each cell: ``slots``
     rounds of a scatter-max of (n - index) per cell pick the next-smallest
     index each round. The accumulation order is thereby a pure function of
-    the particle set. Particles outside the grid are dropped.
+    the particle set. Particles outside the grid are dropped. Arrays go to
+    ``device`` (``placement.on_device``).
     """
+    positions, values = on_device(positions, values, device=device)
     dtype = positions.dtype
     dev = positions.device
     n = positions.shape[0]
     ncx, ncy, ncz = grid.n_cells
     pad = hsc + 1
     W = ncx if slab_ncx is None else slab_ncx
-    slab_x0 = slab_x0 or 0
+    slab_x0 = int(slab_x0 or 0)
     Xp, Yp, Zp = W + 2 * pad, ncy + 2 * pad, ncz + 2 * pad
     cs = kernels.rounded(grid.cell_size, dtype)
     mn = [kernels.rounded(grid.min[d], dtype) for d in range(3)]
@@ -168,7 +172,7 @@ def rasterize_global(positions, values, grid: UniformGrid, slots: int, hsc: int,
 def density_weights_from_rasters(
     fx, fy, fz, rank, ok, cx, cy, cz, particle_rest_mass,
     compact_support_radius, grid: UniformGrid, hsc: int, reach: int,
-    h_over_cs: float,
+    h_over_cs: float, device=None,
 ):
     """The value raster for ``sweep_global`` and the per-particle densities
     from the pair sweep over the fraction rasters (the reference's
@@ -179,7 +183,8 @@ def density_weights_from_rasters(
     on occupied slots and exactly 0 on empty and pad slots, in a zero (S, Xp,
     Yp, Zp) raster; rho = m sigma acc is gathered per particle at (rank, cx,
     cy, cz) where ``ok`` (0 elsewhere), with 64-bit flat indices. Returns
-    (fv, rho)."""
+    (fv, rho). Arrays go to ``device`` (``placement.on_device``)."""
+    fx, fy, fz, rank, ok, cx, cy, cz = on_device(fx, fy, fz, rank, ok, cx, cy, cz, device=device)
     dtype = fx.dtype
     S, Xp, Yp, Zp = fx.shape
     ncx, ncy, ncz = grid.n_cells
@@ -255,13 +260,17 @@ def _point_offsets(hsc: int, device: torch.device) -> torch.Tensor:
 
 
 def sweep_global(rasters, overflow, grid: UniformGrid, compact_support_radius, hsc: int,
-                 slab_npx: Optional[int] = None, slab_x0: Optional[int] = None):
+                 slab_npx: Optional[int] = None, slab_x0: Optional[int] = None,
+                 device=None):
     """Level set phi on the (PX, PY, PZ) grid points: the dense stencil
     sweep over the rasters (kernel K1 on CUDA, its plain version on the
     CPU) plus the scatter splat of the overflow particles. On one slab (the
     rasters of ``rasterize_global(..., slab_ncx=W, slab_x0=x0)``, and
     ``slab_npx`` = W + 1) the points are the slab's (W + 1, PY, PZ) from
-    global plane x0 on; by default all of them."""
+    global plane x0 on; by default all of them. Arrays go to ``device``
+    (``placement.on_device``)."""
+    both = on_device(*rasters, *overflow, device=device)
+    rasters, overflow = both[: len(rasters)], both[len(rasters) :]
     PX, PY, PZ = grid.n_points
     n_points = (PX if slab_npx is None else slab_npx, PY, PZ)
     acc = sweep_global_cuda(
@@ -423,11 +432,11 @@ def _mc_totals(words: torch.Tensor) -> torch.Tensor:
     return torch.stack([edges.sum(), count_t[words & 0xFF].sum(), (words != 0).sum()])
 
 
-def mc_global_cells(ls: torch.Tensor, grid: UniformGrid, iso,
+def mc_global_cells(ls, grid: UniformGrid, iso,
                     vertex_capacity: Optional[int] = None,
                     triangle_capacity: Optional[int] = None,
                     encode: bool = False, quant_t: bool = False,
-                    own_px: Optional[int] = None):
+                    own_px: Optional[int] = None, device=None):
     """Cell-list marching cubes over the level set on the whole grid's
     points: ``mc_point_words`` then ``mc_mesh_from_points``, which return
     (vertices, triangles). With both capacities nothing is read back and
@@ -437,7 +446,10 @@ def mc_global_cells(ls: torch.Tensor, grid: UniformGrid, iso,
     With ``encode`` the mesh is not built: returns the reference's encoded
     streams (``encode_points``) ``(t, packed, bincl, total_v, total_t,
     total_c)``, the totals as int64 device scalars, from which the host
-    rebuilds the mesh (``decode_encoded``); ``quant_t`` ships t as u16."""
+    rebuilds the mesh (``decode_encoded``); ``quant_t`` ships t as u16. An
+    array goes to ``device`` (``placement.on_device``)."""
+    ls = on_device(ls, device=device)
+    own_px = None if own_px is None else int(own_px)
     caps = None
     if vertex_capacity is not None and triangle_capacity is not None:
         caps = (vertex_capacity, triangle_capacity)
@@ -648,9 +660,10 @@ def decode_encoded_points(t, points, words, total_v: int, total_t: int, total_c:
     return dec
 
 
-def mc_global_packed(ls: torch.Tensor, grid: UniformGrid, iso,
+def mc_global_packed(ls, grid: UniformGrid, iso,
                      vertex_capacity: Optional[int] = None,
-                     triangle_capacity: Optional[int] = None, encode: bool = False):
+                     triangle_capacity: Optional[int] = None, encode: bool = False,
+                     device=None):
     """Edge-major marching cubes over the whole grid (the reference's
     ``mc_global_packed``, ``ops/global_sweep.py:516-667``; reached through
     ``SPLASHSURF_TPU_MC=edges``): the active edges of the three dense edge
@@ -665,7 +678,8 @@ def mc_global_packed(ls: torch.Tensor, grid: UniformGrid, iso,
     their u8 cases), decoded on the host by ``_decode_packed_mesh``. With
     both capacities the lists have those sizes (zero-filled past the
     totals, as the reference's) and nothing is read back; without them,
-    their exact sizes."""
+    their exact sizes. An array goes to ``device`` (``placement.on_device``)."""
+    ls = on_device(ls, device=device)
     dtype, dev = ls.dtype, ls.device
     PX, PY, PZ = ls.shape
     iso = kernels.rounded(iso, dtype)
@@ -948,7 +962,7 @@ def _copy_stream(device: torch.device) -> torch.cuda.Stream:
 def reconstruct_global_dense(
     positions, values, grid: UniformGrid, compact_support_radius: float,
     hsc: int, iso: float, slots: int = 2, deferred_checks: tuple = (),
-    defer_pull: bool = False, check_labels: tuple = (),
+    defer_pull: bool = False, check_labels: tuple = (), device=None,
 ):
     """Full dense-grid reconstruction on the positions' device (reference
     ``ops/global_sweep.py:1196-1285``). Returns (vertices (V, 3), triangles
@@ -962,8 +976,10 @@ def reconstruct_global_dense(
     checks, named by ``check_labels``) come back with the mesh totals; a
     False one raises :class:`SpeculationMiss`. With ``defer_pull`` returns
     a :class:`PendingPull` instead, whose ``resolve()`` validates the plans
-    and checks as the reference's does and reports a miss as a redo.
+    and checks as the reference's does and reports a miss as a redo. Arrays
+    go to ``device`` (``placement.on_device``).
     """
+    positions, values = on_device(positions, values, device=device)
     n = positions.shape[0]
     okey = (grid.n_points, n)
     ocap = _OVER_PLAN.get(okey)

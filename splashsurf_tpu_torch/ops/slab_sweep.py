@@ -47,6 +47,7 @@ import torch
 from splashsurf_tpu_torch import kernels, neighbors
 from splashsurf_tpu_torch.mesh import TriMesh3d
 from splashsurf_tpu_torch.ops import global_sweep as gs
+from splashsurf_tpu_torch.placement import on_device
 from splashsurf_tpu_torch.profiling import StageClock, profile
 from splashsurf_tpu_torch.reconstruction import SurfaceReconstruction
 from splashsurf_tpu_torch.uniform_grid import UniformGrid, kernel_extents
@@ -75,8 +76,8 @@ def slab_width_cells(grid: UniformGrid, max_cells: int) -> int:
 
 
 def reconstruct_global_slabbed(
-    positions: torch.Tensor,
-    values: torch.Tensor,
+    positions,
+    values,
     grid: UniformGrid,
     compact_support_radius: float,
     hsc: int,
@@ -84,6 +85,7 @@ def reconstruct_global_slabbed(
     slots: Optional[int] = None,
     max_cells: Optional[int] = None,
     clock: Optional[StageClock] = None,
+    device=None,
 ):
     """The dense route's mesh, computed slab by slab on the positions'
     device: (vertices (V, 3), triangles (T, 3) int32) as device tensors,
@@ -95,7 +97,8 @@ def reconstruct_global_slabbed(
 
     ``max_cells`` bounds one slab's cells (default ``gs_dense_gate()``).
     ``clock`` (a ``StageClock``) takes the stage laps; ``LAST_RUN`` records
-    the run."""
+    the run. Arrays go to ``device`` (``placement.on_device``)."""
+    positions, values = on_device(positions, values, device=device)
     if max_cells is None:
         max_cells = gs_dense_gate()
     if slots is None:
@@ -203,11 +206,12 @@ def _decode_slab_streams(parts, W: int, grid: UniformGrid, ls_max, iso, clock: S
 
 
 def reconstruct_surface_slabbed(
-    positions: torch.Tensor,
+    positions,
     parameters,
     grid: UniformGrid,
     particle_inside_aabb: Optional[np.ndarray] = None,
     n_valid: Optional[int] = None,
+    device=None,
 ):
     """The slab route of ``reconstruct_surface`` on the positions' device:
     densities over all particles, weights m / rho, the slab loop, the mesh
@@ -218,7 +222,8 @@ def reconstruct_surface_slabbed(
     slabs), "merge and pull", with the encoded pull "decode" (the host
     merge and decode), and, when asked, "neighbour lists". Only the
     first ``n_valid`` rows of ``positions`` are particles, where that is
-    given."""
+    given. An array goes to ``device`` (``placement.on_device``)."""
+    positions = on_device(positions, device=device)
     if n_valid is not None:
         positions = positions[: int(n_valid)]
     h = parameters.compact_support_radius

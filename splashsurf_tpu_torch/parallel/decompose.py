@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from splashsurf_tpu_torch.parallel.mesh import DeviceMesh, all_to_all, blocks
+from splashsurf_tpu_torch.placement import on_device
 from splashsurf_tpu_torch.subdomains import (
     SubdomainGridParams,
     expand_pairs,
@@ -47,8 +48,8 @@ def _owner_of(target: torch.Tensor, sd: SubdomainGridParams, D: int, slab_w: int
 
 
 def decompose_sharded(
-    positions: torch.Tensor, sd: SubdomainGridParams, mesh: DeviceMesh,
-    n_valid: Optional[int] = None,
+    positions, sd: SubdomainGridParams, mesh: DeviceMesh,
+    n_valid: Optional[int] = None, device=None,
 ) -> dict:
     """The decomposition of ``subdomains.decompose``, sharded over ``mesh``.
     Rows past ``n_valid`` make no pair.
@@ -57,7 +58,9 @@ def decompose_sharded(
     "pids", "cells" and "ranks" (int64 tensors on its device, in
     ``decompose`` order) and its occupied subdomains "occ_ids", "starts",
     "counts" (host arrays, ascending ids, starts into its pair arrays);
-    "n_pairs" (the total), "D" and "slab_w"."""
+    "n_pairs" (the total), "D" and "slab_w". An array goes to ``device``
+    (``placement.on_device``) before it is cut into the shards' blocks."""
+    positions = on_device(positions, device=device)
     D = mesh.size
     n = positions.shape[0]
     nv = n if n_valid is None else min(int(n_valid), n)

@@ -51,6 +51,7 @@ import torch
 from splashsurf_tpu_torch import kernels
 from splashsurf_tpu_torch import neighbors as N
 from splashsurf_tpu_torch.neighbors import GATE_LATTICE_MAX, BinGrid, CellList
+from splashsurf_tpu_torch.placement import on_device
 from splashsurf_tpu_torch.parallel.mesh import (
     DeviceMesh,
     all_to_all,
@@ -170,11 +171,12 @@ def _replicated(positions, h, mass, nv: int):
 
 
 def compute_particle_densities_sharded(
-    positions: torch.Tensor,
+    positions,
     compact_support_radius: float,
     particle_rest_mass: float,
     mesh: Optional[DeviceMesh] = None,
     n_valid: Optional[int] = None,
+    device=None,
 ) -> torch.Tensor:
     """Per-particle SPH densities computed over ``mesh`` (by default every
     device of the positions' type in the process's list), returned as one
@@ -182,7 +184,9 @@ def compute_particle_densities_sharded(
     ``neighbors.compute_particle_densities`` bit for bit but where the
     overflow correction runs (module docstring). ``neighbors.LAST_GATE
     ["sharded"]`` records the decision, its "kind" "geoslot", "raster" or
-    "replicated" (the single-device wrapper ran)."""
+    "replicated" (the single-device wrapper ran). An array goes to
+    ``device`` (``placement.on_device``)."""
+    positions = on_device(positions, device=device)
     h, mass = compact_support_radius, particle_rest_mass
     if mesh is None:
         mesh = make_mesh(device=positions.device)

@@ -12,6 +12,7 @@ import dataclasses
 import enum
 from typing import Optional
 
+import numpy as np
 import torch
 
 from splashsurf_tpu_torch.aabb import Aabb3d
@@ -121,6 +122,10 @@ class Parameters:
     @property
     def particle_rest_mass(self) -> float:
         return self.particle_rest_volume * float(self.rest_density)
+
+    @property
+    def np_dtype(self) -> np.dtype:
+        return np.dtype(self.dtype)
 
     @property
     def torch_dtype(self) -> torch.dtype:

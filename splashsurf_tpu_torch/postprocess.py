@@ -23,7 +23,7 @@ from splashsurf_tpu_torch.mesh import (
     vertex_vertex_connectivity_csr,
 )
 from splashsurf_tpu_torch.profiling import profile
-from splashsurf_tpu_torch.placement import as_device_tensor
+from splashsurf_tpu_torch.placement import on_device
 from splashsurf_tpu_torch.uniform_grid import UniformGrid
 
 
@@ -74,7 +74,7 @@ def laplacian_smoothing(
     ``beta * weights[i]``; all iterations run on the device. A tensor stays
     on its own device and comes back as a tensor; an array goes to
     ``device`` (default CUDA) and comes back as an array."""
-    verts = as_device_tensor(vertices, device)
+    verts = on_device(vertices, device=device)
     nv = verts.shape[0]
     with profile("vertex connectivity"):
         padded, counts = _padded_neighbors(triangles, nv, verts.device)
@@ -110,7 +110,7 @@ def laplacian_smoothing_normals(
     """Normal-field smoothing: unweighted neighbor averaging + renormalize
     (postprocessing.rs:55-93), all iterations on the device; tensors and
     arrays as in ``laplacian_smoothing``."""
-    n = as_device_tensor(normals, device)
+    n = on_device(normals, device=device)
     with profile("vertex connectivity"):
         padded, _ = _padded_neighbors(triangles, num_vertices, n.device)
     with profile("iterations", block_on=n):

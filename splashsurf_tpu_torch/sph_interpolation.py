@@ -35,7 +35,7 @@ from splashsurf_tpu_torch.neighbors import (
     bin_stats,
     build_cell_list,
 )
-from splashsurf_tpu_torch.placement import as_device_tensor
+from splashsurf_tpu_torch.placement import check_device, on_device
 
 # Candidate slots (queries x bin capacity) of one offset step in one chunk.
 CHUNK_ELEMENTS = 1 << 23
@@ -109,8 +109,8 @@ class SphInterpolator:
     ):
         if isinstance(particle_densities, torch.Tensor):
             device = particle_densities.device
-        rho = as_device_tensor(particle_densities, device)
-        self.positions = as_device_tensor(particle_positions, rho.device).contiguous()
+        rho = on_device(particle_densities, device=device)
+        self.positions = on_device(particle_positions, device=rho.device).contiguous()
         assert self.positions.shape[0] == rho.shape[0]
         self.volumes = kernels.rounded(particle_rest_mass, rho.dtype) / rho
         self.compact_support_radius = float(compact_support_radius)
@@ -122,9 +122,10 @@ class SphInterpolator:
     def size(self) -> int:
         return int(self.positions.shape[0])
 
-    def _on_device(self, x) -> torch.Tensor:
+    def _on_device(self, x, device=None) -> torch.Tensor:
         """Queries or particle values on the particles' device, in their
-        own dtype."""
+        own dtype; ``device``, where given, must be that device."""
+        check_device(self.positions.device, device)
         x = x if isinstance(x, torch.Tensor) else np.asarray(x)
         return torch.as_tensor(x, device=self.positions.device)
 
@@ -138,8 +139,8 @@ class SphInterpolator:
 
     # -- public API (mirrors SphInterpolator) --------------------------------
 
-    def interpolate_normals(self, points) -> np.ndarray:
-        pts = self._on_device(points)
+    def interpolate_normals(self, points, device=None) -> np.ndarray:
+        pts = self._on_device(points, device)
         h = self._support(pts)
         volumes = self.volumes
 
@@ -183,9 +184,9 @@ class SphInterpolator:
         return acc.cpu().numpy()
 
     def interpolate_scalar_quantity(
-        self, particle_quantity, points, first_order_correction: bool = False
+        self, particle_quantity, points, first_order_correction: bool = False, device=None
     ) -> np.ndarray:
-        q = self._on_device(particle_quantity)[:, None]
+        q = self._on_device(particle_quantity, device)[:, None]
         return self._quantity(q, points, first_order_correction)[:, 0]
 
     def interpolate_quantity(
@@ -206,9 +207,11 @@ class SphInterpolator:
         )
 
     def interpolate_vector_quantity(
-        self, particle_quantity, points, first_order_correction: bool = False
+        self, particle_quantity, points, first_order_correction: bool = False, device=None
     ) -> np.ndarray:
-        return self._quantity(self._on_device(particle_quantity), points, first_order_correction)
+        return self._quantity(
+            self._on_device(particle_quantity, device), points, first_order_correction
+        )
 
     def weighted_neighbor_counts(self) -> np.ndarray:
         """``compute_weighted_neighbor_counts`` of the interpolator's own
@@ -223,7 +226,7 @@ def compute_weighted_neighbor_counts(
     (splashsurf/src/reconstruct.rs:1190-1206):
     sum_j (1 - clamp(r^2/R^2, 0, 1)) over neighbors j != i. A tensor runs on
     its own device, an array on ``device`` (default CUDA)."""
-    p = as_device_tensor(positions, device).contiguous()
+    p = on_device(positions, device=device).contiguous()
     return _weighted_neighbor_counts(p, _Bins(p, float(compact_support_radius)), compact_support_radius)
 
 

@@ -82,6 +82,7 @@ from splashsurf_tpu_torch.ops.global_sweep import check_empty_field
 from splashsurf_tpu_torch.ops.global_sweep import pull_quant as _pull_quant
 from splashsurf_tpu_torch.ops.splat_kernels import splat_sweep_cuda
 from splashsurf_tpu_torch.params import Parameters
+from splashsurf_tpu_torch.placement import on_device
 from splashsurf_tpu_torch.profiling import StageClock
 from splashsurf_tpu_torch.reconstruction import SurfaceReconstruction
 from splashsurf_tpu_torch.uniform_grid import UniformGrid, kernel_extents
@@ -179,7 +180,7 @@ _OFFSETS27 = np.array(
 _BITS8 = np.array([((b >> 2) & 1, (b >> 1) & 1, b & 1) for b in range(8)], np.int64)
 
 
-def decompose(positions: torch.Tensor, sd: SubdomainGridParams):
+def decompose(positions, sd: SubdomainGridParams, device=None):
     """Expand particles into (subdomain, particle) pairs with ghost margins
     (the GhostMarginClassifier, dense_subdomains.rs:1751-1906): a particle
     belongs to its own subdomain and to every neighbour whose raster, the
@@ -188,9 +189,10 @@ def decompose(positions: torch.Tensor, sd: SubdomainGridParams):
     Returns int64 (n_pairs,) tensors (targets, particle ids, raster cells,
     ranks), sorted by (target, raster cell, particle id): target is the flat
     subdomain id, raster cell the flat index in the (R, R, R) raster, R =
-    n_sub + 2 * margin, and rank the position within its raster cell.
+    n_sub + 2 * margin, and rank the position within its raster cell. An
+    array goes to ``device`` (``placement.on_device``).
     """
-    pid, target, cell = expand_pairs(positions, sd)
+    pid, target, cell = expand_pairs(on_device(positions, device=device), sd)
     return sort_pairs(target, cell, pid, sd)
 
 
@@ -283,7 +285,7 @@ def _gather_pairs(starts: torch.Tensor, counts: torch.Tensor, rows: torch.Tensor
 
 def chunk_levelset_scatter(
     positions, values, pids, rows, sub_ijk, sd: SubdomainGridParams,
-    compact_support_radius, hsc: int, out: Optional[torch.Tensor] = None,
+    compact_support_radius, hsc: int, out: Optional[torch.Tensor] = None, device=None,
 ):
     """Scatter-add splat: each listed particle (``pids``, with ``rows`` its
     chunk-local subdomain) adds v W(|x_g - x|) to the supported points of
@@ -293,7 +295,11 @@ def chunk_levelset_scatter(
 
     The lists are exact, so no far dummy particle (and no clip of its
     deltas) is needed. ``index_add_`` runs with atomics on CUDA: the order
-    of the sums at a point, and its last bits, change from run to run."""
+    of the sums at a point, and its last bits, change from run to run.
+    Arrays go to ``device`` (``placement.on_device``)."""
+    positions, values, pids, rows, sub_ijk, out = on_device(
+        positions, values, pids, rows, sub_ijk, out, device=device
+    )
     dtype = positions.dtype
     dev = positions.device
     n_sub = sd.n_sub
@@ -358,12 +364,16 @@ def chunk_rasters(positions, values, pids, rows, cells, ranks, C: int, sd: Subdo
 
 def chunk_levelset_raster(
     positions, values, pids, rows, cells, ranks, sub_ijk,
-    sd: SubdomainGridParams, compact_support_radius, hsc: int,
+    sd: SubdomainGridParams, compact_support_radius, hsc: int, device=None,
 ):
     """Raster-sweep splat of a chunk of C = len(sub_ijk) subdomains: (C, P,
     P, P) level sets. Kernel K3 sums the pruned offset fan over the chunk's
     rasters (``chunk_rasters``); the pairs of rank >= SLOTS go through
-    ``chunk_levelset_scatter`` into the same level sets."""
+    ``chunk_levelset_scatter`` into the same level sets. Arrays go to
+    ``device`` (``placement.on_device``)."""
+    positions, values, pids, rows, cells, ranks, sub_ijk = on_device(
+        positions, values, pids, rows, cells, ranks, sub_ijk, device=device
+    )
     rasters = chunk_rasters(positions, values, pids, rows, cells, ranks, sub_ijk.shape[0], sd)
     ls = splat_sweep_cuda(
         *rasters, sd.global_grid.cell_size, compact_support_radius, hsc,
@@ -573,7 +583,7 @@ def chunk_mc_counts(ls: torch.Tensor, sd: SubdomainGridParams, iso):
     return nv, nt, nb
 
 
-def chunk_mc(ls, sub_ijk, sd: SubdomainGridParams, iso):
+def chunk_mc(ls, sub_ijk, sd: SubdomainGridParams, iso, device=None):
     """Marching cubes over the (C, P, P, P) level sets of a chunk, the batch
     folded into the flat edge and cell index spaces.
 
@@ -582,8 +592,9 @@ def chunk_mc(ls, sub_ijk, sd: SubdomainGridParams, iso):
     its global edge ((i * npy + j) * npz + k) * 3 + axis, and triangles in
     (subdomain, cell, case-table slot) order with chunk-local vertex
     indices. Edges on a face shared with a neighbour come out of both; the
-    stitch merges them.
+    stitch merges them. Arrays go to ``device`` (``placement.on_device``).
     """
+    ls, sub_ijk = on_device(ls, sub_ijk, device=device)
     dtype, dev = ls.dtype, ls.device
     C, P = ls.shape[0], ls.shape[1]
     g = sd.global_grid
@@ -726,9 +737,10 @@ def chunk_mc_counts_encoded(ls: torch.Tensor, sd: SubdomainGridParams, iso):
     return (word != 0).sum(1), edges.sum(1), count_t[word & 0xFF].sum(1)
 
 
-def chunk_mc_encode(ls: torch.Tensor, sd: SubdomainGridParams, iso,
+def chunk_mc_encode(ls, sd: SubdomainGridParams, iso,
                     pack_point_capacity: Optional[int] = None,
-                    pack_vertex_capacity: Optional[int] = None, quant_t: bool = False):
+                    pack_vertex_capacity: Optional[int] = None, quant_t: bool = False,
+                    device=None):
     """Encoded marching cubes over a (C, P, P, P) chunk: its active owned
     points in (block, local id) order, each a u32 word ``local_id << 11 |
     case (8 bits) | edge bits (3 bits)``, and one edge parameter t per owned
@@ -740,7 +752,9 @@ def chunk_mc_encode(ls: torch.Tensor, sd: SubdomainGridParams, iso,
     Returns (packed u32, t, counts (C,) int64, total_v): with the
     capacities, lists of those sizes (zero past the active points and
     edges) and nothing read back; without them, of their exact sizes. t is
-    u16 (round(t * 65535)) with ``quant_t``."""
+    u16 (round(t * 65535)) with ``quant_t``. An array goes to ``device``
+    (``placement.on_device``)."""
+    ls = on_device(ls, device=device)
     dtype, dev = ls.dtype, ls.device
     C, P = ls.shape[0], ls.shape[1]
     ns = P - 1
@@ -1073,19 +1087,21 @@ def shard_mesh(sharded: Optional[bool], n: int, device: torch.device):
 
 
 def reconstruct_surface_subdomain_grid(
-    positions: torch.Tensor,
+    positions,
     parameters: Parameters,
     grid: UniformGrid,
     particle_inside_aabb: Optional[np.ndarray] = None,
     chunk_bytes: int = CHUNK_BYTES,
     sharded: Optional[bool] = None,
     n_valid: Optional[int] = None,
+    device=None,
 ):
     """Subdomain-grid reconstruction on the positions' device (reference
     subdomains.py:1885). The mesh comes back to the host; the per-particle
     densities stay a device tensor. ``chunk_bytes`` bounds each chunk's
     working set; the result does not depend on it. Rows past ``n_valid``
-    are count-padding dummies: they make no pair and get density 0.
+    are count-padding dummies: they make no pair and get density 0. An
+    array goes to ``device`` (``placement.on_device``).
 
     On one device the route is resident or streamed, as ``use_stream``
     decides. Where ``shard_mesh`` gives a mesh of several devices (real
@@ -1102,6 +1118,7 @@ def reconstruct_surface_subdomain_grid(
     from splashsurf_tpu_torch.parallel.density import compute_particle_densities_sharded
     from splashsurf_tpu_torch.parallel.mesh import DeviceMesh, _levelset_mc_step
 
+    positions = on_device(positions, device=device)
     dev = positions.device
     dtype = positions.dtype
     itemsize = torch.finfo(dtype).bits // 8

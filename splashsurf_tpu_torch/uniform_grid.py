@@ -16,6 +16,7 @@ import torch
 
 from splashsurf_tpu_torch.aabb import Aabb3d
 from splashsurf_tpu_torch.kernels import rounded
+from splashsurf_tpu_torch.placement import on_device
 
 _CELL_CLAMP = float(2**40)
 
@@ -83,23 +84,96 @@ class UniformGrid:
     def n_points(self) -> Tuple[int, int, int]:
         return tuple(c + 1 for c in self.n_cells)
 
+    def ncells_per_dim(self) -> list:
+        """pysplashsurf.pyi parity: cells per dimension as a list."""
+        return list(self.n_cells)
+
+    def npoints_per_dim(self) -> list:
+        """pysplashsurf.pyi:295 parity: points per dimension as a list."""
+        return list(self.n_points)
+
     @property
     def total_cells(self) -> int:
         nx, ny, nz = self.n_cells
         return nx * ny * nz
 
-    def enclosing_cell(self, x: torch.Tensor) -> torch.Tensor:
+    @property
+    def total_points(self) -> int:
+        nx, ny, nz = self.n_points
+        return nx * ny * nz
+
+    def aabb(self) -> Aabb3d:
+        mx = tuple(m + c * self.cell_size for m, c in zip(self.min, self.n_cells))
+        return Aabb3d(self.min, mx)
+
+    # The tensor methods below run on their input's device
+    # (``placement.on_device``: an array goes to ``device``, by default CUDA).
+
+    def point_coordinates(self, ijk, dtype=torch.float32, device=None) -> torch.Tensor:
+        """(..., 3) grid point indices -> (..., 3) coordinates min + ijk *
+        cell_size in ``dtype`` (a torch or numpy float dtype): the product
+        and the sum each rounded, as the reference computes them."""
+        ijk = on_device(ijk, device=device)
+        if not isinstance(dtype, torch.dtype):
+            dtype = getattr(torch, np.dtype(dtype).name)
+        mn = torch.tensor([rounded(m, dtype) for m in self.min], dtype=dtype, device=ijk.device)
+        return mn + ijk.to(dtype) * rounded(self.cell_size, dtype)
+
+    def enclosing_cell(self, x, device=None) -> torch.Tensor:
         """(..., 3) positions -> (..., 3) int64 indices of the cells that
         contain them, floor((x - min) / cell_size) in the positions' dtype.
         Positions outside the grid give indices outside [0, n_cells), as the
         reference's ghost classification needs (dense_subdomains.rs:667);
         they are clamped to +-2^40 only so that far sentinels stay integers."""
+        x = on_device(x, device=device)
         dtype = x.dtype
         mn = torch.tensor([rounded(m, dtype) for m in self.min], dtype=dtype, device=x.device)
         q = torch.floor((x - mn) / rounded(self.cell_size, dtype))
         return q.clamp(-_CELL_CLAMP, _CELL_CLAMP).to(torch.int64)
 
-    def flatten_cell_index(self, ijk: torch.Tensor) -> torch.Tensor:
-        """Flat int64 cell index i*ny*nz + j*nz + k of (..., 3) indices."""
-        _, ny, nz = self.n_cells
+    @staticmethod
+    def _flatten(ijk: torch.Tensor, dims) -> torch.Tensor:
+        _, ny, nz = dims
         return (ijk[..., 0] * ny + ijk[..., 1]) * nz + ijk[..., 2]
+
+    @staticmethod
+    def _unflatten(flat: torch.Tensor, dims) -> torch.Tensor:
+        _, ny, nz = dims
+        return torch.stack([flat // (ny * nz), (flat // nz) % ny, flat % nz], dim=-1)
+
+    def flatten_point_index(self, ijk, device=None) -> torch.Tensor:
+        """Flat point index i*ny*nz + j*nz + k of (..., 3) indices, in
+        their integer dtype (torch keeps it against Python ints)."""
+        return self._flatten(on_device(ijk, device=device), self.n_points)
+
+    def flatten_cell_index(self, ijk, device=None) -> torch.Tensor:
+        """Flat cell index i*ny*nz + j*nz + k of (..., 3) indices, in their
+        integer dtype."""
+        return self._flatten(on_device(ijk, device=device), self.n_cells)
+
+    def unflatten_point_index(self, flat, device=None) -> torch.Tensor:
+        return self._unflatten(on_device(flat, device=device), self.n_points)
+
+    def unflatten_cell_index(self, flat, device=None) -> torch.Tensor:
+        return self._unflatten(on_device(flat, device=device), self.n_cells)
+
+    @staticmethod
+    def _inside(ijk: torch.Tensor, dims) -> torch.Tensor:
+        return torch.all((ijk >= 0) & (ijk < ijk.new_tensor(dims)), dim=-1)
+
+    @staticmethod
+    def _on_boundary(ijk: torch.Tensor, dims) -> torch.Tensor:
+        last = ijk.new_tensor(dims) - 1
+        return torch.any((ijk == 0) | (ijk == last), dim=-1)
+
+    def point_in_grid(self, ijk, device=None) -> torch.Tensor:
+        return self._inside(on_device(ijk, device=device), self.n_points)
+
+    def cell_in_grid(self, ijk, device=None) -> torch.Tensor:
+        return self._inside(on_device(ijk, device=device), self.n_cells)
+
+    def is_boundary_point(self, ijk, device=None) -> torch.Tensor:
+        return self._on_boundary(on_device(ijk, device=device), self.n_points)
+
+    def is_boundary_cell(self, ijk, device=None) -> torch.Tensor:
+        return self._on_boundary(on_device(ijk, device=device), self.n_cells)

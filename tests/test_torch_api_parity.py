@@ -4,6 +4,8 @@
 reference's ``__all__``; every public name that a module of the JAX
 package defines itself resolves on the port's counterpart module, but for
 the written ``NOT_PORTED`` table, whose entries are held absent; every
+public member of the classes it defines is on the port's class, with the
+reference's parameters and defaults, but for ``MEMBERS_NOT_PORTED``; every
 ``SPLASHSURF_TPU_*`` switch that the JAX package reads, the port reads, but
 for the written ``NOT_READ`` table, with the reference's literal default, but
 for ``DEFAULTS_DIFFER``; the debug outputs
@@ -227,9 +229,15 @@ def _parameters(obj):
 
 def _same_default(ref, port) -> bool:
     """Equal defaults; an enum member or a dataclass of the reference equals
-    the port's copy of it when their values do."""
+    the port's copy of it when their values do, and a numpy or ``jnp`` dtype
+    the torch dtype of the same name (dtypes only: no string or None)."""
     if ref is port:
         return True
+    if isinstance(port, torch.dtype) and ref is not None and not isinstance(ref, str):
+        try:
+            return np.dtype(ref).name == str(port).removeprefix("torch.")
+        except TypeError:
+            return False
     if type(ref).__name__ != type(port).__name__:
         return False
     if hasattr(ref, "value") and hasattr(port, "value"):
@@ -289,6 +297,90 @@ def test_signature_not_ported_entries_are_real(entry):
     port = getattr(_port_module(rel), name)
     assert pname in _parameters(ref), entry
     assert pname not in _parameters(port), entry
+
+
+# Public members of the reference's classes that the port's counterpart
+# leaves out on purpose ("module.Class.member"), each with its reason.
+MEMBERS_NOT_PORTED: dict = {}
+
+
+def _class_pairs(module: str):
+    """(key, reference class, port class) of every public class that the
+    reference module defines and the port's counterpart resolves."""
+    rel = _rel(module)
+    ref, port = importlib.import_module(module), _port_module(rel)
+    for name in sorted(_defined_names(ref)):
+        key = f"{rel}.{name}" if rel else name
+        cls = getattr(ref, name)
+        if isinstance(cls, type) and key not in NOT_PORTED and hasattr(port, name):
+            yield key, cls, getattr(port, name)
+
+
+def _member_gaps(module: str) -> list:
+    """The public members (``dir()``, inherited ones included) of the
+    reference module's classes that the port's classes lack, less
+    ``MEMBERS_NOT_PORTED``; a property where the port has a method or the
+    reverse; and the parameters of shared methods that the port lacks, or
+    whose defaults differ (``_same_default``)."""
+    gaps = []
+    for key, theirs, ours in _class_pairs(module):
+        for member in dir(theirs):
+            path = f"{key}.{member}"
+            if member.startswith("_") or path in MEMBERS_NOT_PORTED:
+                continue
+            if not hasattr(ours, member):
+                gaps.append(f"{path} (missing)")
+                continue
+            kinds = [isinstance(inspect.getattr_static(c, member), property) for c in (theirs, ours)]
+            if kinds[0] != kinds[1]:
+                gaps.append(f"{path} (property on one side only)")
+                continue
+            ref_params = None if kinds[0] else _parameters(getattr(theirs, member))
+            port_params = _parameters(getattr(ours, member))
+            for pname, par in (ref_params or {}).items():
+                if par.kind in (par.VAR_POSITIONAL, par.VAR_KEYWORD):
+                    continue
+                if port_params is None or pname not in port_params:
+                    gaps.append(f"{path}:{pname} (missing)")
+                elif par.default is not par.empty and not _same_default(
+                    par.default, port_params[pname].default
+                ):
+                    gaps.append(f"{path}:{pname} (default {par.default!r} != "
+                                f"{port_params[pname].default!r})")
+    return gaps
+
+
+@pytest.mark.parametrize(
+    "module", [m for m in REFERENCE_MODULES if _rel(m) not in NOT_PORTED]
+)
+def test_every_reference_class_member_holds_on_the_port(module):
+    """Every public member of the reference's classes is on the port's
+    class, a property where it is one, with the reference's parameters and
+    defaults, but for ``MEMBERS_NOT_PORTED``."""
+    assert not _member_gaps(module), module
+
+
+def test_members_not_ported_entries_are_real():
+    """The table cannot go stale: each entry names a public member of a
+    reference class that the port's class really lacks."""
+    for entry, why in MEMBERS_NOT_PORTED.items():
+        assert why, entry
+        path, _, member = entry.rpartition(".")
+        rel, _, name = path.rpartition(".")
+        assert member in dir(getattr(importlib.import_module(f"splashsurf_tpu.{rel}"), name))
+        assert not hasattr(getattr(_port_module(rel), name), member), entry
+
+
+def test_the_member_walk_sees_the_value_types():
+    """A spot check: the walk reaches the pysplashsurf-parity value types
+    and the dtype default of ``UniformGrid.point_coordinates``."""
+    keys = {k for m in REFERENCE_MODULES if _rel(m) not in NOT_PORTED for k, _, _ in _class_pairs(m)}
+    assert {"aabb.Aabb3d", "uniform_grid.UniformGrid", "params.Parameters"} <= keys
+    import jax.numpy as jnp
+
+    assert _same_default(jnp.float32, torch.float32) and _same_default(np.float64, torch.float64)
+    assert not _same_default(jnp.float32, torch.float64)
+    assert not _same_default("float32", torch.float32) and not _same_default(None, torch.float32)
 
 
 # The environment switches: the reference's that the port does not read,
