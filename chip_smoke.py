@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phase 19   # phases 0, 1 and 19 alone, no result line
     python3 chip_smoke.py --phase 20   # phases 0, 1 and 20 alone, no result line
     python3 chip_smoke.py --phase 21   # phases 0, 1 and 21 alone, no result line
+    python3 chip_smoke.py --phase 22   # phases 0, 1 and 22 alone, no result line
 
 Phases (each prints progress; any failure raises and exits non-zero):
   0. the card: its name and power limit, torch and CUDA versions;
@@ -158,9 +159,10 @@ Phases (each prints progress; any failure raises and exits non-zero):
  20. the single-dispatch warm frame (run after phase 18), one CUDA graph
      per plan set, at most one live: with ``SPLASHSURF_TPU_MONO_FRAME=1``
      and ``_PREWARM=1`` the planning frame captures the graph and five
-     warm frames of phase 18's ``pts + k 1e-6`` replay it, K1 and K2 once
-     each in a profiler trace of each replay (the wrappers count eager
-     launches only), the replays' device milliseconds between CUDA events,
+     warm frames of phase 18's ``pts + k 1e-6`` replay it once each, its
+     capture having queued K1 and K2 once each (the wrappers count eager
+     launches and captured ones apart; a profiler trace of each replay is
+     logged), the replays' device milliseconds between CUDA events,
      the meshes and densities those of the per-stage frames on the same
      plans bit for bit; the seconds, idle shares, graph pool, capture
      seconds and the planning frame's cost; a caps, a density and a grid
@@ -177,6 +179,15 @@ Phases (each prints progress; any failure raises and exits non-zero):
      ``aabb_from_points``, ``Aabb3d.contains_points`` and the
      ``UniformGrid`` tensor methods on numpy input, each result on the card
      and equal to the tensor call's.
+ 22. the benchmark entry point (run last): ``splashsurf_tpu_torch.bench.main``
+     in-process for the scenes of ``tests/goldens/torch_fullwidth.json``
+     (the default mode in f32 and f64, ``--frames 6``, ``--sparse``, the
+     13.35M dam break in f64) and each ``--stage`` at 3 repeats, from no
+     plan: each JSON line logged
+     with the card's name and power limit, each mesh summary within its
+     bar of the JAX package's, on its route; K1 and K2 launched in the
+     frame modes, K1 once per slab of each ``--sparse`` frame, K2 in
+     ``--stage density``, K1 in ``--stage mc`` (``phase_bench``).
 
 Each kernel's line carries its bound: the larger of the bytes it must move
 (rasters read once, output written once) over 3.35 TB/s and the float
@@ -245,15 +256,9 @@ def log(msg):
     print(msg, flush=True)
 
 
-def wrappers(sk):
-    """Every kernel wrapper of the port, each counting its launches."""
-    return (sk.occupancy_masks_cuda, sk.sweep_global_cuda, sk.bin_occupancy_cuda,
-            sk.density_sweep_cuda, sk.splat_sweep_cuda, sk.pair_sweep_cuda)
-
-
 def reset_launches(sk):
     """Set every kernel's launch count to 0, just before a main path runs."""
-    for fn in wrappers(sk):
+    for fn in sk.WRAPPERS:
         fn.launches = 0
 
 
@@ -698,7 +703,7 @@ def k3_chunk(pt, pts, params, last_chunk=True, streamed=False):
 def phase_k3(pt, dev, canyon, kernels):
     """Phase 6: K3 against its plain version on a chunk of the 8M canyon
     (f32, timed) and on a small f64 canyon chunk."""
-    import bench
+    from splashsurf_tpu_torch import bench
     from splashsurf_tpu_torch.ops import splat_kernels as sk
 
     params = canyon_params(pt)
@@ -806,7 +811,7 @@ def phase_cross_subdomain(pt, dev, dam):
     and against the dense route on the card."""
     from scipy.spatial import cKDTree
 
-    import bench
+    from splashsurf_tpu_torch import bench
 
     params = canyon_params(pt)
     cross = bench.make_canyon(N_CROSS, RADIUS, seed=3)
@@ -923,7 +928,7 @@ def phase_k4(pt, dev, pts, grid, hsc, params, kernels):
     dam break (f32, timed with its mask pre-pass) and of a 20K dam break in
     f64, on occupied query slots; the kernel writes exactly 0 on the empty
     ones. Then edge rasters in f32 and f64."""
-    import bench
+    from splashsurf_tpu_torch import bench
     from splashsurf_tpu_torch.ops import global_sweep as gs
     from splashsurf_tpu_torch.ops import splat_kernels as sk
 
@@ -1278,7 +1283,7 @@ def phase_cli(pt, pts_np, ident):
 def phase_pipeline_cross(pt, dev):
     """Phase 12: the pipeline in f64 and its device ops in f32, CPU against
     CUDA."""
-    import bench
+    from splashsurf_tpu_torch import bench
     from splashsurf_tpu_torch import postprocess as pp
     from splashsurf_tpu_torch.sph_interpolation import (
         SphInterpolator, compute_weighted_neighbor_counts, smooth_step,
@@ -1592,7 +1597,7 @@ def check_streamed_mesh(name, mesh, resident, atomics):
 def phase_streaming(pt, canyon, resident_mesh, ident):
     """Phase 15: the streamed mode of the subdomain route on the 8M canyon
     against phase 7's resident mesh, and the auto gate on a 100K canyon."""
-    import bench
+    from splashsurf_tpu_torch import bench
     from splashsurf_tpu_torch import subdomains as S
     from splashsurf_tpu_torch.ops import splat_kernels as sk
 
@@ -2615,6 +2620,12 @@ TRACED = {"sweep_global": "level_set_tiles", "occupancy_masks": "occupancy_mask_
           "density_sweep": "density_sweep_kernel", "bin_occupancy": "bin_occupancy_kernel"}
 
 
+# what the mono frame's graph holds of the kernels (``frame_graph.kernels``):
+# K1 and K2 and their pre-passes, once each
+GRAPH_KERNELS = {"occupancy_masks_cuda": 1, "sweep_global_cuda": 1, "bin_occupancy_cuda": 1,
+                 "density_sweep_cuda": 1}
+
+
 def traced_launches(kernels):
     """The launches of each kernel of ``TRACED`` among a trace's kernels."""
     return {k: sum(name in e["name"] for e in kernels) for k, name in TRACED.items()}
@@ -2648,12 +2659,14 @@ def phase_mono(pt, pts, params, ident):
     as one CUDA graph per plan set, on phase 18's frames ``pts + k 1e-6``.
 
     (a) With ``SPLASHSURF_TPU_PREWARM=1``, the cold frame 0, whose
-    discarded warm frame captures the graph; then warm frames 1-5, each the
+    discarded warm frame captures the graph; then warm frames 1-5, each one
     replay of that graph: no kernel launched eagerly (the wrappers' counts
     stay 0), ``SPECULATION_STATS`` moved by one frame, no capture, the
-    synchronising calls printed (the one read of the pull at most); the
-    same frame again on the same plans under ``torch.profiler``, whose
-    trace holds K1 and K2 once each and their pre-passes once each. (b)
+    synchronising calls printed (the one read of the pull at most), and the
+    graph holding K1 and K2 and their pre-passes once each (the launches
+    its capture queued, ``frame_graph.kernels``); the same frame again on
+    the same plans under ``torch.profiler``, whose records of those kernels
+    are logged, not held: a trace may lack a replayed kernel's record. (b)
     Each warm frame's mesh and densities against the per-stage warm frame
     (``MONO_FRAME=0``) of the same input on the same plans: equal triangle
     lists and vertices, bit for bit. (c) The seconds of the replayed frames
@@ -2676,7 +2689,7 @@ def phase_mono(pt, pts, params, ident):
     below one pool; the sixth frame's mesh and densities the per-stage
     frame's bit for bit; then that frame three times more, replayed. The
     switches and the plans are restored after. Returns the K1 and K2
-    launches that the traces of (a) hold."""
+    launches that the replays of (a) ran."""
     from splashsurf_tpu_torch import frame_graph as FG
     from splashsurf_tpu_torch import global_pipeline as gp
     from splashsurf_tpu_torch import neighbors as N
@@ -2736,7 +2749,7 @@ def phase_mono(pt, pts, params, ident):
                                          "captures in the planning frame")
             capture_s, pool = FG.STATS["capture_s"], FG.pool_bytes()
             # (a), (b), (c): warm frames, mono then per-stage on the same plans
-            mono_s, stage_s, syncs, span_ms = [], [], [], []
+            mono_s, stage_s, syncs, span_ms, traced = [], [], [], [], []
             for k, f in enumerate(frames[1:], 1):
                 before, replays = dict(SPECULATION_STATS), FG.STATS["replays"]
                 captures = FG.STATS["captures"]
@@ -2745,7 +2758,7 @@ def phase_mono(pt, pts, params, ident):
                 state = plan_state()
                 with replay_spans(FG) as spans:
                     mono, dt, n_sync = frame(f, "1")
-                eager = {fn.__name__: fn.launches for fn in wrappers(sk) if fn.launches}
+                eager = {fn.__name__: fn.launches for fn in sk.WRAPPERS if fn.launches}
                 if eager or outcomes != [True] or len(spans) != 1:
                     raise AssertionError(f"warm frame {k}: eager launches {eager}, outcomes "
                                          f"{outcomes}, {len(spans)} replays")
@@ -2759,16 +2772,20 @@ def phase_mono(pt, pts, params, ident):
                 if n_sync > 1:
                     raise AssertionError(f"warm frame {k}: {n_sync} synchronising calls")
                 mono_s.append(dt)
-                # the same frame on the same plans under the profiler: what
-                # the replay ran
+                # what the replay ran: the launches its graph's capture queued
+                graph = FG.kernels(f.device)
+                if graph != GRAPH_KERNELS:
+                    raise AssertionError(f"warm frame {k}: the replayed graph holds {graph}, "
+                                         f"want {GRAPH_KERNELS}")
+                for name in launches:
+                    launches[name] += graph[name + "_cuda"]
+                # the same frame on the same plans under the profiler: the
+                # records its trace holds of the replay's kernels (logged)
                 restore_plans(state)
                 outcomes.clear()
-                traced = traced_launches(kernel_trace(lambda: frame(f, "1"))[1])
-                if traced != dict.fromkeys(TRACED, 1) or outcomes != [True]:
-                    raise AssertionError(f"warm frame {k} traced: launches {traced}, "
-                                         f"outcomes {outcomes}")
-                for name in launches:
-                    launches[name] += traced[name]
+                traced.append(traced_launches(kernel_trace(lambda: frame(f, "1"))[1]))
+                if outcomes != [True]:
+                    raise AssertionError(f"warm frame {k} traced: outcomes {outcomes}")
                 restore_plans(state)
                 stage, dt, stage_sync = frame(f, "0")
                 stage_s.append(dt)
@@ -2777,9 +2794,13 @@ def phase_mono(pt, pts, params, ident):
             busy = [ms * 1e-3 / s for ms, s in zip(span_ms, mono_s)]
             log(f"  warm frames replayed: seconds {mono_s}, median {statistics.median(mono_s)}; "
                 f"per-stage on the same plans: {stage_s}, median {statistics.median(stage_s)}; "
-                f"no eager launch, and K1, K2 and their pre-passes once each in the trace of "
-                f"each replay; synchronising calls (replayed, per-stage) {syncs}; meshes and "
-                f"densities equal to the per-stage frames bit for bit")
+                f"no eager launch; one replay each of a graph whose capture queued K1, K2 and "
+                f"their pre-passes once each ({GRAPH_KERNELS}); synchronising calls (replayed, "
+                f"per-stage) {syncs}; meshes and densities equal to the per-stage frames bit "
+                f"for bit")
+            short = sum(t != dict.fromkeys(TRACED, 1) for t in traced)
+            log(f"  the profiler's records of those kernels in a trace of each replay: {traced}; "
+                f"{short} of {len(traced)} traces lack a record")
             log(f"  the replays' device span (CUDA events, no profiler): ms {span_ms}, median "
                 f"{statistics.median(span_ms)}; share of the frame's wall time {busy}, median "
                 f"{statistics.median(busy)} ({ident})")
@@ -2980,6 +3001,111 @@ def phase_array_inputs(pt, dev, pts, grid, params, ident):
     return launches
 
 
+# the JAX package's summaries of the meshes the benchmark summarises at full
+# width (written on the CPU by tests/test_torch_bench.py)
+GOLDEN_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens",
+                           "torch_fullwidth.json")
+BENCH_STAGES = ("density", "aabb", "normals", "mc")
+# the scenes of the golden file that phase 22 runs: the default mode in f32
+# and f64, frame 0 of --frames, the canyon of --sparse and the 13.35M dam
+# break in f64. Its f32 mesh is not held: there the port's f32 level set
+# (the kernels' and the plain versions' alike) puts 2 vertices more or less
+# on the surface than the JAX package's, and each is 4-6 away from the f64
+# mesh's counts (tools/fullwidth_count_probe.py), past the bar of equal counts
+BENCH_SCENES = ("dam_break_2m_f32", "dam_break_2m_f64", "frames_2m_frame0", "canyon_8m_f32",
+                "dam_break_13m_f64")
+
+
+def run_bench(bench, argv):
+    """``bench.main(argv)`` in-process: (its JSON line, its result); the
+    line must be the only one it printed on stdout."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = bench.main(argv)
+    lines = buf.getvalue().splitlines()
+    if len(lines) != 1 or json.loads(lines[0]) != out["line"]:
+        raise AssertionError(f"bench {argv} printed {lines}")
+    return lines[0], out
+
+
+def phase_bench(pt, ident):
+    """Phase 22: the benchmark entry point, ``splashsurf_tpu_torch.bench.main``,
+    in-process on the card, from no plan, with the frame's path switches
+    unset: each scene of ``BENCH_SCENES`` with its arguments from
+    ``tests/goldens/torch_fullwidth.json`` (the default mode in f32 and f64,
+    ``--frames 6``, ``--sparse``, the 13.35M dam break in f64), then each
+    ``--stage`` at 3 repeats. Each JSON line is logged with the card's name and power
+    limit; each mesh summary must be within its bar (``bench.BARS``) of the
+    JAX package's, on the JAX package's route; K1 and K2 must launch in the
+    default mode and ``--frames``, K1 once per slab of each frame with
+    ``--sparse``, K2 in ``--stage density`` and K1 in ``--stage mc``.
+    Returns the K1 and K2 launches of the frame modes."""
+    from splashsurf_tpu_torch import bench
+    from splashsurf_tpu_torch import frame_graph as FG
+    from splashsurf_tpu_torch import neighbors as N
+    from splashsurf_tpu_torch.ops import slab_sweep
+    from splashsurf_tpu_torch.ops import splat_kernels as sk
+
+    log(f"phase 22: the benchmark entry point, python -m splashsurf_tpu_torch.bench ({ident})")
+    t_phase = time.perf_counter()
+    with open(GOLDEN_FILE) as f:
+        goldens = json.load(f)
+    totals = {"sweep_global": 0, "density_sweep": 0}
+    runs = [(name, goldens[name]["argv"]) for name in BENCH_SCENES]
+    runs += [(f"stage {s}", ["--stage", s, "--repeats", "3"]) for s in BENCH_STAGES]
+    with switches(SPLASHSURF_TPU_MONO_FRAME=None, SPLASHSURF_TPU_PULL=None,
+                  SPLASHSURF_TPU_DENSITY_CELLRASTER=None, SPLASHSURF_TPU_MC=None):
+        for name, argv in runs:
+            clear_plans()
+            FG.drop()
+            N.reset_geoslot_hysteresis()
+            torch.cuda.synchronize()
+            reset_launches(sk)
+            t0 = time.perf_counter()
+            line, out = run_bench(bench, argv)
+            wall = time.perf_counter() - t0
+            k1, k2 = sk.sweep_global_cuda.launches, sk.density_sweep_cuda.launches
+            log(f"  {' '.join(argv)}: {line} ({ident}); K1 {k1}, K2 {k2}; {wall:.1f} s in all")
+            if name.startswith("stage"):
+                want = {"stage density": ("K2", k2), "stage mc": ("K1", k1)}.get(name)
+                if want is not None and want[1] == 0:
+                    raise AssertionError(f"bench {argv}: {want[0]} was not launched")
+                continue
+            g = goldens[name]
+            args = bench.parse_args(argv)
+            frames = 1 + (args.frames or args.repeats)
+            log(f"    route {out['route']}, warm-up {out['warmup_s']:.4f} s, frame seconds "
+                f"{out['times']}, peak device memory {out.get('peak_bytes')} B; mesh "
+                f"{out['summary']['num_vertices']} vertices, "
+                f"{out['summary']['num_triangles']} triangles")
+            if out["route"] != g["route"]:
+                raise AssertionError(f"bench {argv}: route {out['route']}, the JAX package's "
+                                     f"{g['route']}")
+            if out["route"] == "slab":
+                n_slabs = slab_sweep.LAST_RUN["n_slabs"]
+                if k1 != n_slabs * frames:
+                    raise AssertionError(f"bench {argv}: K1 {k1} launches, want one per slab "
+                                         f"of each frame, {n_slabs} x {frames}")
+                log(f"    {n_slabs} slabs of {slab_sweep.LAST_RUN['slab_w']} cells: K1 once "
+                    f"per slab of each of the {frames} frames")
+            elif k1 < frames or k2 == 0:
+                raise AssertionError(f"bench {argv}: K1 {k1}, K2 {k2} launches in {frames} "
+                                     "frames")
+            gaps = bench.summary_gaps(out["summary"], g["summary"], bench.BARS[g["bar"]])
+            if gaps:
+                raise AssertionError(f"bench {argv}: the mesh summary is outside the "
+                                     f"{g['bar']} bars of the JAX package's: " + "; ".join(gaps))
+            d = {k: out["summary"][k] - g["summary"][k]
+                 for k in ("num_vertices", "num_triangles", "area", "volume")}
+            log(f"    summary within the {g['bar']} bars of the JAX package's: differences {d}")
+            totals["sweep_global"] += k1
+            totals["density_sweep"] += k2
+    log(f"  phase 22 took {time.perf_counter() - t_phase:.1f} s; launches {totals}")
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2991,7 +3117,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    import bench
+    from splashsurf_tpu_torch import bench
     import splashsurf_tpu_torch as pt
     from splashsurf_tpu_torch import neighbors as N
     from splashsurf_tpu_torch.ops import global_sweep as gs
@@ -3029,6 +3155,10 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--phase", "21"]:  # a quick look at phase 21 alone
         phase_array_inputs(pt, dev, pts, grid, params, ident)
+        return 0
+    if sys.argv[1:] == ["--phase", "22"]:  # a quick look at phase 22 alone
+        del pts
+        phase_bench(pt, ident)
         return 0
     if sys.argv[1:] == ["--phase", "19"]:  # a quick look at phase 19 alone
         del pts
@@ -3135,7 +3265,7 @@ def main() -> int:
     more = phase_mono(pt, pts, params, ident)
     for name, n in more.items():
         kernels[name]["launches"] += n
-    log("  launches of phase 4 with phase 20's traced replays added: "
+    log("  launches of phase 4 with phase 20's replays added: "
         + ", ".join(f"{k} {kernels[k]['launches']}" for k in more))
 
     # --- 17. the splat API, padded MC, the hysteresis, the kernel helpers -----
@@ -3202,6 +3332,13 @@ def main() -> int:
     phase_encoded(pt, dev, canyon, pts_np, ident)
     del canyon, canyon_mesh
     phase_neighbors(pt, dev, cross, pts_np, ident)
+
+    # --- 22. the benchmark entry point in every mode --------------------------
+    more = phase_bench(pt, ident)
+    for name, n in more.items():
+        kernels[name]["launches"] += n
+    log("  launches with phase 22's added: "
+        + ", ".join(f"{k} {kernels[k]['launches']}" for k in more))
 
     print(ident, flush=True)
     names = ("sweep_global", "density_sweep", "splat_sweep", "pair_sweep")

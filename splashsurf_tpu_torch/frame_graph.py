@@ -35,9 +35,11 @@ The caller keeps no tensor of a graph past the next frame
 (``global_pipeline`` clones rho and copies the packed buffer to the host),
 so nothing pins a dropped pool.
 
-The kernel wrappers count the launches that run eagerly: a launch queued
-during the capture is not counted, and a replay counts nothing. What a
-replay ran is read from a trace of the card (``chip_smoke.py`` phase 20).
+The kernel wrappers count the launches that run eagerly in
+``<wrapper>.launches``, and a launch queued during a capture apart, in
+``<wrapper>.captured`` (``ops.splat_kernels._count``); a replay counts
+nothing. Each graph records the launches of each kernel that its capture
+queued (``kernels()``): every replay runs each of them once.
 """
 
 from __future__ import annotations
@@ -47,6 +49,8 @@ import time
 import traceback
 
 import torch
+
+from splashsurf_tpu_torch.ops import splat_kernels
 
 # slot -> _FrameGraph; at most one per card
 _GRAPHS: dict = {}
@@ -68,6 +72,8 @@ class _FrameGraph:
     def __init__(self, key):
         self.key = key
         self.graph = self.input = self.out = None
+        # wrapper name -> launches of its kernel that the capture queued
+        self.kernels = {}
 
     def capture(self, fn, positions: torch.Tensor):
         dev = positions.device
@@ -84,6 +90,7 @@ class _FrameGraph:
         self.input = torch.empty_like(positions)
         t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
+        before = splat_kernels.captured_counts()
         try:
             with torch.cuda.graph(self.graph):
                 self.out = fn(self.input)
@@ -97,6 +104,8 @@ class _FrameGraph:
             ) from e
         STATS["captures"] += 1
         STATS["capture_s"] = time.perf_counter() - t0
+        after = splat_kernels.captured_counts()
+        self.kernels = {name: n - before[name] for name, n in after.items() if n != before[name]}
         return out
 
     def replay(self, positions: torch.Tensor):
@@ -133,6 +142,16 @@ def drop(slot=None) -> None:
 def live() -> int:
     """The graphs that are live."""
     return len(_GRAPHS)
+
+
+def kernels(device=None) -> dict:
+    """The kernel launches that the live graph of ``device`` (default: the
+    only live graph) queued when it was captured, by wrapper name: each of
+    its replays runs each of them once."""
+    graphs = [g for g in _GRAPHS.values() if device is None or g.input.device == device]
+    if len(graphs) != 1:
+        raise ValueError(f"{len(graphs)} live graphs on {device}")
+    return dict(graphs[0].kernels)
 
 
 def pool_bytes() -> int:

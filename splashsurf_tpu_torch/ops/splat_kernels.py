@@ -35,7 +35,8 @@ A wrapper given CPU tensors runs the plain version. Given CUDA tensors it
 launches its kernel on the current stream or raises; it never falls back.
 Each wrapper counts its kernel launches in ``<wrapper>.launches``; a launch
 queued while its stream is captured into a CUDA graph runs only where the
-graph is replayed, and is not counted (``_count``).
+graph is replayed, and is counted apart, in ``<wrapper>.captured``
+(``_count``): ``frame_graph`` records what each graph holds from it.
 
 The kernels evaluate q = sqrt(d2) * (2/h) and scale once at the end; the
 plain versions of K1-K3 go through ``kernels.cubic_kernel`` (q = (r + r) / h,
@@ -212,9 +213,12 @@ def _launch(fn, *args):
 
 
 def _count(wrapper) -> None:
-    """Count one launch of ``wrapper``'s kernel, unless the current stream
-    is being captured into a CUDA graph: that launch runs nowhere here."""
-    if not torch.cuda.is_current_stream_capturing():
+    """Count one launch of ``wrapper``'s kernel in ``wrapper.launches``, or,
+    where the current stream is being captured into a CUDA graph (the launch
+    runs nowhere here, once in each replay), in ``wrapper.captured``."""
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.captured += 1
+    else:
         wrapper.launches += 1
 
 
@@ -350,7 +354,7 @@ def occupancy_masks_cuda(fv: torch.Tensor, fractions: bool = False) -> torch.Ten
     return out
 
 
-occupancy_masks_cuda.launches = 0
+occupancy_masks_cuda.launches = occupancy_masks_cuda.captured = 0
 
 
 def _level_set_plain(fx, fy, fz, fv, cell_size, compact_support_radius, hsc, pad, n_points):
@@ -412,7 +416,7 @@ def sweep_global_cuda(fx, fy, fz, fv, cell_size, compact_support_radius, hsc, n_
     return out
 
 
-sweep_global_cuda.launches = 0
+sweep_global_cuda.launches = sweep_global_cuda.captured = 0
 
 
 # ---------------------------------------------------------------------------
@@ -489,7 +493,7 @@ def bin_occupancy_cuda(fx: torch.Tensor) -> torch.Tensor:
     return out
 
 
-bin_occupancy_cuda.launches = 0
+bin_occupancy_cuda.launches = bin_occupancy_cuda.captured = 0
 
 
 def density_sweep_cuda(fx, fy, fz, LX, bin_size, compact_support_radius):
@@ -521,7 +525,7 @@ def density_sweep_cuda(fx, fy, fz, LX, bin_size, compact_support_radius):
     return out
 
 
-density_sweep_cuda.launches = 0
+density_sweep_cuda.launches = density_sweep_cuda.captured = 0
 
 
 # ---------------------------------------------------------------------------
@@ -575,7 +579,7 @@ def splat_sweep_cuda(rx, ry, rz, rv, cell_size, compact_support_radius, hsc, mar
     return out
 
 
-splat_sweep_cuda.launches = 0
+splat_sweep_cuda.launches = splat_sweep_cuda.captured = 0
 
 
 # ---------------------------------------------------------------------------
@@ -691,5 +695,14 @@ def pair_sweep_cuda(fx, fy, fz, cs, h, reach, h_over_cs, pad, n_cells):
     return out
 
 
-pair_sweep_cuda.launches = 0
+pair_sweep_cuda.launches = pair_sweep_cuda.captured = 0
 
+
+# every kernel wrapper, each counting its launches and its captured launches
+WRAPPERS = (occupancy_masks_cuda, sweep_global_cuda, bin_occupancy_cuda, density_sweep_cuda,
+            splat_sweep_cuda, pair_sweep_cuda)
+
+
+def captured_counts() -> dict:
+    """Each wrapper's captured launches so far, by the wrapper's name."""
+    return {fn.__name__: fn.captured for fn in WRAPPERS}

@@ -198,3 +198,73 @@ def _restore(state):
     for live, saved in zip(_plan_dicts(), state):
         live.clear()
         live.update(saved)
+
+
+def test_wrappers_count_captured_launches_apart(monkeypatch):
+    """A launch queued while the stream is captured counts in
+    ``captured``, an eager one in ``launches``."""
+    from splashsurf_tpu_torch.ops import splat_kernels as sk
+
+    fn = sk.sweep_global_cuda
+    monkeypatch.setattr(fn, "launches", 0)
+    monkeypatch.setattr(fn, "captured", 0)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+    sk._count(fn)
+    assert (fn.launches, fn.captured) == (0, 1)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
+    sk._count(fn)
+    assert (fn.launches, fn.captured) == (1, 1)
+    assert set(sk.captured_counts()) == {w.__name__ for w in sk.WRAPPERS}
+    assert sk.captured_counts()["sweep_global_cuda"] == 1
+
+
+def test_a_graph_records_the_launches_its_capture_queued(monkeypatch):
+    """``_FrameGraph.capture`` with the card's stream and graph calls
+    stubbed: the eager run's launches count in ``launches``, the capture's
+    in the graph's ``kernels``, which ``frame_graph.kernels()`` reads."""
+    import contextlib
+
+    from splashsurf_tpu_torch.ops import splat_kernels as sk
+
+    for w in sk.WRAPPERS:
+        monkeypatch.setattr(w, "launches", 0)
+        monkeypatch.setattr(w, "captured", 0)
+    capturing = [False]
+
+    @contextlib.contextmanager
+    def graph(_g):
+        capturing[0] = True
+        try:
+            yield
+        finally:
+            capturing[0] = False
+
+    class Stream:
+        def wait_stream(self, _other):
+            pass
+
+    monkeypatch.setattr(frame_graph, "_warmup_stream", lambda _dev: Stream())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda _dev=None: Stream())
+    monkeypatch.setattr(torch.cuda, "stream", lambda _s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: "graph")
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing[0])
+    monkeypatch.setattr(torch.Tensor, "record_stream", lambda _t, _s: None)
+
+    def frame(positions):
+        sk._count(sk.occupancy_masks_cuda)
+        sk._count(sk.sweep_global_cuda)
+        sk._count(sk.density_sweep_cuda)
+        return (positions * 2.0,)
+
+    frame_graph.drop()
+    try:
+        frame_graph.run("slot", "key", frame, torch.zeros(5, 3))
+        want = {"occupancy_masks_cuda": 1, "sweep_global_cuda": 1, "density_sweep_cuda": 1}
+        assert frame_graph.kernels() == want
+        assert frame_graph.kernels(torch.device("cpu")) == want
+        assert {w.__name__: w.launches for w in sk.WRAPPERS if w.launches} == want  # eager run
+        with pytest.raises(ValueError):
+            frame_graph.kernels(torch.device("cuda", 0))
+    finally:
+        frame_graph.drop()
