@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from splashsurf_tpu_torch.placement import on_device
+from splashsurf_tpu_torch.profiling import to_host
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,8 +28,7 @@ class Aabb3d:
         """Smallest AABB enclosing the (N, 3) points. A tensor is reduced on
         its own device and only the two corners come to the host."""
         if isinstance(points, torch.Tensor):
-            lo, hi = torch.aminmax(points, dim=0)
-            lo, hi = lo.cpu().numpy(), hi.cpu().numpy()
+            lo, hi = to_host(torch.stack(torch.aminmax(points, dim=0))).numpy()
         else:
             points = np.asarray(points)
             lo, hi = points.min(axis=0), points.max(axis=0)

@@ -48,6 +48,7 @@ from splashsurf_tpu_torch.mesh import TriMesh3d
 from splashsurf_tpu_torch.ops import global_sweep as gs
 from splashsurf_tpu_torch.params import Parameters
 from splashsurf_tpu_torch.placement import on_device
+from splashsurf_tpu_torch.profiling import profile, redo_span
 from splashsurf_tpu_torch.reconstruction import GridPlanMiss, SurfaceReconstruction
 from splashsurf_tpu_torch.uniform_grid import UniformGrid, kernel_extents
 
@@ -85,16 +86,20 @@ def _cellrast_frame(positions: torch.Tensor, parameters: Parameters, grid: Unifo
     and the caller runs the legacy densities. A deferred pull reports an
     overflow as a redo."""
     h = parameters.compact_support_radius
-    fracs, n_over, meta = gs.rasterize_global(positions, None, grid, 2, hsc, 0, with_meta=True)
-    reach = int(math.ceil(h / grid.cell_size - 1e-9))
-    fv, rho = gs.density_weights_from_rasters(
-        *fracs, *meta, parameters.particle_rest_mass, h, grid, hsc, reach,
-        h / grid.cell_size,
-    )
+    with profile("cellraster densities"):
+        fracs, n_over, meta = gs.rasterize_global(
+            positions, None, grid, 2, hsc, 0, with_meta=True
+        )
+        reach = int(math.ceil(h / grid.cell_size - 1e-9))
+        fv, rho = gs.density_weights_from_rasters(
+            *fracs, *meta, parameters.particle_rest_mass, h, grid, hsc, reach,
+            h / grid.cell_size,
+        )
     neighbors.LAST_GATE.clear()
     neighbors.LAST_GATE.update(kind="cellraster", n=positions.shape[0])
     none = positions.new_empty(0)
-    ls = gs.sweep_global(fracs + (fv,), (none,) * 4, grid, h, hsc)
+    with profile("dense level set"):
+        ls = gs.sweep_global(fracs + (fv,), (none,) * 4, grid, h, hsc)
     del fracs, fv
     okey = (grid.n_points, positions.shape[0])
     checks = (grid_check,) if grid_check is not None else ()
@@ -117,33 +122,35 @@ def _legacy_frame(positions: torch.Tensor, parameters: Parameters, grid: Uniform
                   hsc: int, grid_check, defer_pull: bool):
     """The dense frame with the density stage (reference
     global_pipeline.py:425-490): (pull, rho). The densities run on their
-    plan; a density miss clears it and runs the frame again, a grid miss
-    raises GridPlanMiss."""
+    plan; a density miss clears it and runs the frame again ("redo
+    density"), a grid miss raises GridPlanMiss."""
     h = parameters.compact_support_radius
-    for _ in range(2):
-        rho, check = neighbors.compute_particle_densities(
-            positions, h, parameters.particle_rest_mass, speculate=True
-        )
-        values = kernels.rounded(parameters.particle_rest_mass, rho.dtype) / rho
-        pairs = [("density", check), ("grid", grid_check)]
-        labels = tuple(name for name, c in pairs if c is not None)
-        checks = tuple(c for _, c in pairs if c is not None)
-        try:
-            out = gs.reconstruct_global_dense(
-                positions, values, grid, h, hsc, parameters.iso_surface_threshold,
-                deferred_checks=checks, defer_pull=defer_pull, check_labels=labels,
-            )
-            if not defer_pull:
-                verts, tris = out
-                out = gs.PendingPull(lambda: ("ok", verts, tris), [])
-            return out, rho
-        except gs.SpeculationMiss as e:
-            failed = {labels[i] for i, ok in enumerate(e.flags) if not ok}
-            if "grid" in failed:
-                SPECULATION_STATS["grid_miss"] += 1
-                raise GridPlanMiss(str(e)) from e
-            SPECULATION_STATS["density_miss"] += 1
-            neighbors.clear_density_plan()
+    for attempt in range(2):
+        with redo_span("density", attempt):
+            with profile("compute particle densities"):
+                rho, check = neighbors.compute_particle_densities(
+                    positions, h, parameters.particle_rest_mass, speculate=True
+                )
+                values = kernels.rounded(parameters.particle_rest_mass, rho.dtype) / rho
+            pairs = [("density", check), ("grid", grid_check)]
+            labels = tuple(name for name, c in pairs if c is not None)
+            checks = tuple(c for _, c in pairs if c is not None)
+            try:
+                out = gs.reconstruct_global_dense(
+                    positions, values, grid, h, hsc, parameters.iso_surface_threshold,
+                    deferred_checks=checks, defer_pull=defer_pull, check_labels=labels,
+                )
+                if not defer_pull:
+                    verts, tris = out
+                    out = gs.PendingPull(lambda: ("ok", verts, tris), [])
+                return out, rho
+            except gs.SpeculationMiss as e:
+                failed = {labels[i] for i, ok in enumerate(e.flags) if not ok}
+                if "grid" in failed:
+                    SPECULATION_STATS["grid_miss"] += 1
+                    raise GridPlanMiss(str(e)) from e
+                SPECULATION_STATS["density_miss"] += 1
+                neighbors.clear_density_plan()
     raise RuntimeError(
         "the density plan missed twice in a row; the second frame plans from "
         "scratch, so a plan was not invalidated"
@@ -281,13 +288,14 @@ def _try_warm_frame(positions: torch.Tensor, parameters: Parameters, grid: Unifo
         _warm_frame, parameters=parameters, grid=grid, hsc=hsc, dplan=dplan, ofc=ofc,
         caps=caps, pull_plan=pull_plan,
     )
-    if dev.type == "cuda":
-        buf, rho, layout, mode = frame_graph.run(slot, fkey, frame, positions)
-        rho = rho.clone()  # the next replay overwrites the graph's own
-    else:
-        buf, rho, layout, mode = frame(positions)
-    checks = [grid_check] if grid_check is not None else []
-    host_buf, *host_checks = gs.PendingPull(None, [buf] + checks).host_parts()
+    with profile("warm frame"):  # one span: a graph's replay cannot be split
+        if dev.type == "cuda":
+            buf, rho, layout, mode = frame_graph.run(slot, fkey, frame, positions)
+            rho = rho.clone()  # the next replay overwrites the graph's own
+        else:
+            buf, rho, layout, mode = frame(positions)
+        checks = [grid_check] if grid_check is not None else []
+        host_buf, *host_checks = gs.PendingPull(None, [buf] + checks).host_parts()
     sc, *host = gs.unpack_parts(host_buf, layout)
     if host_checks and not bool(host_checks[0]):
         LAST_WARM["outcome"] = "grid"
@@ -393,7 +401,8 @@ class DeferredMesh:
         out = self.pull.resolve()
         if out[0] == "ok":
             return TriMesh3d(vertices=out[1].numpy(), triangles=out[2].numpy())
-        again = self.redo(out[0])
+        with profile("redo deferred"):
+            again = self.redo(out[0])
         self.rec.grid = again.grid
         self.rec.particle_densities = again.particle_densities
         return again.mesh

@@ -43,6 +43,7 @@ from splashsurf_tpu_torch import kernels
 from splashsurf_tpu_torch.aabb import Aabb3d
 from splashsurf_tpu_torch.ops.splat_kernels import density_sweep_cuda
 from splashsurf_tpu_torch.placement import on_device
+from splashsurf_tpu_torch.profiling import to_host
 
 # Largest materializable bin lattice for the raster/geoslot formulations.
 GATE_LATTICE_MAX = 8_000_000
@@ -166,7 +167,7 @@ def _bin_stats_device(sorted_bins: torch.Tensor) -> torch.Tensor:
 def bin_stats_ex(cell_list: CellList) -> Tuple[int, int, int]:
     """(max occupancy, occupied bins, particles with bin rank >= 8), read
     back to the host in one transfer."""
-    mx, u, o8 = _bin_stats_device(cell_list.sorted_bins).tolist()
+    mx, u, o8 = to_host(_bin_stats_device(cell_list.sorted_bins)).tolist()
     return int(mx), int(u), int(o8)
 
 
@@ -342,7 +343,7 @@ def _octant_phase(positions: torch.Tensor, period: float) -> np.ndarray:
         frac = x - s * torch.floor(x / s)
         ang = frac * (2.0 * math.pi) / s
         phis.append(torch.atan2(torch.sin(ang).sum(), torch.cos(ang).sum()))
-    return (torch.stack(phis) / (2.0 * math.pi) * s).cpu().numpy()
+    return to_host(torch.stack(phis) / (2.0 * math.pi) * s).numpy()
 
 
 def _phase_aligned_bingrid(aabb_min, aabb_max, bin_size: float, phases) -> BinGrid:
@@ -804,8 +805,7 @@ def compute_particle_densities(
         )
         return rho, None
 
-    lo, hi = torch.aminmax(positions, dim=0)
-    mn, mx = lo.cpu().numpy(), hi.cpu().numpy()
+    mn, mx = to_host(torch.stack(torch.aminmax(positions, dim=0))).numpy()
     grid = BinGrid.for_domain(mn, mx, compact_support_radius)
     cl = build_cell_list(positions, grid)
     max_occ, n_bins, over8 = bin_stats_ex(cl)
@@ -836,7 +836,7 @@ def compute_particle_densities(
             rho, ok = compute_particle_densities_geoslot(
                 positions, agrid, compact_support_radius, particle_rest_mass
             )
-            ok = bool(ok)
+            ok = bool(to_host(ok))
             _note_geoslot_outcome(ok)
             if ok:
                 note_formulation("single", "geoslot")

@@ -45,6 +45,7 @@ as in the reference they are XLA code.
 from __future__ import annotations
 
 import functools
+import itertools
 import os
 import time
 from typing import Optional, Tuple
@@ -58,6 +59,7 @@ from splashsurf_tpu_torch.mc import lut
 from splashsurf_tpu_torch.mc.dense import _case_indices, _local_edge_coeffs, edge_layout, lut_tensors
 from splashsurf_tpu_torch.ops.splat_kernels import pair_sweep_cuda, sweep_global_cuda
 from splashsurf_tpu_torch.placement import on_device
+from splashsurf_tpu_torch.profiling import profile, read_back, redo_span, to_host
 from splashsurf_tpu_torch.uniform_grid import UniformGrid
 
 
@@ -922,31 +924,37 @@ class PendingPull:
     hands the host copies of ``arrs`` to ``fn``, which returns ``("ok",
     vertices, triangles)`` as host tensors, or ``("redo",)`` /
     ``("redo_grid",)`` where a deferred check failed and the frame must run
-    again."""
+    again. The pack and the copy's start, and the wait, are "mesh pull"
+    spans; the wait, on any device, is one read-back."""
 
     def __init__(self, fn, arrs):
         self._fn = fn
         self._event = None
         self._host = list(arrs)
+        self._unread = bool(arrs)
         if not arrs or arrs[0].device.type != "cuda":
             return
         dev = arrs[0].device
-        buf, self._layout = pack_parts(arrs)
-        stream = _copy_stream(dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
-            self._buf = torch.empty(buf.shape, dtype=torch.uint8, pin_memory=True)
-            self._buf.copy_(buf, non_blocking=True)
-            buf.record_stream(stream)
-            self._event = torch.cuda.Event()
-            self._event.record(stream)
+        with profile("mesh pull"):
+            buf, self._layout = pack_parts(arrs)
+            stream = _copy_stream(dev)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                self._buf = torch.empty(buf.shape, dtype=torch.uint8, pin_memory=True)
+                self._buf.copy_(buf, non_blocking=True)
+                buf.record_stream(stream)
+                self._event = torch.cuda.Event()
+                self._event.record(stream)
 
     def host_parts(self):
         """The parts on the host (waits for the copy)."""
-        if self._event is not None:
-            self._event.synchronize()
-            self._event = None
-            self._host = unpack_parts(self._buf, self._layout)
+        if self._unread:
+            self._unread = False
+            with profile("mesh pull"), read_back():
+                if self._event is not None:
+                    self._event.synchronize()
+                    self._event = None
+                    self._host = unpack_parts(self._buf, self._layout)
         return self._host
 
     def resolve(self):
@@ -971,7 +979,9 @@ def reconstruct_global_dense(
     The frame runs on the overflow plan of its (grid, N), by default N / 64
     rounded up to a power of two (at least 4096), and on the MC and pull
     plans of its (grid, dtype) (``_finish_global_dense``); a raster
-    overflow past the plan's capacity grows the plan and rasterizes again.
+    overflow past the plan's capacity grows the plan and rasterizes again,
+    in a "redo overflow" span. The stages are the spans "dense raster" and
+    "dense level set", and those of ``_finish_global_dense``.
     ``deferred_checks`` (device bools, such as the density and grid plans'
     checks, named by ``check_labels``) come back with the mesh totals; a
     False one raises :class:`SpeculationMiss`. With ``defer_pull`` returns
@@ -985,22 +995,29 @@ def reconstruct_global_dense(
     ocap = _OVER_PLAN.get(okey)
     if ocap is None:
         ocap = _pow2(n // 64, lo=4096)
-    for _ in range(4):
-        rasters, overflow, n_over = rasterize_global(positions, values, grid, slots, hsc, ocap)
-        if okey not in _OVER_PLAN:
-            # no plan yet: this frame reads counts back anyway, so it splats
-            # the real rows only (the sums are those of the whole list)
-            overflow = tuple(c[: int(n_over)] for c in overflow)
-        ls = sweep_global(rasters, overflow, grid, compact_support_radius, hsc)
-        del rasters, overflow
-        out = _finish_global_dense(
-            ls, grid, iso, okey, ocap, n_over, deferred_checks, defer_pull, check_labels,
-            over_max=_pow2(n),
-        )
-        if out is not None:
-            return out if defer_pull else out.resolve()[1:]
-        # the level set misses the dropped overflow splats: the plan has grown
-        ocap = _OVER_PLAN[okey]
+    for attempt in range(4):
+        with redo_span("overflow", attempt):
+            with profile("dense raster"):
+                rasters, overflow, n_over = rasterize_global(
+                    positions, values, grid, slots, hsc, ocap
+                )
+                if okey not in _OVER_PLAN:
+                    # no plan yet: this frame reads counts back anyway, so it
+                    # splats the real rows only (the sums are those of the
+                    # whole list)
+                    real = int(to_host(n_over))
+                    overflow = tuple(c[:real] for c in overflow)
+            with profile("dense level set"):
+                ls = sweep_global(rasters, overflow, grid, compact_support_radius, hsc)
+            del rasters, overflow
+            out = _finish_global_dense(
+                ls, grid, iso, okey, ocap, n_over, deferred_checks, defer_pull, check_labels,
+                over_max=_pow2(n),
+            )
+            if out is not None:
+                return out if defer_pull else out.resolve()[1:]
+            # the level set misses the dropped overflow splats: the plan has grown
+            ocap = _OVER_PLAN[okey]
     raise RuntimeError(f"raster overflow exceeded capacity {ocap} after retries")
 
 
@@ -1105,52 +1122,58 @@ def _finish_global_dense(ls, grid: UniformGrid, iso, okey, overflow_capacity, n_
     exactly as they do, and reports the miss as a redo. Otherwise the
     checks run here: a False deferred check raises
     :class:`SpeculationMiss`, and then ``_check_plans``: an MC total past
-    its capacity grows the capacities and runs MC again (``caps_retry``); a
-    stream past its bucket is copied again at its exact size.
+    its capacity grows the capacities and runs MC again (``caps_retry``, in
+    a "redo caps" span); a stream past its bucket is copied again at its
+    exact size. Marching cubes and the streams' cut are the span "dense
+    mc"; the copy is ``PendingPull``'s "mesh pull".
     """
     iso = kernels.rounded(iso, ls.dtype)
     key = (grid.n_points, str(ls.dtype))
     f64 = lambda x: x.reshape(1).to(torch.float64)
     tail = [f64(n_over), f64(ls.max())] + [f64(c) for c in deferred_checks]
-    while True:
-        caps = _MC_CAPS.get(key)
-        streams, totals = _dense_mc(ls, grid, iso, caps)
-        plans = _PULL_PLAN_ENC if streams.mode == "encoded" else _PULL_PLAN
-        if caps is None:
-            nv, nt = totals[:2].tolist()
-            caps = (_bucket16(nv * 5 // 4), _bucket16(nt * 5 // 4))
-            _MC_CAPS[key] = caps
-        vcap, tcap = caps
-        scalars = torch.cat([totals.to(torch.float64)] + tail)
-        plan = plans.get(key)
-        if plan is not None and plan[0] <= vcap and plan[1] <= tcap:
-            pull_parts = [scalars] + streams.parts(*plan)
-            if defer_pull:
-                return PendingPull(functools.partial(
-                    _resolve_deferred, streams=streams, iso=iso, caps=caps, key=key,
-                    okey=okey, overflow_capacity=overflow_capacity,
-                    check_labels=check_labels,
-                ), pull_parts)
-            sc, *host = PendingPull(None, pull_parts).host_parts()
-        else:
-            sc, host = scalars.cpu(), None
-        flags = sc[5:].tolist()
-        if not all(flags):
-            raise SpeculationMiss([bool(f) for f in flags])
-        outcome, (total_v, total_t, total_c, n2) = _check_plans(
-            sc, okey=okey, ocap=overflow_capacity, key=key, caps=caps, plans=plans,
-            second=streams.second, iso=iso,
-            pulled=None if host is None else (host[0].shape[0], host[1].shape[0]),
-            over_max=over_max,
-        )
-        if outcome == "overflow":
-            return None
-        if outcome == "caps":
-            continue
-        if outcome == "bucket":
-            exact = streams.parts(total_v, n2)
-            return PendingPull(lambda *h: streams.mesh(h, total_v, total_t, total_c), exact)
-        return PendingPull(lambda: streams.mesh(host, total_v, total_t, total_c), [])
+    for attempt in itertools.count():
+        with redo_span("caps", attempt):
+            with profile("dense mc"):
+                caps = _MC_CAPS.get(key)
+                streams, totals = _dense_mc(ls, grid, iso, caps)
+                plans = _PULL_PLAN_ENC if streams.mode == "encoded" else _PULL_PLAN
+                if caps is None:
+                    nv, nt = to_host(totals[:2]).tolist()
+                    caps = (_bucket16(nv * 5 // 4), _bucket16(nt * 5 // 4))
+                    _MC_CAPS[key] = caps
+                vcap, tcap = caps
+                scalars = torch.cat([totals.to(torch.float64)] + tail)
+                plan = plans.get(key)
+                planned = plan is not None and plan[0] <= vcap and plan[1] <= tcap
+                if planned:
+                    pull_parts = [scalars] + streams.parts(*plan)
+            if planned:
+                if defer_pull:
+                    return PendingPull(functools.partial(
+                        _resolve_deferred, streams=streams, iso=iso, caps=caps, key=key,
+                        okey=okey, overflow_capacity=overflow_capacity,
+                        check_labels=check_labels,
+                    ), pull_parts)
+                sc, *host = PendingPull(None, pull_parts).host_parts()
+            else:
+                sc, host = to_host(scalars), None
+            flags = sc[5:].tolist()
+            if not all(flags):
+                raise SpeculationMiss([bool(f) for f in flags])
+            outcome, (total_v, total_t, total_c, n2) = _check_plans(
+                sc, okey=okey, ocap=overflow_capacity, key=key, caps=caps, plans=plans,
+                second=streams.second, iso=iso,
+                pulled=None if host is None else (host[0].shape[0], host[1].shape[0]),
+                over_max=over_max,
+            )
+            if outcome == "overflow":
+                return None
+            if outcome == "caps":
+                continue
+            if outcome == "bucket":
+                exact = streams.parts(total_v, n2)
+                return PendingPull(lambda *h: streams.mesh(h, total_v, total_t, total_c), exact)
+            return PendingPull(lambda: streams.mesh(host, total_v, total_t, total_c), [])
 
 
 def _check_plans(sc, *, okey, ocap, key, caps, plans, second, iso, pulled=None, count=True,

@@ -8,6 +8,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from splashsurf_tpu_torch.profiling import profile
+
 
 def check_device(have: torch.device, device) -> None:
     """ValueError where an explicit ``device`` disagrees with ``have``."""
@@ -55,8 +57,9 @@ def as_device_tensor(x, device, dtype: torch.dtype) -> torch.Tensor:
     """An entry point's input under ``on_device``'s rule, in ``dtype``: a
     tensor is cast on its own device (the same object where its dtype is
     ``dtype``); an array is cast on the host before its copy, so only
-    ``dtype``'s bytes cross to the card."""
+    ``dtype``'s bytes cross to the card, in an "upload" span."""
     if isinstance(x, torch.Tensor):
         check_device(x.device, device)
         return x.to(dtype)
-    return torch.as_tensor(np.asarray(x), dtype=dtype, device=_default_device(device))
+    with profile("upload"):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=_default_device(device))

@@ -13,6 +13,17 @@ Usage:
         with profile("compute densities"):
             ...
     print(profiling.write_to_string())
+
+A scope is also a span. While a ``torch.profiler`` trace runs, it records
+a host event under its name (``_RecordFunctionFast``, a "cpu_op"), so the
+trace holds it beside the device's kernels on one clock; a
+``record_function`` annotation would also put a copy of the span on the
+device's timeline, where it reads as device work. While the recorder is on
+(``record_spans``), it adds its host seconds and, on a card, the seconds
+of the current stream between a CUDA event at its entry and one at its
+exit to the totals of its name (``span_totals``); it never synchronises.
+Off, both cost one flag check each. The dense route's reads of the card go
+through ``read_back`` / ``to_host``, which count them in ``COUNTERS``.
 """
 
 from __future__ import annotations
@@ -23,6 +34,7 @@ import time
 from typing import Dict, List, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 class _Scope:
@@ -55,25 +67,29 @@ class Profiler:
 
     @contextlib.contextmanager
     def scope(self, name: str, block_on=None):
-        if not self.enabled:
-            yield
-            return
-        stack = self._stack()
-        parent = stack[-1]
-        node = parent.children.get(name)
-        if node is None:
-            node = _Scope(name, parent)
-            parent.children[name] = node
-        stack.append(node)
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if block_on is not None:
-                block_on_devices(block_on)
-            node.total += time.perf_counter() - t0
-            node.count += 1
-            stack.pop()
+        span = _NO_SPAN
+        if _RECORDER is not None or _autograd_profiler._is_profiler_enabled:
+            span = _Span(name)
+        with span:
+            if not self.enabled:
+                yield
+                return
+            stack = self._stack()
+            parent = stack[-1]
+            node = parent.children.get(name)
+            if node is None:
+                node = _Scope(name, parent)
+                parent.children[name] = node
+            stack.append(node)
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                if block_on is not None:
+                    block_on_devices(block_on)
+                node.total += time.perf_counter() - t0
+                node.count += 1
+                stack.pop()
 
     def reset(self):
         with self._roots_lock:
@@ -133,6 +149,163 @@ def reset():
 
 def enable(on: bool = True):
     _PROFILER.enabled = on
+
+
+# The group of the spans named "redo <plan>" in ``span_totals``: those that
+# no other redo span encloses, so that nested repeats count once.
+REDO = "redo"
+
+
+class _Recorder:
+    """The span totals of one recording (``record_spans``): per name, the
+    count, host seconds and device seconds of the spans that no span of the
+    same name encloses, and under ``REDO`` those of the redo spans that no
+    other redo span encloses. On a CUDA device a span's device seconds are
+    the current stream's from a CUDA event recorded at its entry to one at
+    its exit: from the end of the work queued before the span to the end of
+    the work queued inside it, idle time included. A span entered while the
+    stream is being captured into a CUDA graph records no event and adds no
+    device time. Elsewhere device seconds are host seconds."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.timed = device.type == "cuda"
+        self.totals: Dict[str, List[float]] = {}
+        self.events: list = []  # (keys, start, end) not yet resolved
+        self.lock = threading.Lock()
+        self.local = threading.local()
+
+    def _open(self) -> List[str]:
+        if not hasattr(self.local, "open"):
+            self.local.open = []
+        return self.local.open
+
+    def enter(self, name: str):
+        open_ = self._open()
+        keys = [] if name in open_ else [name]
+        if name.startswith(REDO + " ") and not any(n.startswith(REDO + " ") for n in open_):
+            keys.append(REDO)
+        open_.append(name)
+        start = None
+        if self.timed and keys and not torch.cuda.is_current_stream_capturing():
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(torch.cuda.current_stream(self.device))
+        return keys, start, time.perf_counter()
+
+    def exit(self, token) -> None:
+        keys, start, t0 = token
+        host = time.perf_counter() - t0
+        self._open().pop()
+        end = None
+        if start is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(torch.cuda.current_stream(self.device))
+        with self.lock:
+            for key in keys:
+                tot = self.totals.setdefault(key, [0, 0.0, 0.0])
+                tot[0] += 1
+                tot[1] += host
+                if not self.timed:
+                    tot[2] += host
+            if end is not None:
+                self.events.append((keys, start, end))
+
+    def read(self) -> Dict[str, Dict[str, float]]:
+        with self.lock:
+            events, self.events = self.events, []
+            for keys, start, end in events:
+                s = start.elapsed_time(end) / 1e3
+                for key in keys:
+                    self.totals[key][2] += s
+            return {k: {"count": int(c), "host_s": h, "device_s": d}
+                    for k, (c, h, d) in self.totals.items()}
+
+
+class _Span:
+    """What a scope adds while a trace or the recorder is on: the trace's
+    host event, the recorder's totals."""
+
+    __slots__ = ("name", "recorder", "annotation", "token")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.recorder = _RECORDER
+        self.annotation = None
+
+    def __enter__(self):
+        if _autograd_profiler._is_profiler_enabled:
+            self.annotation = torch._C._profiler._RecordFunctionFast(self.name)
+            self.annotation.__enter__()
+        if self.recorder is not None:
+            self.token = self.recorder.enter(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        if self.recorder is not None:
+            self.recorder.exit(self.token)
+        if self.annotation is not None:
+            self.annotation.__exit__(*exc)
+        return False
+
+
+_NO_SPAN = contextlib.nullcontext()
+_RECORDER: Optional[_Recorder] = None
+_LAST_RECORDER: Optional[_Recorder] = None
+
+
+def record_spans(on: bool, device=None) -> None:
+    """Turn the span recorder on, with fresh totals, or off (its totals
+    stay readable). ``device``: whose current stream times the spans, by
+    default the current CUDA device where CUDA is available, else the CPU
+    (device seconds = host seconds)."""
+    global _RECORDER, _LAST_RECORDER
+    if not on:
+        _RECORDER = None
+        return
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    _RECORDER = _LAST_RECORDER = _Recorder(device)
+
+
+def span_totals() -> Dict[str, Dict[str, float]]:
+    """{name: {"count", "host_s", "device_s"}} of the current recording, or
+    of the last one where the recorder is off; ``REDO`` is the group of the
+    redo spans (``_Recorder``). On a card, synchronise first: the device
+    seconds are read from the spans' CUDA events, which must have
+    completed."""
+    return {} if _LAST_RECORDER is None else _LAST_RECORDER.read()
+
+
+# Program counters, always on. "readbacks": the reads of the card by the
+# host on the dense route (``read_back``), each a wait for the device.
+COUNTERS: Dict[str, int] = {"readbacks": 0}
+_COUNTERS_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def read_back():
+    """A read of the device by the host: counted in
+    ``COUNTERS["readbacks"]``, and a "read back" span."""
+    with _COUNTERS_LOCK:
+        COUNTERS["readbacks"] += 1
+    with profile("read back"):
+        yield
+
+
+def redo_span(plan: str, attempt: int):
+    """The span of an attempt that a miss of ``plan`` makes the program
+    repeat: "redo <plan>" from the second attempt (``attempt`` > 0) on,
+    none around the first."""
+    return profile(f"{REDO} {plan}") if attempt else _NO_SPAN
+
+
+def to_host(x: torch.Tensor) -> torch.Tensor:
+    """``x.cpu()`` as one counted read-back (``read_back``)."""
+    with read_back():
+        return x.cpu()
 
 
 class StageClock:

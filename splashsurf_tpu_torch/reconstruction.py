@@ -36,6 +36,7 @@ from splashsurf_tpu_torch.mesh import TriMesh3d
 from splashsurf_tpu_torch.neighbors import NeighborhoodLists
 from splashsurf_tpu_torch.params import Parameters, SpatialDecomposition
 from splashsurf_tpu_torch.placement import as_device_tensor
+from splashsurf_tpu_torch.profiling import profile, redo_span, to_host
 from splashsurf_tpu_torch.uniform_grid import UniformGrid, kernel_extents
 
 # The dense route's guard: the largest grid it materializes
@@ -244,6 +245,14 @@ def reconstruct_surface(
     discarded frame would build nothing, and none runs. An error in it
     raises.
     """
+    with profile("frame"):
+        return _reconstruct_surface(particle_positions, parameters, device, _defer_pull)
+
+
+def _reconstruct_surface(particle_positions, parameters: Parameters, device,
+                         _defer_pull: bool) -> SurfaceReconstruction:
+    """``reconstruct_surface`` inside its "frame" span; a second attempt,
+    after the grid plan missed, inside "redo grid"."""
     from splashsurf_tpu_torch.global_pipeline import (
         DeferredMesh, mono_frame_on, reconstruct_surface_global,
     )
@@ -264,8 +273,9 @@ def reconstruct_surface(
     inside_aabb = None
     if parameters.particle_aabb is not None:
         mask = parameters.particle_aabb.contains_points(positions)
-        inside_aabb = mask.cpu().numpy()
-        positions = positions[mask]
+        inside_aabb = to_host(mask).numpy()
+        # the count is on the host now: no second read for the selection
+        positions = positions[kernels.compact_indices(mask, int(inside_aabb.sum()))]
 
     gkey = None
     if isinstance(particle_positions, torch.Tensor) and parameters.particle_aabb is None:
@@ -276,55 +286,57 @@ def reconstruct_surface(
     rec = None
     planned_cold = False
     for attempt in range(2):
-        cached = (
-            attempt == 0 and gkey is not None and gkey in _GRID_PLAN
-            and gkey not in _GRID_NOSPEC
-        )
-        grid_check = None
-        if cached:
-            grid, raw_nc = _GRID_PLAN[gkey]
-            grow = parameters.particle_radius + kernel_extents(
-                parameters.compact_support_radius, parameters.cube_size
-            ).kernel_evaluation_radius
-            grid_check = _grid_check_device(positions, grid, grow, raw_nc)
-        else:
-            grid = grid_for_reconstruction(
-                positions,
-                parameters.particle_radius,
-                parameters.compact_support_radius,
-                parameters.cube_size,
-                parameters.particle_aabb,
+        with redo_span("grid", attempt):
+            cached = (
+                attempt == 0 and gkey is not None and gkey in _GRID_PLAN
+                and gkey not in _GRID_NOSPEC
             )
-            raw_nc = grid.n_cells
-            grid = _bucket_grid(grid)
-        route = choose_route(parameters, grid, len(devices(positions.device.type)))
-        if route != "dense" and cached:
-            # the slab and subdomain routes take no deferred check: go cold
-            _GRID_PLAN.pop(gkey, None)
-            continue
-        if route == "subdomain":
-            return reconstruct_surface_subdomain_grid(
-                positions, parameters, grid, particle_inside_aabb=inside_aabb
-            )
-        if route == "slab":
-            return reconstruct_surface_slabbed(
-                positions, parameters, grid, particle_inside_aabb=inside_aabb
-            )
-        try:
-            rec = reconstruct_surface_global(
-                positions, parameters, grid, particle_inside_aabb=inside_aabb,
-                grid_check=grid_check, defer_pull=_defer_pull,
-            )
-        except GridPlanMiss:
-            _note_grid_miss(gkey)
-            continue
-        if gkey is not None:
-            if _PENDING_NOSPEC.pop(gkey, None) == (grid, raw_nc):
-                _GRID_NOSPEC.add(gkey)
-            else:
-                planned_cold = not cached and gkey not in _WARMED
-                _GRID_PLAN[gkey] = (grid, raw_nc)
-        break
+            grid_check = None
+            with profile("grid"):
+                if cached:
+                    grid, raw_nc = _GRID_PLAN[gkey]
+                    grow = parameters.particle_radius + kernel_extents(
+                        parameters.compact_support_radius, parameters.cube_size
+                    ).kernel_evaluation_radius
+                    grid_check = _grid_check_device(positions, grid, grow, raw_nc)
+                else:
+                    grid = grid_for_reconstruction(
+                        positions,
+                        parameters.particle_radius,
+                        parameters.compact_support_radius,
+                        parameters.cube_size,
+                        parameters.particle_aabb,
+                    )
+                    raw_nc = grid.n_cells
+                    grid = _bucket_grid(grid)
+            route = choose_route(parameters, grid, len(devices(positions.device.type)))
+            if route != "dense" and cached:
+                # the slab and subdomain routes take no deferred check: go cold
+                _GRID_PLAN.pop(gkey, None)
+                continue
+            if route == "subdomain":
+                return reconstruct_surface_subdomain_grid(
+                    positions, parameters, grid, particle_inside_aabb=inside_aabb
+                )
+            if route == "slab":
+                return reconstruct_surface_slabbed(
+                    positions, parameters, grid, particle_inside_aabb=inside_aabb
+                )
+            try:
+                rec = reconstruct_surface_global(
+                    positions, parameters, grid, particle_inside_aabb=inside_aabb,
+                    grid_check=grid_check, defer_pull=_defer_pull,
+                )
+            except GridPlanMiss:
+                _note_grid_miss(gkey)
+                continue
+            if gkey is not None:
+                if _PENDING_NOSPEC.pop(gkey, None) == (grid, raw_nc):
+                    _GRID_NOSPEC.add(gkey)
+                else:
+                    planned_cold = not cached and gkey not in _WARMED
+                    _GRID_PLAN[gkey] = (grid, raw_nc)
+            break
     assert rec is not None
     if (planned_cold and mono_frame_on(positions.dtype)
             and os.environ.get("SPLASHSURF_TPU_PREWARM", "1") == "1"):
