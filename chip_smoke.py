@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phase 20   # phases 0, 1 and 20 alone, no result line
     python3 chip_smoke.py --phase 21   # phases 0, 1 and 21 alone, no result line
     python3 chip_smoke.py --phase 22   # phases 0, 1 and 22 alone, no result line
+    python3 chip_smoke.py --phase 23   # phases 0, 1 and 23 alone, no result line
 
 Phases (each prints progress; any failure raises and exits non-zero):
   0. the card: its name and power limit, torch and CUDA versions;
@@ -188,6 +189,18 @@ Phases (each prints progress; any failure raises and exits non-zero):
      bar of the JAX package's, on its route; K1 and K2 launched in the
      frame modes, K1 once per slab of each ``--sparse`` frame, K2 in
      ``--stage density``, K1 in ``--stage mc`` (``phase_bench``).
+ 23. kernel K5 (the binned densities' sweep, run after phase 4) against its
+     plain version on the benchmark's sheared 13.2M dam-break frame k = 4
+     (made on the card by ``benchmark/harness/scenes.py``; K = 16, u_cap
+     2^21) and on the 2M dam break sheared the same way, f32, and the 2M
+     frame in f64: kernel (median of 10) and plain (median of 3) times
+     beside the bound of the position-counted pairs, the compiler's
+     registers and the largest relative gap to the plain version in f64;
+     then ``reconstruct_surface`` on the benchmark's sheared 13.2M frames
+     k = 1-4 as numpy (the dense route, binned densities, as the
+     ``host_flow`` cell runs them): K5 launched once per density pass
+     (the ``binned sweep`` spans), while phase 4's geoslot frames launched
+     it 0 times (``phase_k5``).
 
 Each kernel's line carries its bound: the larger of the bytes it must move
 (rasters read once, output written once) over 3.35 TB/s and the float
@@ -237,7 +250,7 @@ FLOPS_TERM = 23
 # 3, d2 5, the cut's compare 1), K4 12 (and the offset adds 3); K2 adds its
 # 3 offset adds once per occupied source a lane visits. Per pair within the
 # support: the spline, 14 (q 2, cubes 8, combine and sum 4).
-FLOPS_D2 = {"density_sweep": 9, "pair_sweep": 12}
+FLOPS_D2 = {"density_sweep": 9, "pair_sweep": 12, "binned_sweep": 9}
 FLOPS_SOURCE = 3
 FLOPS_SPLINE = 14
 FLOPS_PAIR_OLD = 22  # the earlier count: a whole term for every occupied pair
@@ -921,6 +934,174 @@ def phase_k2(dev, pts, h, kernels):
         max_abs_err=err2, ms=ms2, plain_ms=pms2, bound_ms=b2[0], bound_by=b2[1],
         library_ms=None,
     )
+
+
+def benchmark_dam_break():
+    """The benchmark's scene code (``benchmark/harness/scenes.py``), the
+    ``dam_break_13m`` configuration and its cycle length (host_flow's)."""
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "benchmark"))
+    from harness import files, scenes
+
+    cfg = files.load_json(files.HERE / "configs" / "dam_break_13m.json")
+    cycle = files.load_json(files.HERE / "traffic" / "host_flow.json")["cycle_frames"]
+    return scenes, cfg, int(cycle)
+
+
+def benchmark_motion(pts, k):
+    """``pts`` (float32 on the card) moved as frame k of the benchmark's
+    16-frame dam-break cycle (``benchmark/motions/shear.py``)."""
+    scenes, cfg, cycle = benchmark_dam_break()
+    spacing = 2.0 * float(cfg["particle_radius"])
+    return pts + scenes.displacement(pts, cfg["motion"], spacing, k, cycle)
+
+
+def benchmark_dam_frame(k, dev, seed=1):
+    """Frame k of the benchmark's ``dam_break_13m`` cycle, made on the card
+    by its own scene code (the seed orders the particles only)."""
+    scenes, cfg, _ = benchmark_dam_break()
+    return benchmark_motion(scenes.base_positions(cfg, seed, dev), k)
+
+
+def binned_terms(N, grid, cl, tables, K, cut2):
+    """What K5 must compute on the cell list: its queries (the first K of
+    each occupied bin's run), the (query, source) pairs over the 27
+    neighbour bins (the first K of each), and those with d2 <= cut2."""
+    bin_rank, occ, run_start, rank_table = tables
+    R, lattice = occ.shape[0], grid.lattice
+    _, dy, dz = grid.dims
+    pos = cl.sorted_positions
+    n = pos[0].shape[0]
+    slot = torch.arange(n, device=occ.device) - run_start[bin_rank.clamp_max(R)]
+    qi = torch.nonzero((slot < K) & (bin_rank < R)).squeeze(1)
+    qp = [p[qi] for p in pos]
+    b = occ[bin_rank[qi]]
+    pairs = under = 0
+    for o in N._STENCIL.tolist():
+        t = b + (o[0] * dy * dz + o[1] * dz + o[2])
+        inside = (t >= 0) & (t < lattice)
+        if rank_table is not None:
+            rn = rank_table[t.clamp(0, lattice - 1)]
+        else:
+            rn = torch.searchsorted(occ, t).clamp_max(R - 1)
+            rn = torch.where(occ[rn] == t, rn, -1)
+        present = inside & (rn >= 0)
+        rn = torch.where(present, rn, 0)
+        s0 = run_start[rn]
+        cnt = torch.where(present, torch.clamp_max(run_start[rn + 1] - s0, K), 0)
+        pairs += int(cnt.sum())
+        for k in range(K):
+            j = (s0 + k).clamp_max(n - 1)
+            d2 = sum((qp[d] - pos[d][j]) ** 2 for d in range(3))
+            under += int(((cnt > k) & (d2 <= cut2)).sum())
+    return dict(queries=int(qi.numel()), pairs=pairs, under=under)
+
+
+def phase_k5(pt, dev, pts, params, kernels, ident):
+    """Phase 23: K5 against its plain version on the benchmark's sheared
+    13.2M frame and a sheared 2M frame, timed beside its bound, then the
+    dense route's binned frames launching it once per density pass."""
+    from splashsurf_tpu_torch import neighbors as N
+    from splashsurf_tpu_torch import profiling
+    from splashsurf_tpu_torch.global_pipeline import SPECULATION_STATS
+    from splashsurf_tpu_torch.ops import splat_kernels as sk
+
+    h = params.compact_support_radius
+    log(f"phase 23: K5 (binned sweep) ({ident})")
+    for line in ptxas_report(sk, "binned_sweep.cu", ("binned_sweep",)):
+        log("  ptxas " + line)
+    frames = {
+        "13.2M dam frame 4": benchmark_dam_frame(4, dev),
+        "2M dam frame 4": benchmark_motion(pts, 4),
+    }
+    entry = None
+    for name, f in frames.items():
+        lo, hi = torch.aminmax(f, dim=0)
+        grid = N.BinGrid.for_domain(lo.cpu().double().numpy(), hi.cpu().double().numpy(), h)
+        cl = N.build_cell_list(f, grid)
+        max_occ, n_bins, over8 = N.bin_stats_ex(cl)
+        gate = N.density_gate(len(f), grid.lattice, n_bins, max_occ, over8)
+        plan = N.binned_plan(len(f), grid.lattice, n_bins, max_occ, over8)
+        K, u_cap = plan["capacity"], plan["u_cap"]
+        log(f"  {name}: {len(f)} particles, lattice {grid.dims}, {n_bins} occupied bins "
+            f"(mean {len(f) / n_bins:.2f}), max_occ {max_occ}, over8 {over8}; raster "
+            f"{gate['use_raster']}, plan {plan['kind']} K = {K}, u_cap {u_cap}")
+        tables = N.binned_sweep_inputs(grid, cl, u_cap)
+        args = (*cl.sorted_positions, *tables)
+        k5 = lambda: sk.binned_sweep_cuda(*args, K, grid.dims, h)
+        plain = lambda: sk.binned_sweep_plain(*args, K, grid.dims, h)
+        out5 = k5()
+        want = plain()
+        err5 = compare(f"K5 f32 {name}", out5, want, F32_TOL)
+        ms5, pms5 = cuda_ms(k5, 10), cuda_ms(plain, 3)
+        want64 = sk.binned_sweep_plain(*(p.double() for p in cl.sorted_positions), *tables, K,
+                                       grid.dims, h)
+        q = want64 != 0
+        gap = float(((out5.double() - want64).abs()[q] / want64.abs()[q]).max())
+        terms = binned_terms(N, grid, cl, tables, K, sk.support_cut2(h, f.dtype))
+        flops = terms["pairs"] * FLOPS_D2["binned_sweep"] + terms["under"] * FLOPS_SPLINE
+        b5 = bound(nbytes(*args[:4], out5) + nbytes(*(t for t in tables[1:] if t is not None)),
+                   flops)
+        nq = max(terms["queries"], 1)
+        log(f"  K5 f32 {name}: kernel {ms5:.3f} ms, plain {pms5:.3f} ms; bound {b5[0]:.4f} ms "
+            f"({b5[1]}): "
+            f"{ms5 / b5[0]:.1f}x the bound; largest relative gap to the f64 plain version "
+            f"{gap:.3e}")
+        log(f"  K5 work: {terms['queries']} queries, {terms['pairs'] / nq:.2f} candidate "
+            f"pairs and {terms['under'] / nq:.2f} within the support per particle")
+        if entry is None:
+            entry = dict(name="binned_sweep", route="cuda",
+                         source="splashsurf_tpu_torch/csrc/binned_sweep.cu", replaces=None,
+                         max_abs_err=err5, ms=ms5, plain_ms=pms5, bound_ms=b5[0],
+                         bound_by=b5[1], library_ms=None, rel_gap_f64=gap, shape=name)
+        del want, want64, out5, tables, args, cl
+    f64 = frames["2M dam frame 4"].double()
+    lo, hi = torch.aminmax(f64, dim=0)
+    grid = N.BinGrid.for_domain(lo.cpu().numpy(), hi.cpu().numpy(), h)
+    cl = N.build_cell_list(f64, grid)
+    tables = N.binned_sweep_inputs(grid, cl, N.bin_stats_ex(cl)[1])
+    compare("K5 f64 2M dam frame 4",
+            sk.binned_sweep_cuda(*cl.sorted_positions, *tables, 16, grid.dims, h),
+            sk.binned_sweep_plain(*cl.sorted_positions, *tables, 16, grid.dims, h), F64_TOL)
+    del frames, f64, cl, tables
+
+    # the dense route: one K5 launch per binned density pass
+    scenes, cfg, _ = benchmark_dam_break()
+    base = scenes.base_positions(cfg, 1, dev)
+    N.reset_geoslot_hysteresis()
+    clear_plans()
+    before = dict(SPECULATION_STATS)
+    reset_launches(sk)
+    profiling.record_spans(True, dev)
+    frame_s = []
+    try:
+        for k in range(1, 5):
+            f = benchmark_motion(base, k).cpu().numpy()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec = pt.reconstruct_surface(f, params)
+            torch.cuda.synchronize()
+            frame_s.append(time.perf_counter() - t0)
+            if N.LAST_GATE["kind"] not in ("binned", "binned8"):
+                raise AssertionError(f"sheared frame {k} took {N.LAST_GATE['kind']} densities")
+            check_closed(pt, f"sheared 13.2M frame {k}", rec.mesh)
+        spans = profiling.span_totals()
+    finally:
+        profiling.record_spans(False)
+    passes = spans["binned sweep"]["count"]
+    misses = stats_delta(before).get("density_miss", 0)
+    if sk.binned_sweep_cuda.launches != passes or passes != 4 + misses:
+        raise AssertionError(f"K5 launched {sk.binned_sweep_cuda.launches} times for {passes} "
+                             f"binned passes of 4 frames ({misses} density misses)")
+    del base
+    log(f"  4 sheared 13.2M frames as numpy: K5 launched {passes} times, once per density pass "
+        f"({misses} density misses); frame seconds {[round(s, 4) for s in frame_s]}; "
+        f"'binned sweep' {spans['binned sweep']['device_s'] / passes * 1e3:.3f} ms a pass, "
+        f"'compute particle densities' "
+        f"{spans['compute particle densities']['device_s'] / 4 * 1e3:.3f} ms a frame")
+    entry["launches"] = passes
+    kernels["binned_sweep"] = entry
 
 
 def phase_k4(pt, dev, pts, grid, hsc, params, kernels):
@@ -2233,9 +2414,10 @@ def phase_plans(pt, pts, params, ident):
         rec.resolve()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launches = (sk.sweep_global_cuda.launches, sk.density_sweep_cuda.launches)
-        if launches != (1, 1):
-            raise AssertionError(f"{label}: (K1, K2) launches {launches}, want (1, 1)")
+        launches = (sk.sweep_global_cuda.launches, sk.density_sweep_cuda.launches,
+                    sk.binned_sweep_cuda.launches)
+        if launches != (1, 1, 0):
+            raise AssertionError(f"{label}: (K1, K2, K5) launches {launches}, want (1, 1, 0)")
         if stats_delta(before) != {"frames": 1}:
             raise AssertionError(f"{label}: SPECULATION_STATS moved {stats_delta(before)}")
         return rec, dt
@@ -3156,6 +3338,9 @@ def main() -> int:
     if sys.argv[1:] == ["--phase", "21"]:  # a quick look at phase 21 alone
         phase_array_inputs(pt, dev, pts, grid, params, ident)
         return 0
+    if sys.argv[1:] == ["--phase", "23"]:  # a quick look at phase 23 alone
+        phase_k5(pt, dev, pts, params, {}, ident)
+        return 0
     if sys.argv[1:] == ["--phase", "22"]:  # a quick look at phase 22 alone
         del pts
         phase_bench(pt, ident)
@@ -3244,6 +3429,8 @@ def main() -> int:
         if n == 0:
             raise AssertionError(f"kernel {name} was not launched by the main path")
         kernels[name]["launches"] = n
+    if sk.binned_sweep_cuda.launches != 0:
+        raise AssertionError(f"geoslot frames launched K5 {sk.binned_sweep_cuda.launches} times")
     launches["occupancy_masks"] = check_mask_launches(sk, launches["sweep_global"])
     mesh = rec.mesh
     bad = pt.check_mesh_consistency(mesh.vertices, mesh.triangles)
@@ -3257,6 +3444,9 @@ def main() -> int:
         f"= {n_main / warm / 1e6:.3f} Mparticles/s ({ident}); launches {launches}; "
         f"SPECULATION_STATS {stats_delta(stats0)}")
     dense_mesh = mesh
+
+    # --- 23. K5, the binned densities' sweep -----------------------------------
+    phase_k5(pt, dev, pts, params, kernels, ident)
 
     # --- 18. warm frames on the frame plans ------------------------------------
     phase_plans(pt, pts, params, ident)
@@ -3341,7 +3531,7 @@ def main() -> int:
         + ", ".join(f"{k} {kernels[k]['launches']}" for k in more))
 
     print(ident, flush=True)
-    names = ("sweep_global", "density_sweep", "splat_sweep", "pair_sweep")
+    names = ("sweep_global", "density_sweep", "splat_sweep", "pair_sweep", "binned_sweep")
     print(json.dumps({"kernels": [kernels[k] for k in names]}), flush=True)
     print(json.dumps({
         "ok": True,

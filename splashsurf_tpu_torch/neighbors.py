@@ -16,11 +16,13 @@ Both fill (8, LX+2, LY+2, LZ+2) bin-fraction rasters and run the 27-offset
 bin sweep (kernel K2, ``ops.splat_kernels.density_sweep_cuda``). Sparse
 lattices, which the gate keeps off the dense rasters, take the third:
 
-3. binned: particles sorted by bin fill one (u_cap, K) position table row
-   per occupied bin, and each of the 27 stencil offsets adds a (K, K) pair
-   block per occupied bin (plain PyTorch; the reference has no TPU kernel
-   here). With K = 8 and a few fuller bins, their rank >= 8 particles go
-   through the same exact overflow correction as the raster formulation.
+3. binned: each particle among the first K of its bin's run in the sorted
+   cell list sums over the first K particles of the 27 bins around its own
+   (kernel K5, ``ops.splat_kernels.binned_sweep_cuda``; the reference has
+   no TPU kernel here, its plain version fills (u_cap, K) position tables
+   and sweeps (K, K) pair blocks). With K = 8 and a few fuller bins, their
+   rank >= 8 particles go through the same exact overflow correction as
+   the raster formulation.
 
 The neighbour lists (``neighborhood_search_spatial_hashing_parallel``) use
 the same sorted cell list: each query gathers the 27 bins around its own,
@@ -41,9 +43,9 @@ import torch
 
 from splashsurf_tpu_torch import kernels
 from splashsurf_tpu_torch.aabb import Aabb3d
-from splashsurf_tpu_torch.ops.splat_kernels import density_sweep_cuda
+from splashsurf_tpu_torch.ops.splat_kernels import binned_sweep_cuda, density_sweep_cuda
 from splashsurf_tpu_torch.placement import on_device
-from splashsurf_tpu_torch.profiling import to_host
+from splashsurf_tpu_torch.profiling import profile, to_host
 
 # Largest materializable bin lattice for the raster/geoslot formulations.
 GATE_LATTICE_MAX = 8_000_000
@@ -447,43 +449,55 @@ def _round_up(n: int, m: int = 8) -> int:
 # larger lattices look neighbour bins up by binary search.
 RANK_TABLE_MAX = 1 << 24
 
-# Bound on the elements of one (K, K, rows) pair block of the binned sweep.
-_PAIR_BLOCK_ELEMS = 1 << 25
-
 
 def compute_particle_densities_binned(
     positions, grid: BinGrid, cell_list: CellList, compact_support_radius,
     particle_rest_mass, capacity: int, u_cap: int, overflow_capacity: int = 0,
     candidate_capacity: int = 0, occupied: Optional[int] = None, device=None,
 ):
-    """SPH densities from per-occupied-bin position tables.
+    """SPH densities from the runs of the bin-sorted cell list.
 
-    Occupied bins (in ascending bin id) own one row of (u_cap, K) position
-    tables, empty slots holding the far sentinel. Each of the 27 stencil
-    offsets adds, for every occupied bin, the (K, K) block of kernel values
-    between its slots and those of the neighbour bin; empty slots add
-    exactly 0 and the self term W(0) comes in naturally. ``u_cap`` is the
-    occupied-bin count rounded up to a power of two, as in the reference.
-    The rows swept are the first ``occupied`` (the occupied-bin count, where
-    the caller knows it) or all ``u_cap``, in row blocks that bound the pair
-    block to ``_PAIR_BLOCK_ELEMS``; nothing is read back. Neighbour rows
-    come from a dense rank table on lattices up to ``RANK_TABLE_MAX`` bins,
-    else from a binary search over the occupied bin ids.
+    Occupied bins (in ascending bin id) own one row each, of the first
+    ``occupied`` (the occupied-bin count, where the caller knows it) or all
+    ``u_cap`` rows; ``u_cap`` is the occupied-bin count rounded up to a
+    power of two, as in the reference. Every particle among the first K of
+    its bin's run sums the kernel over the first K particles of each of
+    the 27 bins around its own (self term included): kernel K5
+    (``binned_sweep_cuda``) on the card, its plain (rows, K, K) pair-block
+    loop on the CPU; nothing is read back. Neighbour bins come from a dense
+    rank table on lattices up to ``RANK_TABLE_MAX`` bins, else from a
+    binary search over the occupied bin ids.
 
     ``capacity`` (K) must cover the largest occupancy unless
     ``overflow_capacity`` is set: then the rank >= K particles are left out
-    of the tables and corrected exactly (``_overflow_correction``, with
+    of the sums and corrected exactly (``_overflow_correction``, with
     ``candidate_capacity`` >= the largest occupancy).
     """
     positions, _ = on_device(positions, cell_list.order, device=device)
-    dtype = positions.dtype
-    dev = positions.device
-    n = positions.shape[0]
     K = capacity
     R = u_cap if occupied is None else min(int(occupied), u_cap)
+    h = compact_support_radius
+    tables = binned_sweep_inputs(grid, cell_list, R)
+    with profile("binned sweep"):
+        rho_sorted = binned_sweep_cuda(*cell_list.sorted_positions, *tables, K, grid.dims, h)
+    rho = torch.empty_like(rho_sorted)
+    rho[cell_list.order] = rho_sorted
+    if overflow_capacity:
+        rho = _overflow_correction(
+            positions, grid, cell_list, K, candidate_capacity, h, rho, overflow_capacity
+        )
+    return kernels.rounded(particle_rest_mass, positions.dtype) * rho
+
+
+def binned_sweep_inputs(grid: BinGrid, cell_list: CellList, rows: int):
+    """The cell-list tables of ``binned_sweep_cuda`` for its first ``rows``
+    occupied bins: (bin_rank, occ_bins, run_start, rank_table), the last
+    None on lattices past ``RANK_TABLE_MAX`` bins; nothing is read back."""
     sb = cell_list.sorted_bins
-    is_start, bin_rank, first = _runs(sb)
-    slot = torch.arange(n, device=dev) - first
+    n = sb.shape[0]
+    dev = sb.device
+    R = int(rows)
+    is_start, bin_rank, _ = _runs(sb)
     lattice = grid.lattice
     _, dy, dz = grid.dims
     # rows past the occupied bins hold a bin id whose every stencil target
@@ -492,56 +506,17 @@ def compute_particle_densities_binned(
     occ_bins = torch.full((R + 1,), empty_row, dtype=torch.int64, device=dev)
     occ_bins.scatter_(0, torch.where(is_start & (bin_rank < R), bin_rank, R), sb)
     occ_bins = occ_bins[:R]  # ascending
-
-    table_ok = (slot < K) & (bin_rank < R)
-    dest = torch.where(table_ok, bin_rank * K + slot, R * K)
-    far = kernels.far_fill(dtype)
-    tables = [
-        kernels.scatter_table(dest, cell_list.sorted_positions[d], R * K, far, (R, K))
-        for d in range(3)
-    ]
-
-    stencil_flat = (_STENCIL[:, 0] * (dy * dz) + _STENCIL[:, 1] * dz + _STENCIL[:, 2]).tolist()
+    # each rank's first sorted index, n past the occupied bins
+    run_start = torch.full((R + 2,), n, dtype=torch.int64, device=dev)
+    run_start.scatter_(
+        0, torch.where(is_start & (bin_rank <= R), bin_rank, R + 1), torch.arange(n, device=dev)
+    )
+    rank_table = None
     if lattice <= RANK_TABLE_MAX:
         rank_table = torch.full((lattice + 1,), -1, dtype=torch.int64, device=dev)
         rank_table.scatter_(0, occ_bins.clamp_max(lattice), torch.arange(R, device=dev))
         rank_table = rank_table[:lattice]
-
-    h = compact_support_radius
-    acc = torch.zeros((R, K), dtype=dtype, device=dev)
-    rows = max(1, _PAIR_BLOCK_ELEMS // (K * K))
-    for r0 in range(0, R, rows):
-        r1 = min(r0 + rows, R)
-        own = [t[r0:r1, :, None] for t in tables]  # (rows, K, 1)
-        for delta in stencil_flat:
-            target = occ_bins[r0:r1] + delta
-            inside = (target >= 0) & (target < lattice)
-            if lattice <= RANK_TABLE_MAX:
-                nb = rank_table[target.clamp(0, lattice - 1)]
-                present = inside & (nb >= 0)
-            else:
-                nb = torch.searchsorted(occ_bins, target).clamp_max(R - 1)
-                present = inside & (occ_bins[nb] == target)
-            nb = torch.where(present, nb, 0)
-            d2 = None
-            for d in range(3):
-                diff = own[d] - tables[d][nb][:, None, :]  # (rows, K, K)
-                # inf - inf = nan: empty slots must give W = 0
-                diff = torch.where(torch.isfinite(diff), diff, math.inf)
-                d2 = diff * diff if d2 is None else d2 + diff * diff
-            w = kernels.cubic_kernel(torch.sqrt(d2), h).sum(dim=2)
-            acc[r0:r1] += torch.where(present[:, None], w, 0.0)
-
-    rho_sorted = torch.where(
-        table_ok, acc.reshape(-1)[torch.where(table_ok, bin_rank * K + slot, 0)], 0.0
-    )
-    rho = torch.empty_like(rho_sorted)
-    rho[cell_list.order] = rho_sorted
-    if overflow_capacity:
-        rho = _overflow_correction(
-            positions, grid, cell_list, K, candidate_capacity, h, rho, overflow_capacity
-        )
-    return kernels.rounded(particle_rest_mass, dtype) * rho
+    return bin_rank, occ_bins, run_start[: R + 1], rank_table
 
 
 def binned_plan(n: int, lattice: int, n_bins: int, max_occ: int, over8: int) -> dict:

@@ -27,7 +27,16 @@ Port of ``splashsurf_tpu/ops/splat_pallas.py``:
   ``pair_cell_offsets``. Its tiles gather their occupied queries into a
   list and walk the set bits of the fraction masks only.
 
-K2 and K4 skip the square root and the spline of a pair beyond
+And one kernel the reference wrote in plain XLA:
+
+- ``binned_sweep_cuda`` (K5, ``csrc/binned_sweep.cu``) computes the binned
+  density formulation's pair sums (``neighbors.
+  compute_particle_densities_binned``) over the sorted cell list, one
+  thread per particle walking the runs of its 27 neighbour bins; its plain
+  version ``binned_sweep_plain`` is the formulation's (rows, K, K)
+  pair-block loop.
+
+K2, K4 and K5 skip the square root and the spline of a pair beyond
 ``support_cut2``: such a pair's term is exactly +0, so the sums are
 unchanged.
 
@@ -39,9 +48,9 @@ graph is replayed, and is counted apart, in ``<wrapper>.captured``
 (``_count``): ``frame_graph`` records what each graph holds from it.
 
 The kernels evaluate q = sqrt(d2) * (2/h) and scale once at the end; the
-plain versions of K1-K3 go through ``kernels.cubic_kernel`` (q = (r + r) / h,
-scaled per term), so the two agree to rounding, not bit for bit. K4's plain
-version uses the kernel's form, as its reference does.
+plain versions of K1-K3 and K5 go through ``kernels.cubic_kernel`` (q =
+(r + r) / h, scaled per term), so the two agree to rounding, not bit for
+bit. K4's plain version uses the kernel's form, as its reference does.
 
 The library is built with ``nvcc`` for ``sm_90a`` into ``_build/`` at first
 use, one compiler process per source, all started together, and rebuilt
@@ -52,6 +61,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import os
 import shutil
 import subprocess
@@ -68,6 +78,7 @@ _CSRC = _PKG / "csrc"
 _SOURCES = tuple(
     _CSRC / name for name in (
         "sweep_global.cu", "density_sweep.cu", "splat_sweep.cu", "pair_sweep.cu",
+        "binned_sweep.cu",
     )
 )
 _HEADERS = (_CSRC / "level_set_sum.cuh",)
@@ -170,6 +181,10 @@ def load_kernels() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, p, i, i, i, i64, i64, i64, i64, i64, i64, i64, i,
                        d, d, d, p, p]
+        fn.restype = i
+    for name in ("binned_sweep_f32", "binned_sweep_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, d, d, p, p]
         fn.restype = i
     for name in ("sweep_geometry", "pair_sweep_geometry"):
         fn = getattr(lib, name)
@@ -698,9 +713,134 @@ def pair_sweep_cuda(fx, fy, fz, cs, h, reach, h_over_cs, pad, n_cells):
 pair_sweep_cuda.launches = pair_sweep_cuda.captured = 0
 
 
+# ---------------------------------------------------------------------------
+# K5: per-particle density sweep of the binned formulation
+# ---------------------------------------------------------------------------
+
+# Bound on the elements of one (rows, K, K) pair block of the plain binned
+# sweep.
+_PAIR_BLOCK_ELEMS = 1 << 25
+
+def binned_sweep_plain(px, py, pz, bin_rank, occ_bins, run_start, rank_table, capacity,
+                       dims, compact_support_radius):
+    """Plain PyTorch binned sweep: occupied bins (in ascending bin id) own
+    one row of (R, K) position tables, empty slots holding the far
+    sentinel, and each of the 27 stencil offsets adds, for every row, the
+    (K, K) block of kernel values between its slots and those of the
+    neighbour bin's row, in row blocks that bound the pair block to
+    ``_PAIR_BLOCK_ELEMS``. Arguments and result as ``binned_sweep_cuda``."""
+    dtype = px.dtype
+    dev = px.device
+    n = px.shape[0]
+    R = occ_bins.shape[0]
+    K = int(capacity)
+    _, dy, dz = (int(v) for v in dims)
+    lattice = int(dims[0]) * dy * dz
+    slot = torch.arange(n, device=dev) - run_start[bin_rank.clamp_max(R)]
+    table_ok = (slot < K) & (bin_rank < R)
+    dest = torch.where(table_ok, bin_rank * K + slot, R * K)
+    far = kernels.far_fill(dtype)
+    tables = [kernels.scatter_table(dest, p, R * K, far, (R, K)) for p in (px, py, pz)]
+    stencil_flat = [i * (dy * dz) + j * dz + k
+                    for i in (-1, 0, 1) for j in (-1, 0, 1) for k in (-1, 0, 1)]
+
+    h = compact_support_radius
+    acc = torch.zeros((R, K), dtype=dtype, device=dev)
+    rows = max(1, _PAIR_BLOCK_ELEMS // (K * K))
+    for r0 in range(0, R, rows):
+        r1 = min(r0 + rows, R)
+        own = [t[r0:r1, :, None] for t in tables]  # (rows, K, 1)
+        for delta in stencil_flat:
+            target = occ_bins[r0:r1] + delta
+            inside = (target >= 0) & (target < lattice)
+            if rank_table is not None:
+                nb = rank_table[target.clamp(0, lattice - 1)]
+                present = inside & (nb >= 0)
+            else:
+                nb = torch.searchsorted(occ_bins, target).clamp_max(R - 1)
+                present = inside & (occ_bins[nb] == target)
+            nb = torch.where(present, nb, 0)
+            d2 = None
+            for d in range(3):
+                diff = own[d] - tables[d][nb][:, None, :]  # (rows, K, K)
+                # inf - inf = nan: empty slots must give W = 0
+                diff = torch.where(torch.isfinite(diff), diff, math.inf)
+                d2 = diff * diff if d2 is None else d2 + diff * diff
+            w = kernels.cubic_kernel(torch.sqrt(d2), h).sum(dim=2)
+            acc[r0:r1] += torch.where(present[:, None], w, 0.0)
+
+    return torch.where(
+        table_ok, acc.reshape(-1)[torch.where(table_ok, bin_rank * K + slot, 0)], 0.0
+    )
+
+
+def _check_index(t, what: str, name: str, length: int, device):
+    if t.dtype != torch.int64:
+        raise TypeError(f"{what}: {name} dtype {t.dtype} (want int64)")
+    if t.dim() != 1 or t.shape[0] != length:
+        raise ValueError(f"{what}: {name} shape {tuple(t.shape)} (want ({length},))")
+    if t.device != device:
+        raise ValueError(f"{what}: {name} on {t.device}, positions on {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: inputs must be contiguous")
+
+
+def binned_sweep_cuda(px, py, pz, bin_rank, occ_bins, run_start, rank_table, capacity,
+                      dims, compact_support_radius):
+    """Per-particle SPH density sums (the normalized kernel W summed over
+    the 27 neighbour bins, self term included) of the binned formulation,
+    on the cell list of ``neighbors.build_cell_list``: kernel K5 on CUDA
+    tensors, the plain version on CPU tensors.
+
+    ``px``, ``py``, ``pz`` (N,): the bin-sorted positions; ``bin_rank``
+    (N,): each one's bin rank among the occupied bins; ``occ_bins`` (R,):
+    the ascending occupied bin ids of the R table rows (rows past the
+    occupied bins hold a bin id whose every stencil target lies past the
+    lattice); ``run_start`` (R + 1,): each rank's first sorted index (N
+    past the occupied bins); ``rank_table`` (lattice,): bin id -> rank, -1
+    where empty, or None to look neighbour bins up by binary search over
+    ``occ_bins``; ``capacity`` (K): the slots of a bin that take part (its
+    first K particles); ``dims``: the bin lattice. Returns (N,) sums in
+    sorted order, 0 for a particle whose rank is R or more or whose slot is
+    K or more."""
+    what = "binned_sweep"
+    _check_inputs((px, py, pz), what, ndim=1)
+    n, R, dev = px.shape[0], occ_bins.shape[0], px.device
+    lattice = int(dims[0]) * int(dims[1]) * int(dims[2])
+    _check_index(bin_rank, what, "bin_rank", n, dev)
+    _check_index(occ_bins, what, "occ_bins", R, dev)
+    _check_index(run_start, what, "run_start", R + 1, dev)
+    if rank_table is not None:
+        _check_index(rank_table, what, "rank_table", lattice, dev)
+    if int(capacity) < 1 or R < 1:
+        raise ValueError(f"{what}: capacity {capacity}, {R} rows (want at least 1 each)")
+    if dev.type == "cpu":
+        return binned_sweep_plain(px, py, pz, bin_rank, occ_bins, run_start, rank_table,
+                                  capacity, dims, compact_support_radius)
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    lib = load_kernels()
+    out = torch.empty_like(px)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch(
+            getattr(lib, "binned_sweep_" + _suffix(px.dtype)),
+            px.data_ptr(), py.data_ptr(), pz.data_ptr(), bin_rank.data_ptr(),
+            occ_bins.data_ptr(), run_start.data_ptr(),
+            None if rank_table is None else rank_table.data_ptr(), n, R, int(capacity),
+            lattice, int(dims[1]), int(dims[2]), float(compact_support_radius),
+            support_cut2(compact_support_radius, px.dtype), out.data_ptr(), stream,
+        )
+    _count(binned_sweep_cuda)
+    return out
+
+
+binned_sweep_cuda.launches = binned_sweep_cuda.captured = 0
+
+
 # every kernel wrapper, each counting its launches and its captured launches
 WRAPPERS = (occupancy_masks_cuda, sweep_global_cuda, bin_occupancy_cuda, density_sweep_cuda,
-            splat_sweep_cuda, pair_sweep_cuda)
+            splat_sweep_cuda, pair_sweep_cuda, binned_sweep_cuda)
 
 
 def captured_counts() -> dict:
