@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phase 21   # phases 0, 1 and 21 alone, no result line
     python3 chip_smoke.py --phase 22   # phases 0, 1 and 22 alone, no result line
     python3 chip_smoke.py --phase 23   # phases 0, 1 and 23 alone, no result line
+    python3 chip_smoke.py --phase 24   # phases 0, 1 and 24 alone, no result line
 
 Phases (each prints progress; any failure raises and exits non-zero):
   0. the card: its name and power limit, torch and CUDA versions;
@@ -201,6 +202,17 @@ Phases (each prints progress; any failure raises and exits non-zero):
      ``host_flow`` cell runs them): K5 launched once per density pass
      (the ``binned sweep`` spans), while phase 4's geoslot frames launched
      it 0 times (``phase_k5``).
+ 24. the upload of a numpy frame (run after phase 23): the benchmark's
+     13.2M frame k = 4 as the ``host_flow`` cell hands it over (float32
+     numpy), and the same frame in float64, through the pageable copy
+     (``torch.as_tensor(..., device=cuda)``) against
+     ``placement.as_device_tensor``'s staged copy through pinned chunks:
+     host milliseconds until the call returns, device milliseconds between
+     CUDA events around it, and milliseconds until the copy is done, each a
+     median of 10, with the rates; the staged copy at chunks of 4, 16 and
+     64 MiB; the staged copy makes no synchronising call under
+     ``torch.cuda.set_sync_debug_mode("warn")`` where the pageable one
+     does, and equals it bit for bit (``phase_upload``).
 
 Each kernel's line carries its bound: the larger of the bytes it must move
 (rasters read once, output written once) over 3.35 TB/s and the float
@@ -2313,6 +2325,65 @@ def sync_calls(fn):
     return out, sum("synchroniz" in str(w.message) for w in caught)
 
 
+def upload_times(fn, reps=10):
+    """Medians of ``reps`` calls of ``fn`` after two warm-up calls, in ms:
+    (host until it returns, device between CUDA events around it, host
+    until the card is done), each call starting on an idle card."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    host, device, done = [], [], []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        t1 = time.perf_counter()
+        end.synchronize()
+        t2 = time.perf_counter()
+        host.append(1e3 * (t1 - t0))
+        device.append(start.elapsed_time(end))
+        done.append(1e3 * (t2 - t0))
+    return tuple(statistics.median(v) for v in (host, device, done))
+
+
+def phase_upload(dev, ident):
+    """Phase 24: the upload of the benchmark's 13.2M numpy frame, pageable
+    against staged (see the module's docstring)."""
+    from splashsurf_tpu_torch import placement
+
+    frame32 = benchmark_dam_frame(4, dev).cpu().numpy()
+    frame64 = frame32.astype(np.float64)
+    log(f"phase 24: the upload of a numpy frame, {frame32.shape[0]} particles "
+        f"({frame32.nbytes} B as float32), {torch.get_num_threads()} host threads ({ident})")
+    default = placement.UPLOAD_CHUNK_BYTES
+    for name, frame in (("f32", frame32), ("f64 -> f32", frame64)):
+        pageable = lambda: torch.as_tensor(frame, dtype=torch.float32, device=dev)
+        staged = lambda: placement.as_device_tensor(frame, dev, torch.float32)
+        want, n_page = sync_calls(pageable)
+        got, n_staged = sync_calls(staged)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"upload {name}: the staged copy differs from the pageable one")
+        if n_staged or not n_page:
+            raise AssertionError(f"upload {name}: synchronising calls, staged {n_staged}, "
+                                 f"pageable {n_page} (want 0 and at least 1)")
+        gb = want.numel() * want.element_size() / 1e9
+        runs = [("pageable", pageable, None)]
+        runs += [(f"staged {mb} MiB", staged, mb << 20) for mb in (4, 16, 64)]
+        for label, fn, chunk in runs:
+            placement.UPLOAD_CHUNK_BYTES = chunk or default
+            try:
+                host, device, done = upload_times(fn)
+            finally:
+                placement.UPLOAD_CHUNK_BYTES = default
+            log(f"  {name} {label}: host {host:.3f} ms, device {device:.3f} ms, done "
+                f"{done:.3f} ms = {gb / done * 1e3:.2f} GB/s of float32 ({ident})")
+        log(f"  {name}: equal bit for bit; synchronising calls pageable {n_page}, staged "
+            f"{n_staged}; default chunk {default >> 20} MiB")
+
+
 def kernel_trace(fn):
     """(wall seconds, the card's kernels) of one call of ``fn`` that ends
     in a synchronise, under ``torch.profiler`` (CUDA activity only): the
@@ -3341,6 +3412,9 @@ def main() -> int:
     if sys.argv[1:] == ["--phase", "23"]:  # a quick look at phase 23 alone
         phase_k5(pt, dev, pts, params, {}, ident)
         return 0
+    if sys.argv[1:] == ["--phase", "24"]:  # a quick look at phase 24 alone
+        phase_upload(dev, ident)
+        return 0
     if sys.argv[1:] == ["--phase", "22"]:  # a quick look at phase 22 alone
         del pts
         phase_bench(pt, ident)
@@ -3447,6 +3521,9 @@ def main() -> int:
 
     # --- 23. K5, the binned densities' sweep -----------------------------------
     phase_k5(pt, dev, pts, params, kernels, ident)
+
+    # --- 24. the staged upload of a numpy frame -------------------------------
+    phase_upload(dev, ident)
 
     # --- 18. warm frames on the frame plans ------------------------------------
     phase_plans(pt, pts, params, ident)
