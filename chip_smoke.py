@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phase 22   # phases 0, 1 and 22 alone, no result line
     python3 chip_smoke.py --phase 23   # phases 0, 1 and 23 alone, no result line
     python3 chip_smoke.py --phase 24   # phases 0, 1 and 24 alone, no result line
+    python3 chip_smoke.py --phase 25   # phases 0, 1 and 25 alone, no result line
 
 Phases (each prints progress; any failure raises and exits non-zero):
   0. the card: its name and power limit, torch and CUDA versions;
@@ -162,7 +163,7 @@ Phases (each prints progress; any failure raises and exits non-zero):
      per plan set, at most one live: with ``SPLASHSURF_TPU_MONO_FRAME=1``
      and ``_PREWARM=1`` the planning frame captures the graph and five
      warm frames of phase 18's ``pts + k 1e-6`` replay it once each, its
-     capture having queued K1 and K2 once each (the wrappers count eager
+     capture having queued K1, K2 and K6 once each (the wrappers count eager
      launches and captured ones apart; a profiler trace of each replay is
      logged), the replays' device milliseconds between CUDA events,
      the meshes and densities those of the per-stage frames on the same
@@ -213,6 +214,18 @@ Phases (each prints progress; any failure raises and exits non-zero):
      64 MiB; the staged copy makes no synchronising call under
      ``torch.cuda.set_sync_debug_mode("warn")`` where the pageable one
      does, and equals it bit for bit (``phase_upload``).
+ 25. kernel K6 (the slot raster, run after phase 24) against its plain
+     version on the benchmark's sheared 13.2M frame k = 4 and on the 2M dam
+     break, f32, weights m / rho: kernel (median of 10) and plain (median of
+     5) times beside the bound of its bytes (the rasters written once,
+     positions and weights read once, the claim tables, the overflow mask),
+     the compiler's registers; the rasters and the overflow mask bit for bit
+     equal to the plain version run on the host (and the count of entries
+     where the plain version on the card differs: its division by a host
+     scalar multiplies by the reciprocal); the meta and float64 on the 2M
+     frame, bit for bit; then ``reconstruct_surface`` on the benchmark's
+     sheared 13.2M frames k = 1-4 as numpy: K6 launched once per raster run
+     (the ``dense raster`` spans, overflow retries included) (``phase_k6``).
 
 Each kernel's line carries its bound: the larger of the bytes it must move
 (rasters read once, output written once) over 3.35 TB/s and the float
@@ -1114,6 +1127,107 @@ def phase_k5(pt, dev, pts, params, kernels, ident):
         f"{spans['compute particle densities']['device_s'] / 4 * 1e3:.3f} ms a frame")
     entry["launches"] = passes
     kernels["binned_sweep"] = entry
+
+
+def raster_bits_differ(got, want):
+    """Entries of the slot rasters ``got`` and ``want`` (``slot_raster_cuda``
+    results) whose bits differ, and the particles whose overflow flag
+    differs."""
+    bits = lambda t: t.cpu().view(torch.int32 if t.element_size() == 4 else torch.int64)
+    rasters = sum(int((bits(a) != bits(b)).sum()) for a, b in zip(got[0], want[0]))
+    return rasters, int((got[1].cpu() != want[1].cpu()).sum())
+
+
+def phase_k6(pt, dev, pts, params, kernels, ident):
+    """Phase 25: K6 against its plain version on the benchmark's sheared
+    13.2M frame, timed beside its bound, bit for bit against the plain
+    version on the host; the meta and f64 on the 2M frame; then the dense
+    route's frames launching it once per raster run."""
+    from splashsurf_tpu_torch import kernels as tk
+    from splashsurf_tpu_torch import neighbors as N
+    from splashsurf_tpu_torch import profiling
+    from splashsurf_tpu_torch.global_pipeline import SPECULATION_STATS
+    from splashsurf_tpu_torch.ops import splat_kernels as sk
+    from splashsurf_tpu_torch.reconstruction import _bucket_grid
+
+    h, m = params.compact_support_radius, params.particle_rest_mass
+    log(f"phase 25: K6 (slot raster) ({ident})")
+    for line in ptxas_report(sk, "slot_raster.cu", ("slot_",)):
+        log("  ptxas " + line)
+    frames = {"13.2M dam frame 4": benchmark_dam_frame(4, dev), "2M dam break": pts}
+    entry = None
+    for name, f in frames.items():
+        grid = _bucket_grid(pt.grid_for_reconstruction(f, RADIUS, h, params.cube_size))
+        pad = pt.kernel_extents(h, grid.cell_size).half_supported_cells + 1
+        N.reset_geoslot_hysteresis()
+        values = tk.rounded(m, f.dtype) / N.compute_particle_densities(f, h, m)
+        k6 = lambda: sk.slot_raster_cuda(f, values, grid, 2, pad)
+        plain = lambda: sk.slot_raster_plain(f, values, grid, 2, pad)
+        got = k6()
+        torch.cuda.synchronize()
+        host = sk.slot_raster_plain(f.cpu(), values.cpu(), grid, 2, pad)
+        if raster_bits_differ(got, host) != (0, 0):
+            raise AssertionError(f"K6 {name}: differs from the plain version on the host: "
+                                 f"{raster_bits_differ(got, host)} (entries, overflow flags)")
+        card = raster_bits_differ(got, plain())
+        ms6, pms6 = cuda_ms(k6, 10), cuda_ms(plain, 5)
+        S, Xp, Yp, Zp = got[0][0].shape
+        n = f.shape[0]
+        # the rasters written once, positions and weights read once, the S
+        # claim tables of 4 bytes a cell, the overflow mask
+        n_bytes = nbytes(*got[0]) + nbytes(f, values) + S * Xp * grid.n_cells[1] * \
+            grid.n_cells[2] * 4 + n
+        b6 = bound(n_bytes, 0)
+        log(f"  K6 f32 {name}: {n} particles, rasters {(S, Xp, Yp, Zp)}, "
+            f"{int(got[1].sum())} overflow; kernel {ms6:.3f} ms, plain {pms6:.3f} ms; bound "
+            f"{b6[0]:.4f} ms ({b6[1]}, {n_bytes / 1e9:.3f} GB): {ms6 / b6[0]:.1f}x the bound; "
+            f"bit-equal to the plain version on the host; against the plain version on the "
+            f"card {card[0]} raster entries and {card[1]} overflow flags differ")
+        if entry is None:
+            entry = dict(name="slot_raster", route="cuda",
+                         source="splashsurf_tpu_torch/csrc/slot_raster.cu", replaces=None,
+                         max_abs_err=0.0, ms=ms6, plain_ms=pms6, bound_ms=b6[0],
+                         bound_by=b6[1], library_ms=None, shape=name,
+                         differs_from_card_plain=card)
+        del got, host, values
+    grid = _bucket_grid(pt.grid_for_reconstruction(pts, RADIUS, h, params.cube_size))
+    pad = pt.kernel_extents(h, grid.cell_size).half_supported_cells + 1
+    for label, p, meta in (("meta", pts, True), ("f64", pts.double(), False)):
+        v = torch.full_like(p[:, 0], 1e-3)
+        got = sk.slot_raster_cuda(p, v, grid, 2, pad, with_meta=meta)
+        want = sk.slot_raster_plain(p.cpu(), v.cpu(), grid, 2, pad, with_meta=meta)
+        same = raster_bits_differ(got, want) == (0, 0) and all(
+            torch.equal(a.cpu(), b) for a, b in zip(got[2] or (), want[2] or ()))
+        if not same:
+            raise AssertionError(f"K6 {label} 2M dam break: differs from the plain version")
+        log(f"  K6 {label} 2M dam break: bit-equal to the plain version on the host")
+    del frames
+
+    # the dense route: one K6 launch per raster run ('dense raster' spans)
+    scenes, cfg, _ = benchmark_dam_break()
+    base = scenes.base_positions(cfg, 1, dev)
+    N.reset_geoslot_hysteresis()
+    clear_plans()
+    before = dict(SPECULATION_STATS)
+    reset_launches(sk)
+    profiling.record_spans(True, dev)
+    try:
+        for k in range(1, 5):
+            rec = pt.reconstruct_surface(benchmark_motion(base, k).cpu().numpy(), params)
+            check_closed(pt, f"sheared 13.2M frame {k}", rec.mesh)
+        spans = profiling.span_totals()
+    finally:
+        profiling.record_spans(False)
+    runs = spans["dense raster"]["count"]
+    if sk.slot_raster_cuda.launches != runs or runs < 4:
+        raise AssertionError(f"K6 launched {sk.slot_raster_cuda.launches} times for {runs} "
+                             f"raster runs of 4 frames")
+    del base
+    log(f"  4 sheared 13.2M frames as numpy: K6 launched {runs} times, once per raster run "
+        f"({stats_delta(before)}); 'dense raster' "
+        f"{spans['dense raster']['device_s'] / runs * 1e3:.3f} ms a run")
+    entry["launches"] = runs
+    kernels["slot_raster"] = entry
 
 
 def phase_k4(pt, dev, pts, grid, hsc, params, kernels):
@@ -2874,9 +2988,9 @@ TRACED = {"sweep_global": "level_set_tiles", "occupancy_masks": "occupancy_mask_
 
 
 # what the mono frame's graph holds of the kernels (``frame_graph.kernels``):
-# K1 and K2 and their pre-passes, once each
+# K1 and K2 and their pre-passes, and K6, once each
 GRAPH_KERNELS = {"occupancy_masks_cuda": 1, "sweep_global_cuda": 1, "bin_occupancy_cuda": 1,
-                 "density_sweep_cuda": 1}
+                 "density_sweep_cuda": 1, "slot_raster_cuda": 1}
 
 
 def traced_launches(kernels):
@@ -3047,10 +3161,10 @@ def phase_mono(pt, pts, params, ident):
             busy = [ms * 1e-3 / s for ms, s in zip(span_ms, mono_s)]
             log(f"  warm frames replayed: seconds {mono_s}, median {statistics.median(mono_s)}; "
                 f"per-stage on the same plans: {stage_s}, median {statistics.median(stage_s)}; "
-                f"no eager launch; one replay each of a graph whose capture queued K1, K2 and "
-                f"their pre-passes once each ({GRAPH_KERNELS}); synchronising calls (replayed, "
-                f"per-stage) {syncs}; meshes and densities equal to the per-stage frames bit "
-                f"for bit")
+                f"no eager launch; one replay each of a graph whose capture queued K1, K2, "
+                f"their pre-passes and K6 once each ({GRAPH_KERNELS}); synchronising calls "
+                f"(replayed, per-stage) {syncs}; meshes and densities equal to the per-stage "
+                f"frames bit for bit")
             short = sum(t != dict.fromkeys(TRACED, 1) for t in traced)
             log(f"  the profiler's records of those kernels in a trace of each replay: {traced}; "
                 f"{short} of {len(traced)} traces lack a record")
@@ -3415,6 +3529,9 @@ def main() -> int:
     if sys.argv[1:] == ["--phase", "24"]:  # a quick look at phase 24 alone
         phase_upload(dev, ident)
         return 0
+    if sys.argv[1:] == ["--phase", "25"]:  # a quick look at phase 25 alone
+        phase_k6(pt, dev, pts, params, {}, ident)
+        return 0
     if sys.argv[1:] == ["--phase", "22"]:  # a quick look at phase 22 alone
         del pts
         phase_bench(pt, ident)
@@ -3525,6 +3642,9 @@ def main() -> int:
     # --- 24. the staged upload of a numpy frame -------------------------------
     phase_upload(dev, ident)
 
+    # --- 25. K6, the slot raster -----------------------------------------------
+    phase_k6(pt, dev, pts, params, kernels, ident)
+
     # --- 18. warm frames on the frame plans ------------------------------------
     phase_plans(pt, pts, params, ident)
 
@@ -3608,7 +3728,8 @@ def main() -> int:
         + ", ".join(f"{k} {kernels[k]['launches']}" for k in more))
 
     print(ident, flush=True)
-    names = ("sweep_global", "density_sweep", "splat_sweep", "pair_sweep", "binned_sweep")
+    names = ("sweep_global", "density_sweep", "splat_sweep", "pair_sweep", "binned_sweep",
+             "slot_raster")
     print(json.dumps({"kernels": [kernels[k] for k in names]}), flush=True)
     print(json.dumps({
         "ok": True,

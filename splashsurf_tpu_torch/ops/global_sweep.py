@@ -5,10 +5,11 @@ the full background grid (PyTorch port of the dense path of
 Pipeline:
   1. ``rasterize_global`` - particles -> per-cell slot rasters of cell
      fractions and weights, plus the overflow list (cells with more
-     particles than slots); on the cell-raster densities, the fraction
-     rasters and per-particle slot meta, from which
-     ``density_weights_from_rasters`` (kernel K4) makes the weights and the
-     densities;
+     particles than slots): kernel K6 (``splat_kernels.slot_raster_cuda``)
+     on the card, its plain version on the CPU, the same bits; on the
+     cell-raster densities, the fraction rasters and per-particle slot
+     meta, from which ``density_weights_from_rasters`` (kernel K4) makes the
+     weights and the densities;
   2. ``sweep_global`` - the level set on every grid point: the stencil sweep
      over the rasters (kernel K1) plus a scatter splat of the overflow;
   3. ``mc_global_cells`` - marching cubes: the active points with their
@@ -57,16 +58,12 @@ from splashsurf_tpu_torch import kernels
 from splashsurf_tpu_torch.density import supported_point_offsets
 from splashsurf_tpu_torch.mc import lut
 from splashsurf_tpu_torch.mc.dense import _case_indices, _local_edge_coeffs, edge_layout, lut_tensors
-from splashsurf_tpu_torch.ops.splat_kernels import pair_sweep_cuda, sweep_global_cuda
+from splashsurf_tpu_torch.ops.splat_kernels import (
+    cell_of, pair_sweep_cuda, slot_raster_cuda, sweep_global_cuda,
+)
 from splashsurf_tpu_torch.placement import on_device
 from splashsurf_tpu_torch.profiling import profile, read_back, redo_span, to_host
 from splashsurf_tpu_torch.uniform_grid import UniformGrid
-
-
-def _cell_of(px: torch.Tensor, mn: float, cs: float, n: int) -> torch.Tensor:
-    """floor((x - mn) / cs) as int64, clamped to [-1, n] before the integer
-    conversion (in-range values are unchanged)."""
-    return torch.floor((px - mn) / cs).clamp(-1, n).to(torch.int64)
 
 
 def rasterize_global(positions, values, grid: UniformGrid, slots: int, hsc: int,
@@ -102,64 +99,23 @@ def rasterize_global(positions, values, grid: UniformGrid, slots: int, hsc: int,
     the global grid origin, so a particle's fraction has the same bits
     whichever slab rasterizes it.
 
-    Slot ranks follow ascending particle index within each cell: ``slots``
-    rounds of a scatter-max of (n - index) per cell pick the next-smallest
-    index each round. The accumulation order is thereby a pure function of
-    the particle set. Particles outside the grid are dropped. Arrays go to
-    ``device`` (``placement.on_device``).
+    Slot ranks follow ascending particle index within each cell (the
+    reference's ``slots`` rounds of a scatter-max of (n - index) per cell;
+    on CUDA tensors kernel K6, ``splat_kernels.slot_raster_cuda``, gives the
+    same ranks and bits). The accumulation order is thereby a pure function
+    of the particle set. Particles outside the grid are dropped. Arrays go
+    to ``device`` (``placement.on_device``).
     """
     positions, values = on_device(positions, values, device=device)
-    dtype = positions.dtype
-    dev = positions.device
     n = positions.shape[0]
-    ncx, ncy, ncz = grid.n_cells
-    pad = hsc + 1
-    W = ncx if slab_ncx is None else slab_ncx
-    slab_x0 = int(slab_x0 or 0)
-    Xp, Yp, Zp = W + 2 * pad, ncy + 2 * pad, ncz + 2 * pad
-    cs = kernels.rounded(grid.cell_size, dtype)
-    mn = [kernels.rounded(grid.min[d], dtype) for d in range(3)]
-    px = [positions[:, d] for d in range(3)]
-    cell = [_cell_of(px[d], mn[d], cs, nc) for d, nc in enumerate(grid.n_cells)]
-    valid = torch.ones(n, dtype=torch.bool, device=dev)
-    for d, nc in enumerate(grid.n_cells):
-        valid &= (cell[d] >= 0) & (cell[d] < nc)
-    tx = cell[0] - slab_x0 + pad  # x in the table
-    valid &= (tx >= 0) & (tx < Xp)  # the band, halos included (the whole grid by default)
-    ncells = Xp * ncy * ncz  # the rank space covers the band
-    cflat = torch.where(valid, (tx * ncy + cell[1]) * ncz + cell[2], ncells)
-
-    rank = torch.full((n,), slots, dtype=torch.int64, device=dev)
-    remaining = valid
-    key = n - torch.arange(n, device=dev)  # ascending index -> descending key
-    for r in range(slots):
-        tbl = torch.zeros(ncells + 1, dtype=torch.int64, device=dev)
-        tbl.scatter_reduce_(
-            0, torch.where(remaining, cflat, ncells), key, reduce="amax"
-        )
-        won = remaining & (tbl[cflat] == key)
-        rank = torch.where(won, r, rank)
-        remaining = remaining & ~won
-
-    ok = valid & (rank < slots)
-    total = slots * Xp * Yp * Zp
-    dest = ((rank * Xp + tx) * Yp + cell[1] + pad) * Zp + cell[2] + pad
-    dest = torch.where(ok, dest, total)
-
-    shape = (slots, Xp, Yp, Zp)
-    far = kernels.far_fill(dtype)
-    fracs = tuple(
-        kernels.scatter_table(
-            dest, px[d] - kernels.grid_coord(cell[d], grid.min[d], cs, dtype),
-            total, far, shape,
-        )
-        for d in range(3)
+    rasters, over, meta = slot_raster_cuda(
+        positions.contiguous(), None if with_meta else values.contiguous(), grid, slots,
+        hsc + 1, slab_ncx, slab_x0, with_meta,
     )
-    over = valid & (rank >= slots)
     if with_meta:
         n_over = over.sum()
-        return fracs, (int(n_over) if overflow_capacity is None else n_over), (rank, ok, *cell)
-    rasters = fracs + (kernels.scatter_table(dest, values, total, 0.0, shape),)
+        return rasters, (int(n_over) if overflow_capacity is None else n_over), meta
+    px = [positions[:, d] for d in range(3)]
     if overflow_capacity is None:
         overflow = [px[d][over] for d in range(3)] + [values[over]]
         return rasters, tuple(overflow)
@@ -229,7 +185,7 @@ def _scatter_splat_points(opx, opy, opz, oval, grid: UniformGrid, h, hsc,
     cs = kernels.rounded(grid.cell_size, dtype)
     mn = [kernels.rounded(grid.min[d], dtype) for d in range(3)]
     pxs = (opx, opy, opz)
-    cell = [_cell_of(pxs[d], mn[d], cs, npts[d]) for d in range(3)]
+    cell = [cell_of(pxs[d], mn[d], cs, npts[d]) for d in range(3)]
     offs = _point_offsets(hsc, dev)
     # bound the (particles, offsets) block to ~2^22 entries
     step = max(1, (1 << 22) // offs.shape[0])

@@ -114,7 +114,7 @@ def reconstruct_global_slabbed(
     LAST_RUN.update(slabbed=True, n_slabs=n_slabs, slab_w=W, slab_cells=W * ncy * ncz,
                     rows=[], stage_s=clock.times)
     cs = kernels.rounded(grid.cell_size, dtype)
-    cx = gs._cell_of(positions[:, 0], kernels.rounded(grid.min[0], dtype), cs, ncx)
+    cx = gs.cell_of(positions[:, 0], kernels.rounded(grid.min[0], dtype), cs, ncx)
     in_grid = (cx >= 0) & (cx < ncx)
 
     encoded = os.environ.get("SPLASHSURF_TPU_PULL", "packed") == "encoded"

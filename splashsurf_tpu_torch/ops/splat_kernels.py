@@ -27,7 +27,7 @@ Port of ``splashsurf_tpu/ops/splat_pallas.py``:
   ``pair_cell_offsets``. Its tiles gather their occupied queries into a
   list and walk the set bits of the fraction masks only.
 
-And one kernel the reference wrote in plain XLA:
+And two kernels the reference wrote in plain XLA:
 
 - ``binned_sweep_cuda`` (K5, ``csrc/binned_sweep.cu``) computes the binned
   density formulation's pair sums (``neighbors.
@@ -35,6 +35,13 @@ And one kernel the reference wrote in plain XLA:
   thread per particle walking the runs of its 27 neighbour bins; its plain
   version ``binned_sweep_plain`` is the formulation's (rows, K, K)
   pair-block loop.
+- ``slot_raster_cuda`` (K6, ``csrc/slot_raster.cu``) writes the slot
+  rasters of ``global_sweep.rasterize_global`` (K1's and K4's input), the
+  overflow mask and, for K4, the slot meta: particles claim their cell's
+  slots in ascending index with 32-bit atomics, and each raster entry is
+  written once from its claimant. Its plain version
+  ``slot_raster_plain``, the reference's rounds of a scatter-max per slot,
+  gives the same bits.
 
 K2, K4 and K5 skip the square root and the spline of a pair beyond
 ``support_cut2``: such a pair's term is exactly +0, so the sums are
@@ -78,7 +85,7 @@ _CSRC = _PKG / "csrc"
 _SOURCES = tuple(
     _CSRC / name for name in (
         "sweep_global.cu", "density_sweep.cu", "splat_sweep.cu", "pair_sweep.cu",
-        "binned_sweep.cu",
+        "binned_sweep.cu", "slot_raster.cu",
     )
 )
 _HEADERS = (_CSRC / "level_set_sum.cuh",)
@@ -185,6 +192,11 @@ def load_kernels() -> ctypes.CDLL:
     for name in ("binned_sweep_f32", "binned_sweep_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, d, d, p, p]
+        fn.restype = i
+    for name in ("slot_raster_f32", "slot_raster_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, i64, i, i64, i64, i64, i64, i64, i64, i64, i64, d, d, d, d, d,
+                       p, p, p, p, p, p, p, p, p, p, p, p]
         fn.restype = i
     for name in ("sweep_geometry", "pair_sweep_geometry"):
         fn = getattr(lib, name)
@@ -838,9 +850,159 @@ def binned_sweep_cuda(px, py, pz, bin_rank, occ_bins, run_start, rank_table, cap
 binned_sweep_cuda.launches = binned_sweep_cuda.captured = 0
 
 
+# ---------------------------------------------------------------------------
+# K6: the slot raster of the dense route
+# ---------------------------------------------------------------------------
+
+
+def cell_of(px: torch.Tensor, mn: float, cs: float, n: int) -> torch.Tensor:
+    """floor((x - mn) / cs) as int64, clamped to [-1, n] before the integer
+    conversion (in-range values are unchanged)."""
+    return torch.floor((px - mn) / cs).clamp(-1, n).to(torch.int64)
+
+
+def slot_raster_plain(positions, values, grid, slots, pad, slab_ncx=None, slab_x0=0,
+                      with_meta=False):
+    """Plain PyTorch slot raster: ``slots`` rounds of a scatter-max of (n -
+    index) per cell pick the next-smallest index each round, then
+    ``kernels.scatter_table`` writes each raster. Arguments and result as
+    ``slot_raster_cuda``."""
+    dtype = positions.dtype
+    dev = positions.device
+    n = positions.shape[0]
+    ncx, ncy, ncz = grid.n_cells
+    W = ncx if slab_ncx is None else slab_ncx
+    Xp, Yp, Zp = W + 2 * pad, ncy + 2 * pad, ncz + 2 * pad
+    cs = kernels.rounded(grid.cell_size, dtype)
+    mn = [kernels.rounded(grid.min[d], dtype) for d in range(3)]
+    px = [positions[:, d] for d in range(3)]
+    cell = [cell_of(px[d], mn[d], cs, nc) for d, nc in enumerate(grid.n_cells)]
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    for d, nc in enumerate(grid.n_cells):
+        valid &= (cell[d] >= 0) & (cell[d] < nc)
+    tx = cell[0] - slab_x0 + pad  # x in the table
+    valid &= (tx >= 0) & (tx < Xp)  # the band, halos included (the whole grid by default)
+    ncells = Xp * ncy * ncz  # the rank space covers the band
+    cflat = torch.where(valid, (tx * ncy + cell[1]) * ncz + cell[2], ncells)
+
+    rank = torch.full((n,), slots, dtype=torch.int64, device=dev)
+    remaining = valid
+    key = n - torch.arange(n, device=dev)  # ascending index -> descending key
+    for r in range(slots):
+        tbl = torch.zeros(ncells + 1, dtype=torch.int64, device=dev)
+        tbl.scatter_reduce_(
+            0, torch.where(remaining, cflat, ncells), key, reduce="amax"
+        )
+        won = remaining & (tbl[cflat] == key)
+        rank = torch.where(won, r, rank)
+        remaining = remaining & ~won
+
+    ok = valid & (rank < slots)
+    total = slots * Xp * Yp * Zp
+    dest = ((rank * Xp + tx) * Yp + cell[1] + pad) * Zp + cell[2] + pad
+    dest = torch.where(ok, dest, total)
+
+    shape = (slots, Xp, Yp, Zp)
+    far = kernels.far_fill(dtype)
+    rasters = tuple(
+        kernels.scatter_table(
+            dest, px[d] - kernels.grid_coord(cell[d], grid.min[d], cs, dtype),
+            total, far, shape,
+        )
+        for d in range(3)
+    )
+    if not with_meta:
+        rasters += (kernels.scatter_table(dest, values, total, 0.0, shape),)
+    over = valid & (rank >= slots)
+    return rasters, over, ((rank, ok, *cell) if with_meta else None)
+
+
+def _check_raster_inputs(positions, values, slots, with_meta):
+    what = "slot_raster"
+    if positions.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{what}: dtype {positions.dtype} (want float32 or float64)")
+    if positions.dim() != 2 or positions.shape[1] != 3:
+        raise ValueError(f"{what}: positions shape {tuple(positions.shape)} (want (n, 3))")
+    if not positions.is_contiguous():
+        raise ValueError(f"{what}: inputs must be contiguous")
+    if int(slots) < 1:
+        raise ValueError(f"{what}: {slots} slots (want at least 1)")
+    if with_meta:
+        return
+    if values.dtype != positions.dtype:
+        raise TypeError(f"{what}: values dtype {values.dtype}, positions {positions.dtype}")
+    if values.shape != positions.shape[:1] or values.device != positions.device:
+        raise ValueError(f"{what}: values {tuple(values.shape)} on {values.device} for "
+                         f"positions {tuple(positions.shape)} on {positions.device}")
+    if not values.is_contiguous():
+        raise ValueError(f"{what}: inputs must be contiguous")
+
+
+def slot_raster_cuda(positions, values, grid, slots, pad, slab_ncx=None, slab_x0=0,
+                     with_meta=False):
+    """The slot rasters of ``global_sweep.rasterize_global``: kernel K6 on
+    CUDA tensors, the plain version on CPU tensors, the same bits on both.
+
+    ``positions`` (n, 3) and ``values`` (n,), contiguous, of one float
+    dtype; ``grid`` the background grid; ``pad`` the raster pad; the x band
+    of global cells [x0 - pad, x0 + W + pad) with W = ``slab_ncx`` from x0
+    = ``slab_x0`` (by default the whole grid). Returns ``(rasters, over,
+    meta)``: the (slots, Xp, Yp, Zp) rasters fx, fy, fz (fractions from the
+    cell corner, the far sentinel in empty slots) and fv (the weights, 0 in
+    empty slots), Xp = W + 2 pad, Yp = ncy + 2 pad, Zp = ncz + 2 pad; the
+    bool mask of the particles whose cell already held ``slots`` particles
+    of smaller index; and ``None``. With ``with_meta`` ``values`` is not
+    read, fv is left out, and ``meta`` is (rank, ok, cx, cy, cz): per
+    particle its slot rank (``slots`` where it holds none), whether it
+    holds a slot, and its cell clamped to [-1, nc], int64."""
+    _check_raster_inputs(positions, values, slots, with_meta)
+    slab_x0 = int(slab_x0 or 0)
+    if positions.device.type == "cpu":
+        return slot_raster_plain(positions, values, grid, slots, pad, slab_ncx, slab_x0,
+                                 with_meta)
+    if positions.device.type != "cuda":
+        raise ValueError(f"slot_raster: unsupported device {positions.device}")
+    dtype, dev = positions.dtype, positions.device
+    n = positions.shape[0]
+    S = int(slots)
+    ncx, ncy, ncz = (int(v) for v in grid.n_cells)
+    W = ncx if slab_ncx is None else int(slab_ncx)
+    Xp, Yp, Zp = W + 2 * pad, ncy + 2 * pad, ncz + 2 * pad
+    if n >= 2**32 - 1 or S * Xp * Yp >= 2**32:
+        raise ValueError(f"slot_raster: {n} particles, {S * Xp * Yp} raster rows (want both "
+                         f"below 2^32)")
+    cs = kernels.rounded(grid.cell_size, dtype)
+    mn = [kernels.rounded(grid.min[d], dtype) for d in range(3)]
+    lib = load_kernels()
+    tables = torch.empty(S * Xp * ncy * ncz, dtype=torch.int32, device=dev)
+    rasters = tuple(torch.empty((S, Xp, Yp, Zp), dtype=dtype, device=dev)
+                    for _ in range(3 if with_meta else 4))
+    over = torch.empty(n, dtype=torch.bool, device=dev)
+    meta = None
+    if with_meta:
+        meta = (torch.empty(n, dtype=torch.int64, device=dev),
+                torch.empty(n, dtype=torch.bool, device=dev),
+                *(torch.empty(n, dtype=torch.int64, device=dev) for _ in range(3)))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch(
+            getattr(lib, "slot_raster_" + _suffix(dtype)),
+            positions.data_ptr(), None if with_meta else values.data_ptr(), n, S, ncx, ncy,
+            ncz, Xp, Yp, Zp, pad, slab_x0, *mn, cs, kernels.far_fill(dtype),
+            tables.data_ptr(), *(r.data_ptr() for r in rasters[:3]),
+            None if with_meta else rasters[3].data_ptr(), over.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in (meta or (None,) * 5)), stream,
+        )
+    _count(slot_raster_cuda)
+    return rasters, over, meta
+
+
+slot_raster_cuda.launches = slot_raster_cuda.captured = 0
+
+
 # every kernel wrapper, each counting its launches and its captured launches
 WRAPPERS = (occupancy_masks_cuda, sweep_global_cuda, bin_occupancy_cuda, density_sweep_cuda,
-            splat_sweep_cuda, pair_sweep_cuda, binned_sweep_cuda)
+            splat_sweep_cuda, pair_sweep_cuda, binned_sweep_cuda, slot_raster_cuda)
 
 
 def captured_counts() -> dict:
