@@ -9,7 +9,9 @@ length, the warm-up frames, how many frames the check samples, and an
 ``env`` of its own). Scenes, motions, placements, entry points and metrics
 are modules of their own (``scenes/``, ``motions/``, ``placements/``,
 ``entries/``, ``metrics/``), found by name (``harness.files``), and the
-limits of the check are the cell's (``checks/<cell>.json``).
+limits of the check are the cell's (``checks/<cell>.json``). The run's
+``# host`` line (``harness.host``) says where the process ran and what the
+host gave it.
 
 Traffic is a closed loop with one frame in flight: the window calls the
 program on frame i mod F of the cycle, i = 0, 1, ..., each call ending
@@ -31,8 +33,8 @@ from typing import Callable, Optional
 
 import torch
 
-from harness import scenes
-from harness.files import HERE, ROOT, load_json, load_module
+from harness import host, scenes
+from harness.files import HERE, ROOT, cell_files, load_json, load_module, switches
 from reference.judge import judge
 from reference.surface import Params
 
@@ -62,14 +64,6 @@ class Run:
 def load_metric(name: str):
     """The module ``metrics/<name>.py``."""
     return load_module("metrics", name)
-
-
-def cell_files(spec: dict, cell_name: str) -> tuple:
-    """(the cell's entry, its configuration, its traffic mix)."""
-    cell = next(w for w in spec["workloads"] if w["name"] == cell_name)
-    centry = next(c for c in spec["configs"] if c["name"] == cell["config"])
-    return (cell, load_json(ROOT / centry["file"]),
-            load_json(HERE / "traffic" / f"{cell['traffic']}.json"))
 
 
 def cell_metrics(spec: dict, cell: str, trace: bool) -> list:
@@ -187,6 +181,8 @@ def run(spec: dict, cell_name: str, seed: int, seconds: float, trace: bool, devi
     cyc = int(traffic["cycle_frames"])
     attempted = failed = 0
     errors = []
+    probe = host.Probe()
+    probe.start()
     t0 = time.perf_counter()
     r.setup_s = t0 - t_start
     t_end = t0
@@ -211,6 +207,7 @@ def run(spec: dict, cell_name: str, seed: int, seconds: float, trace: bool, devi
         sample.offer(k, rec)
         del rec
     r.window_s = t_end - t0
+    probe.stop()
     if prof is not None:
         _sync(device)
         span.__exit__(None, None, None)
@@ -248,6 +245,10 @@ def run(spec: dict, cell_name: str, seed: int, seconds: float, trace: bool, devi
         v = m.read(r)
         if v is not None:
             values[e["name"]] = {"value": float(v), "unit": e["unit"]}
+    log(host.line(torch.get_num_threads(), probe, r.window_s, r.latencies,
+                  addresses=[f.ctypes.data for f in frames if hasattr(f, "ctypes")],
+                  card=host.card_state(device.index or 0) if device.type == "cuda" else None,
+                  extra={"metrics": {k: v["value"] for k, v in values.items()}}))
 
     # the check: the sampled frames against the reference
     kept = [h for h in sample.held if h is not None]
@@ -289,7 +290,7 @@ def program_for(spec: dict, cell_name: str) -> tuple:
     then of its traffic mix) in the environment, then imports the program:
     (the program, its parameters, the cell's entry point, the switches)."""
     _, cfg, traffic = cell_files(spec, cell_name)
-    env = {**cfg.get("env", {}), **traffic.get("env", {})}
+    env = switches(cfg, traffic)
     os.environ.update({key: str(val) for key, val in env.items()})
     import splashsurf_tpu_torch as pt
 

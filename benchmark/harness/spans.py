@@ -1,6 +1,6 @@
 """The program's own spans and read-back counter over the window, for the
 per-layer metrics that read them (``densities_ms``, ``sweep_ms``,
-``mc_ms``, ``redo_pct``, ``readbacks_per_frame``).
+``mc_ms``, ``redo_pct``, ``readbacks_per_frame``, ``upload_fill_ms``).
 
 ``before_window`` turns the program's span recorder on, with fresh totals
 (``splashsurf_tpu_torch.profiling.record_spans``), and notes its read-back
@@ -23,6 +23,7 @@ REDO = "redo"  # the program's group of the redo spans that no other encloses
 DENSITIES = ("compute particle densities",)
 SWEEP = ("dense raster", "dense level set")
 MC = ("dense mc",)
+UPLOAD = ("upload",)
 
 
 def _profiling():
@@ -82,6 +83,15 @@ def per_frame_ms(run, names):
     if t is None or not any(n in t for n in names):
         return None
     return device_ms(run, names) / len(run.frame_ids)
+
+
+def host_per_frame_ms(run, names):
+    """Host ms of the spans ``names`` per completed frame, or None where
+    none of them ran."""
+    t = totals(run)
+    if t is None or not any(n in t for n in names):
+        return None
+    return 1e3 * sum(t[n]["host_s"] for n in names if n in t) / len(run.frame_ids)
 
 
 def readbacks(run):

@@ -20,6 +20,11 @@ if __name__ == "__main__":
 
     # the program under test is the checkout's splashsurf_tpu_torch
     sys.path.insert(1, str(Path(__file__).resolve().parent.parent))
+    import os
+
+    from harness.files import command_switches
+
+    os.environ.update(command_switches(sys.argv[1:]))  # before torch loads OpenMP
     from harness import runner
 
     sys.exit(runner.main(t_start=T_START))

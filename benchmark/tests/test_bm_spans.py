@@ -38,3 +38,30 @@ def test_a_program_without_spans_leaves_them_unread(monkeypatch):
     assert res["correct"], out["check"]
     assert not set(METRICS) & set(res["metrics"])
     assert "plan_miss_pct" in res["metrics"]
+
+
+def test_upload_fill_ms_on_a_span_total():
+    import types
+
+    from harness.files import load_module
+
+    m = load_module("metrics", "upload_fill_ms")
+    run = types.SimpleNamespace(frame_ids=[0, 1, 2, 3], state={spans.KEY: {"totals": {
+        "upload": {"count": 4, "host_s": 0.1, "device_s": 0.2},
+        "frame": {"count": 4, "host_s": 0.3, "device_s": 0.4}}}})
+    assert m.read(run) == pytest.approx(25.0)  # host seconds, not device seconds
+    del run.state[spans.KEY]["totals"]["upload"]
+    assert m.read(run) is None  # no upload span: tensors on the card
+    run.state = {}
+    assert m.read(run) is None  # no recorder
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_upload_fill_ms_only_where_frames_are_uploaded(cell):
+    out = small_run(cell, program, trace=True)
+    res = out["result"]
+    assert res["correct"], out["check"]
+    if cell.endswith("host_flow"):
+        assert res["metrics"]["upload_fill_ms"]["value"] > 0
+    else:
+        assert "upload_fill_ms" not in res["metrics"]
