@@ -1410,6 +1410,7 @@ def phase_sequence(pt, pts, params, kernels, ident):
     """Phase 10: the sequence entry point with the cell-raster densities on
     the 2M dam break, the main path of K4."""
     from splashsurf_tpu_torch import neighbors as N
+    from splashsurf_tpu_torch import plans
     from splashsurf_tpu_torch.ops import global_sweep as gs
     from splashsurf_tpu_torch.ops import splat_kernels as sk
     from splashsurf_tpu_torch.reconstruction import _bucket_grid
@@ -1435,8 +1436,7 @@ def phase_sequence(pt, pts, params, kernels, ident):
         def recording():
             for f, g in zip(frames, grids):
                 # the reference's condition (global_pipeline.py:383-389)
-                planned = (gs._OVER_PLAN.get((g.n_points, n)) == 0
-                           and (g.n_points, str(f.dtype)) in gs._MC_CAPS)
+                planned = plans.cellraster_ready(g.n_points, n, str(f.dtype))
                 k4, k2 = sk.pair_sweep_cuda.launches, sk.density_sweep_cuda.launches
                 yield f
                 record.append((planned, N.LAST_GATE.get("kind"),
@@ -2543,12 +2543,11 @@ def idle_share(fn, top=None):
 
 def clear_plans():
     """Forget every speculative plan of the port: the next frame is cold."""
-    from splashsurf_tpu_torch import neighbors, reconstruction
-    from splashsurf_tpu_torch.ops import global_sweep as gs
+    from splashsurf_tpu_torch import neighbors, plans, reconstruction
 
     neighbors.clear_density_plan()
     reconstruction.clear_grid_plan()
-    for plan in (gs._OVER_PLAN, gs._MC_CAPS, gs._PULL_PLAN, gs._PULL_PLAN_ENC):
+    for plan in (plans.OVER_PLAN, plans.MC_CAPS, plans.PULL_PLAN, plans.PULL_PLAN_ENC):
         plan.clear()
 
 
@@ -2581,6 +2580,7 @@ def phase_plans(pt, pts, params, ident):
     from scipy.spatial import cKDTree
 
     from splashsurf_tpu_torch import neighbors as N
+    from splashsurf_tpu_torch import plans
     from splashsurf_tpu_torch.global_pipeline import SPECULATION_STATS
     from splashsurf_tpu_torch.ops import splat_kernels as sk
 
@@ -2612,7 +2612,7 @@ def phase_plans(pt, pts, params, ident):
         return pt.reconstruct_surface(f, params)
 
     def lattice():
-        (plan,) = N._DENSITY_PLAN.values()
+        (plan,) = plans.DENSITY_PLAN.values()
         return plan["grid"].min
 
     N.reset_geoslot_hysteresis()
@@ -2747,6 +2747,7 @@ def phase_encoded(pt, dev, canyon, pts_np, ident):
 
     from splashsurf_tpu_torch import native
     from splashsurf_tpu_torch import neighbors as N
+    from splashsurf_tpu_torch import plans
     from splashsurf_tpu_torch import subdomains as S
     from splashsurf_tpu_torch.global_pipeline import SPECULATION_STATS
     from splashsurf_tpu_torch.ops import global_sweep as gs
@@ -2802,7 +2803,7 @@ def phase_encoded(pt, dev, canyon, pts_np, ident):
             r, o = gs.rasterize_global(frames[0], params.particle_rest_mass / rho, grid, 2, hsc)
             ls = gs.sweep_global(r, o, grid, h, hsc)
             del r, o, rho
-            caps = gs._MC_CAPS[(grid.n_points, str(ls.dtype))]
+            caps = plans.MC_CAPS[(grid.n_points, str(ls.dtype))]
             iso = params.iso_surface_threshold
             mc_ms = cuda_ms(lambda: gs._dense_mc(ls, grid, iso, caps), 5)
             del ls
@@ -2966,13 +2967,12 @@ def moved_origin_frames(pt, pts_np, params, moves=ORIGIN_MOVES, eps=1e-4):
 
 def plan_state():
     """A copy of every plan of the port (to run a frame twice on them)."""
-    from splashsurf_tpu_torch import neighbors, reconstruction
-    from splashsurf_tpu_torch.ops import global_sweep as gs
+    from splashsurf_tpu_torch import neighbors, plans
 
     return [(d, type(d)(d)) for d in (
-        neighbors._DENSITY_PLAN, reconstruction._GRID_PLAN, reconstruction._GRID_NOSPEC,
-        reconstruction._PENDING_NOSPEC, gs._OVER_PLAN, gs._MC_CAPS, gs._PULL_PLAN,
-        gs._PULL_PLAN_ENC)] + [(neighbors._GEOSLOT_MISSES, list(neighbors._GEOSLOT_MISSES))]
+        plans.DENSITY_PLAN, plans.GRID_PLAN, plans.GRID_NOSPEC, plans.PENDING_NOSPEC,
+        plans.OVER_PLAN, plans.MC_CAPS, plans.PULL_PLAN,
+        plans.PULL_PLAN_ENC)] + [(neighbors._GEOSLOT_MISSES, list(neighbors._GEOSLOT_MISSES))]
 
 
 def restore_plans(state):

@@ -287,6 +287,7 @@ def bench_stage(stage: str, n: int, repeats: int, dev: torch.device) -> dict:
             return vertex_normals(v, t)
         unit, scale = "Mtris/s", len(rec.mesh.triangles) / 1e6
     elif stage == "mc":
+        from splashsurf_tpu_torch import plans
         from splashsurf_tpu_torch.mc.dense import _mc_counts
         from splashsurf_tpu_torch.ops import global_sweep as gs
         from splashsurf_tpu_torch.uniform_grid import kernel_extents
@@ -295,14 +296,14 @@ def bench_stage(stage: str, n: int, repeats: int, dev: torch.device) -> dict:
         hsc = kernel_extents(h, grid.cell_size).half_supported_cells
         rho = neighbors.compute_particle_densities(pts, h, params.particle_rest_mass)
         values = params.particle_rest_mass / rho
-        cap = gs._pow2(n // 64, lo=4096)
+        cap = plans.default_overflow_capacity(n)
         rasters, overflow, n_over = gs.rasterize_global(pts, values, grid, 2, hsc, cap)
         if int(n_over) > cap:
             raise RuntimeError(f"{int(n_over)} overflow particles past the capacity {cap}")
         ls = gs.sweep_global(rasters, overflow, grid, h, hsc)
         iso = params.iso_surface_threshold
         nv, nt = _mc_counts(ls, iso)
-        vcap, tcap = gs._bucket16(nv * 5 // 4), gs._bucket16(nt * 5 // 4)
+        vcap, tcap = plans.mc_caps(nv, nt)
 
         def f():
             return gs.mc_global_packed(ls, grid, iso, vcap, tcap)

@@ -4,11 +4,11 @@
 (reconstruction.rs:65-194).
 
 A frame runs on the speculative plans of the frames before it, as the
-reference's does: the density plan (``neighbors._DENSITY_PLAN``), the
-background grid (``reconstruction._GRID_PLAN``, checked through
-``grid_check``), and the dense route's overflow, MC and pull plans
-(``ops.global_sweep``). Their checks come back with the mesh; the outcomes
-are counted in ``SPECULATION_STATS`` under the reference's keys.
+reference's does (``plans``): the density plan, the background grid
+(checked through ``grid_check``), and the dense route's overflow, MC and
+pull plans. Their checks come back with the mesh; the outcomes are counted
+in ``SPECULATION_STATS`` (``plans.SPECULATION_STATS``) under the
+reference's keys.
 
 The cell-raster densities (``_cellrast_frame``) skip the density stage: rho
 comes from a pair sweep (kernel K4) over the fraction rasters that the level
@@ -43,25 +43,15 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from splashsurf_tpu_torch import frame_graph, kernels, neighbors
+from splashsurf_tpu_torch import frame_graph, kernels, neighbors, plans
 from splashsurf_tpu_torch.mesh import TriMesh3d
 from splashsurf_tpu_torch.ops import global_sweep as gs
 from splashsurf_tpu_torch.params import Parameters
 from splashsurf_tpu_torch.placement import on_device
+from splashsurf_tpu_torch.plans import SPECULATION_STATS
 from splashsurf_tpu_torch.profiling import profile, redo_span
 from splashsurf_tpu_torch.reconstruction import GridPlanMiss, SurfaceReconstruction
 from splashsurf_tpu_torch.uniform_grid import UniformGrid, kernel_extents
-
-# Frame speculation outcomes (the reference's counters,
-# global_pipeline.py:26-32); tests reset them freely.
-SPECULATION_STATS = {
-    "frames": 0,
-    "density_miss": 0,
-    "grid_miss": 0,
-    "caps_retry": 0,
-    "overflow_retry": 0,
-}
-
 
 def compute_densities(positions: torch.Tensor, parameters: Parameters) -> torch.Tensor:
     """Per-particle SPH densities on the positions' device
@@ -103,13 +93,14 @@ def _cellrast_frame(positions: torch.Tensor, parameters: Parameters, grid: Unifo
     del fracs, fv
     okey = (grid.n_points, positions.shape[0])
     checks = (grid_check,) if grid_check is not None else ()
+    labels = ("grid",) * len(checks)
     try:
         out = gs._finish_global_dense(
             ls, grid, parameters.iso_surface_threshold, okey, 0, n_over,
-            checks, defer_pull, ("grid",) * len(checks),
+            checks, defer_pull, labels,
         )
     except gs.SpeculationMiss as e:
-        SPECULATION_STATS["grid_miss"] += 1
+        plans.note_failed_check(labels, e.flags)  # a grid miss: counted
         raise GridPlanMiss(str(e)) from e
     if out is None:
         # the overflow plan has grown: later frames go legacy until a frame
@@ -145,12 +136,8 @@ def _legacy_frame(positions: torch.Tensor, parameters: Parameters, grid: Uniform
                     out = gs.PendingPull(lambda: ("ok", verts, tris), [])
                 return out, rho
             except gs.SpeculationMiss as e:
-                failed = {labels[i] for i, ok in enumerate(e.flags) if not ok}
-                if "grid" in failed:
-                    SPECULATION_STATS["grid_miss"] += 1
+                if plans.note_failed_check(labels, e.flags) == "grid":
                     raise GridPlanMiss(str(e)) from e
-                SPECULATION_STATS["density_miss"] += 1
-                neighbors.clear_density_plan()
     raise RuntimeError(
         "the density plan missed twice in a row; the second frame plans from "
         "scratch, so a plan was not invalidated"
@@ -256,23 +243,12 @@ def _try_warm_frame(positions: torch.Tensor, parameters: Parameters, grid: Unifo
     LAST_WARM["outcome"] = "no plan"
     n, dtype = positions.shape[0], str(positions.dtype)
     h = float(parameters.compact_support_radius)
-    dplan = neighbors._DENSITY_PLAN.get((n, dtype, h, None))
-    key = (grid.n_points, dtype)
-    caps = gs._MC_CAPS.get(key)
-    plans = gs._PULL_PLAN_ENC if encoded else gs._PULL_PLAN
-    # an encoded plan starts from the packed one, as in the reference:
-    # active points <= triangles, so the triangle bucket is a safe start
-    pull_plan = plans.get(key) or gs._PULL_PLAN.get(key)
-    if dplan is None or caps is None or pull_plan is None:
+    warm = plans.warm_plans(grid.n_points, n, dtype, h, encoded)
+    if warm is None:
         return None
+    dplan, caps, pull_plan, ofc = warm
     vcap, tcap = caps
     nv_b, n2_b = pull_plan
-    if nv_b > vcap or n2_b > tcap:
-        return None
-    okey = (grid.n_points, n)
-    ofc = gs._OVER_PLAN.get(okey)
-    if ofc is None:
-        ofc = gs._pow2(n // 64, lo=4096)
     dev = positions.device
     fkey = FrameKey(
         grid=grid, bgrid=dplan["grid"], kind=dplan["kind"], kslots=dplan["slots"],
@@ -297,21 +273,23 @@ def _try_warm_frame(positions: torch.Tensor, parameters: Parameters, grid: Unifo
         checks = [grid_check] if grid_check is not None else []
         host_buf, *host_checks = gs.PendingPull(None, [buf] + checks).host_parts()
     sc, *host = gs.unpack_parts(host_buf, layout)
-    if host_checks and not bool(host_checks[0]):
-        LAST_WARM["outcome"] = "grid"
-        frame_graph.drop(slot)
-        raise GridPlanMiss("speculated background grid is stale")
-    if not bool(sc[5]):  # the density check
-        LAST_WARM["outcome"] = "density"
-        neighbors.clear_density_plan()  # drops every graph
-        return None
+    missed = plans.note_failed_check(  # sc[5] is the density check
+        ("grid",) * len(host_checks) + ("density",),
+        [bool(c) for c in host_checks] + [bool(sc[5])], count=False,
+    )
+    if missed is not None:
+        LAST_WARM["outcome"] = missed
+        if missed == "grid":
+            frame_graph.drop(slot)
+            raise GridPlanMiss("speculated background grid is stale")
+        return None  # the density plans are cleared: every graph is dropped
     # a miss hands the frame to the per-stage path, which runs on the
     # updated plan (the overflow growth capped at N, as the reference's)
     second = 2 if encoded else 1
     outcome, (total_v, total_t, total_c, _) = gs._check_plans(
-        sc, okey=okey, ocap=ofc, key=key, caps=caps, plans=plans, second=second,
-        iso=parameters.iso_surface_threshold, pulled=pull_plan, count=False,
-        over_max=gs._pow2(n), drop_both=True,
+        sc, okey=(grid.n_points, n), ocap=ofc, key=(grid.n_points, dtype), caps=caps,
+        encoded=encoded, second=second, iso=parameters.iso_surface_threshold,
+        pulled=pull_plan, count=False, over_max=plans.pow2(n), drop_both=True,
     )
     LAST_WARM["outcome"] = "hit" if outcome == "ok" else outcome
     if outcome != "ok":
@@ -367,8 +345,7 @@ def reconstruct_surface_global(
     out = None
     if (
         use_cellraster(positions.device)
-        and gs._OVER_PLAN.get((grid.n_points, positions.shape[0])) == 0
-        and (grid.n_points, str(positions.dtype)) in gs._MC_CAPS
+        and plans.cellraster_ready(grid.n_points, positions.shape[0], str(positions.dtype))
     ):
         out = _cellrast_frame(positions, parameters, grid, hsc, grid_check, defer_pull)
     if out is None:

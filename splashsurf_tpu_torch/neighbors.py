@@ -41,7 +41,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from splashsurf_tpu_torch import kernels
+from splashsurf_tpu_torch import kernels, plans
 from splashsurf_tpu_torch.aabb import Aabb3d
 from splashsurf_tpu_torch.ops.splat_kernels import binned_sweep_cuda, density_sweep_cuda
 from splashsurf_tpu_torch.placement import on_device
@@ -645,27 +645,14 @@ def note_formulation(which: str, kind: str) -> None:
         LAST_GATE.update({k: LAST_GATE[which][k] for k in _GATE_STATS})
 
 
-# The speculative density plan (reference ``neighbors.py:1091-1100``): the
-# next frame with the same key (N, dtype, support, capacity, n_valid) runs
-# on this frame's lattice, formulation and capacities without reading the
-# card, and returns a device bool that says whether the plan still held
-# (``_plan_check``). The caller verifies it with the frame's one read-back
-# and, on False, clears the plan and recomputes. Process-global, as the
-# reference's is.
-_DENSITY_PLAN: dict = {}
-
-
 class DensityPlanMiss(RuntimeError):
     """A speculative density plan was violated; clear and recompute."""
 
 
 def clear_density_plan() -> None:
     """Forget the density plans, and drop the warm frames' CUDA graphs
-    (each was captured on one)."""
-    from splashsurf_tpu_torch import frame_graph
-
-    _DENSITY_PLAN.clear()
-    frame_graph.drop()
+    (each was captured on one): ``plans.clear_density``."""
+    plans.clear_density()
 
 
 def _lattice_end(grid: BinGrid, d: int, dtype) -> float:
@@ -761,11 +748,8 @@ def compute_particle_densities(
         rho = torch.cat([rho, rho.new_zeros(n - rho.shape[0])])
         return (rho, out[1]) if speculate else rho
 
-    key = (
-        n, str(positions.dtype), float(compact_support_radius),
-        None if capacity is None else int(capacity),
-    )
-    plan = _DENSITY_PLAN.get(key) if speculate else None
+    key = plans.density_key(n, str(positions.dtype), compact_support_radius, capacity)
+    plan = plans.DENSITY_PLAN.get(key) if speculate else None
     if plan is not None:
         LAST_GATE["kind"] = plan["kind"]
         return _densities_planned(
@@ -775,7 +759,7 @@ def compute_particle_densities(
     def planned(rho, grid, kind, slots=8, u_cap=0, ocap=0, ccap=0):
         if not speculate:
             return rho
-        _DENSITY_PLAN[key] = dict(
+        plans.DENSITY_PLAN[key] = dict(
             grid=grid, kind=kind, slots=slots, u_cap=u_cap, ocap=ocap, ccap=ccap
         )
         return rho, None

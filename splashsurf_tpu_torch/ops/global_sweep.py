@@ -23,13 +23,14 @@ size, and counts are read back where they are needed.
 
 The dense route (``reconstruct_global_dense``) runs on the reference's
 speculative plans (``ops/global_sweep.py:937-970, 1196-1565`` of the
-reference): the raster overflow list has a planned capacity
-(``_OVER_PLAN``), marching cubes writes into buffers of planned vertex and
-triangle capacities (``_MC_CAPS``), and the mesh comes to the host in
-planned buckets (``_PULL_PLAN``), together with the totals and the caller's
-deferred checks, in one copy (``PendingPull``). A frame whose plans are all
-in place reads nothing back before that copy; a check that fails there is a
-miss, which updates the plans as the reference does and re-runs the frame.
+reference, kept by ``plans``): the raster overflow list has a planned
+capacity (``plans.OVER_PLAN``), marching cubes writes into buffers of
+planned vertex and triangle capacities (``plans.MC_CAPS``), and the mesh
+comes to the host in planned buckets (``plans.PULL_PLAN``), together with
+the totals and the caller's deferred checks, in one copy (``PendingPull``).
+A frame whose plans are all in place reads nothing back before that copy;
+a check that fails there is a miss, which updates the plans as the
+reference does and re-runs the frame.
 
 The copy is the mesh itself (the packed pull, the port's default) or, with
 ``SPLASHSURF_TPU_PULL=encoded`` (the reference's default), the encoded
@@ -54,7 +55,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from splashsurf_tpu_torch import kernels
+from splashsurf_tpu_torch import kernels, plans
 from splashsurf_tpu_torch.density import supported_point_offsets
 from splashsurf_tpu_torch.mc import lut
 from splashsurf_tpu_torch.mc.dense import _case_indices, _local_edge_coeffs, edge_layout, lut_tensors
@@ -805,36 +806,6 @@ def check_empty_field(total_t: int, ls_max: float, iso: float) -> None:
         )
 
 
-def _pow2(n: int, lo: int = 1024) -> int:
-    return max(lo, 1 << (max(int(n), 1) - 1).bit_length())
-
-
-def _bucket16(n: int, lo: int = 1024) -> int:
-    """Round up to 16 steps per power of two (<= 6% of padding)."""
-    n = max(int(n), lo)
-    p = 1 << max((n - 1).bit_length() - 4, 0)
-    return -(-n // p) * p
-
-
-# The dense route's speculative plans (reference ``ops/global_sweep.py:
-# 937-958``), process-global as the reference's are:
-# per (grid points, dtype), the MC vertex and triangle capacities ...
-_MC_CAPS: dict = {}
-# ... the (vertex, triangle) buckets of the packed mesh copy and the
-# (vertex, active point) buckets of the encoded one (kept apart, as the
-# reference keeps them, so that the two never read each other's plan);
-# per (grid points, N), the raster overflow capacity, fitted to the
-# previous frame's count (usually 0, which skips the overflow splat).
-_PULL_PLAN: dict = {}
-_PULL_PLAN_ENC: dict = {}
-_OVER_PLAN: dict = {}
-
-
-def _note_overflow_plan(okey, total_over: int) -> None:
-    """Fit the next frame's overflow capacity to this frame's true count."""
-    _OVER_PLAN[okey] = 0 if total_over == 0 else _pow2(total_over * 2, lo=1024)
-
-
 class SpeculationMiss(RuntimeError):
     """One of the caller's deferred checks came back False; ``flags`` holds
     each check's value, in the order they were passed."""
@@ -948,16 +919,14 @@ def reconstruct_global_dense(
     positions, values = on_device(positions, values, device=device)
     n = positions.shape[0]
     okey = (grid.n_points, n)
-    ocap = _OVER_PLAN.get(okey)
-    if ocap is None:
-        ocap = _pow2(n // 64, lo=4096)
+    ocap = plans.overflow_capacity(okey, n)
     for attempt in range(4):
         with redo_span("overflow", attempt):
             with profile("dense raster"):
                 rasters, overflow, n_over = rasterize_global(
                     positions, values, grid, slots, hsc, ocap
                 )
-                if okey not in _OVER_PLAN:
+                if okey not in plans.OVER_PLAN:
                     # no plan yet: this frame reads counts back anyway, so it
                     # splats the real rows only (the sums are those of the
                     # whole list)
@@ -968,12 +937,12 @@ def reconstruct_global_dense(
             del rasters, overflow
             out = _finish_global_dense(
                 ls, grid, iso, okey, ocap, n_over, deferred_checks, defer_pull, check_labels,
-                over_max=_pow2(n),
+                over_max=plans.pow2(n),
             )
             if out is not None:
                 return out if defer_pull else out.resolve()[1:]
             # the level set misses the dropped overflow splats: the plan has grown
-            ocap = _OVER_PLAN[okey]
+            ocap = plans.OVER_PLAN[okey]
     raise RuntimeError(f"raster overflow exceeded capacity {ocap} after retries")
 
 
@@ -1063,7 +1032,7 @@ def _finish_global_dense(ls, grid: UniformGrid, iso, okey, overflow_capacity, n_
     The planning frame of a (grid, dtype) runs MC on lists of exact size
     (their counts read back) and plans the MC capacities from them. A frame
     with capacities writes into buffers of them. With a pull plan too
-    (``_PULL_PLAN``, or ``_PULL_PLAN_ENC`` for the encoded pull, whose
+    (``plans.PULL_PLAN``, or ``plans.PULL_PLAN_ENC`` for the encoded pull, whose
     second bucket counts active points, not triangles), it cuts the streams
     to the plan's buckets and copies them together with their totals, the
     overflow count, the level set's maximum and the deferred checks, in one
@@ -1090,16 +1059,13 @@ def _finish_global_dense(ls, grid: UniformGrid, iso, okey, overflow_capacity, n_
     for attempt in itertools.count():
         with redo_span("caps", attempt):
             with profile("dense mc"):
-                caps = _MC_CAPS.get(key)
+                caps = plans.MC_CAPS.get(key)
                 streams, totals = _dense_mc(ls, grid, iso, caps)
-                plans = _PULL_PLAN_ENC if streams.mode == "encoded" else _PULL_PLAN
                 if caps is None:
-                    nv, nt = to_host(totals[:2]).tolist()
-                    caps = (_bucket16(nv * 5 // 4), _bucket16(nt * 5 // 4))
-                    _MC_CAPS[key] = caps
+                    caps = plans.plan_mc_caps(key, *to_host(totals[:2]).tolist())
                 vcap, tcap = caps
                 scalars = torch.cat([totals.to(torch.float64)] + tail)
-                plan = plans.get(key)
+                plan = plans.pull_plans(streams.mode == "encoded").get(key)
                 planned = plan is not None and plan[0] <= vcap and plan[1] <= tcap
                 if planned:
                     pull_parts = [scalars] + streams.parts(*plan)
@@ -1117,8 +1083,8 @@ def _finish_global_dense(ls, grid: UniformGrid, iso, okey, overflow_capacity, n_
             if not all(flags):
                 raise SpeculationMiss([bool(f) for f in flags])
             outcome, (total_v, total_t, total_c, n2) = _check_plans(
-                sc, okey=okey, ocap=overflow_capacity, key=key, caps=caps, plans=plans,
-                second=streams.second, iso=iso,
+                sc, okey=okey, ocap=overflow_capacity, key=key, caps=caps,
+                encoded=streams.mode == "encoded", second=streams.second, iso=iso,
                 pulled=None if host is None else (host[0].shape[0], host[1].shape[0]),
                 over_max=over_max,
             )
@@ -1132,56 +1098,23 @@ def _finish_global_dense(ls, grid: UniformGrid, iso, okey, overflow_capacity, n_
             return PendingPull(lambda: streams.mesh(host, total_v, total_t, total_c), [])
 
 
-def _check_plans(sc, *, okey, ocap, key, caps, plans, second, iso, pulled=None, count=True,
-                 over_max=None, drop_both=False):
+def _check_plans(sc, *, second, iso, **plan_args):
     """The plan checks of a dense frame on its pulled scalars ``sc``
     (vertices, triangles and active points, the raster overflow count and
-    the level set's maximum first), in the reference's order. A miss
-    re-plans here and nowhere else:
-
-    - "overflow": the overflow count is past the capacity ``ocap``; the
-      overflow plan grows to twice the count, a power of two (at most
-      ``over_max``);
-    - "caps": an MC total is past the capacities ``caps``; they are planned
-      anew from the totals and the pull plan of ``plans`` is dropped (both
-      pull plans with ``drop_both``);
-    - otherwise the frame's buckets go into ``plans``, the overflow plan is
-      fitted to the count and an empty mesh is checked; "bucket" where a
-      stream outgrew the buckets ``pulled`` (None: nothing was pulled),
-      else "ok".
-
-    ``second`` indexes the totals of the stream that the second bucket
-    counts. ``count``: count the overflow and caps retries in
-    ``SPECULATION_STATS`` (the single-dispatch frame counts nothing).
-    Returns (outcome, (vertices, triangles, active points, the second
-    bucket's total))."""
-    from splashsurf_tpu_torch.global_pipeline import SPECULATION_STATS
-
+    the level set's maximum first): ``plans.check_dense``, which re-plans
+    on a miss, with ``plan_args``; where it finds none, an empty mesh is
+    checked (``check_empty_field``). ``second`` indexes the totals of the
+    stream that the second bucket counts. Returns (outcome, (vertices,
+    triangles, active points, the second bucket's total))."""
     total_v, total_t, total_c, total_over, ls_max = sc[:5].tolist()
     total_v, total_t, total_c, total_over = (
         int(x) for x in (total_v, total_t, total_c, total_over)
     )
     n2 = (total_v, total_t, total_c)[second]
-    totals = (total_v, total_t, total_c, n2)
-    vcap, tcap = caps
-    if total_over > ocap:
-        grown = _pow2(total_over * 2, lo=4096)
-        _OVER_PLAN[okey] = grown if over_max is None else min(grown, over_max)
-        SPECULATION_STATS["overflow_retry"] += count
-        return "overflow", totals
-    if total_v > vcap or total_t > tcap or total_c > tcap:  # the points' list has tcap
-        SPECULATION_STATS["caps_retry"] += count
-        _MC_CAPS[key] = (_bucket16(total_v * 5 // 4), _bucket16(total_t * 5 // 4))
-        for dropped in (_PULL_PLAN, _PULL_PLAN_ENC) if drop_both else (plans,):
-            dropped.pop(key, None)
-        return "caps", totals
-    plans[key] = (min(vcap, _bucket16(total_v)), min(tcap, _bucket16(n2)))
-    _note_overflow_plan(okey, total_over)
-    if total_t == 0:
+    outcome = plans.check_dense((total_v, total_t, total_c, n2, total_over), **plan_args)
+    if outcome in ("ok", "bucket") and total_t == 0:
         check_empty_field(0, ls_max, iso)
-    if pulled is None or total_v > pulled[0] or n2 > pulled[1]:
-        return "bucket", totals
-    return "ok", totals
+    return outcome, (total_v, total_t, total_c, n2)
 
 
 def _resolve_deferred(sc, *host, streams, iso, caps, key, okey, overflow_capacity,
@@ -1191,22 +1124,13 @@ def _resolve_deferred(sc, *host, streams, iso, caps, key, okey, overflow_capacit
     a miss updates the plan it concerns and returns ``("redo",)``, or
     ``("redo_grid",)`` for the grid; otherwise ``("ok", vertices,
     triangles)``, decoded on the host where the pull is encoded."""
-    from splashsurf_tpu_torch import neighbors
-    from splashsurf_tpu_torch.global_pipeline import SPECULATION_STATS
-
-    flags = sc[5:].tolist()
-    if not all(flags):
-        failed = {check_labels[i] for i, ok in enumerate(flags) if not ok}
-        if "grid" in failed:
-            SPECULATION_STATS["grid_miss"] += 1
-            return ("redo_grid",)
-        SPECULATION_STATS["density_miss"] += 1
-        neighbors.clear_density_plan()
-        return ("redo",)
+    missed = plans.note_failed_check(check_labels, sc[5:].tolist())
+    if missed is not None:
+        return ("redo_grid",) if missed == "grid" else ("redo",)
     outcome, (total_v, total_t, total_c, n2) = _check_plans(
         sc, okey=okey, ocap=overflow_capacity, key=key, caps=caps,
-        plans=_PULL_PLAN_ENC if streams.mode == "encoded" else _PULL_PLAN,
-        second=streams.second, iso=iso, pulled=(host[0].shape[0], host[1].shape[0]),
+        encoded=streams.mode == "encoded", second=streams.second, iso=iso,
+        pulled=(host[0].shape[0], host[1].shape[0]),
     )
     if outcome in ("overflow", "caps"):
         return ("redo",)

@@ -30,7 +30,7 @@ from typing import Iterable, Iterator, Optional
 import numpy as np
 import torch
 
-from splashsurf_tpu_torch import kernels
+from splashsurf_tpu_torch import kernels, plans
 from splashsurf_tpu_torch.aabb import Aabb3d
 from splashsurf_tpu_torch.mesh import TriMesh3d
 from splashsurf_tpu_torch.neighbors import NeighborhoodLists
@@ -84,36 +84,14 @@ class SurfaceReconstruction:
         return self
 
 
-# The speculative background grid (reference reconstruction.py:53-76): per
-# (N, dtype, particle radius, support radius, cube size) of a tensor input,
-# the last dense frame's (bucketed grid, unbucketed cell counts). The next
-# frame with that key runs on it without reading its AABB back, and checks
-# it on the device (``_grid_check_device``); a miss re-derives the grid. A
-# key whose cold grid equals the grid that missed (its extent straddles an
-# alignment boundary) stops speculating (``_GRID_NOSPEC``): it would miss on
-# every frame.
-_GRID_PLAN: dict = {}
-_GRID_NOSPEC: set = set()
-_PENDING_NOSPEC: dict = {}
-# Keys whose planning frame ran its discarded warm frame
-# (``SPLASHSURF_TPU_PREWARM``; reference reconstruction.py:62-65): once per
-# key, not again after a miss re-plans it.
-_WARMED: set = set()
-
-
 class GridPlanMiss(RuntimeError):
     """A speculated background grid no longer matches the particle AABB."""
 
 
 def clear_grid_plan() -> None:
     """Forget the grid plans and the warmed keys, and drop the warm frames'
-    CUDA graphs."""
-    from splashsurf_tpu_torch import frame_graph
-
-    _GRID_PLAN.clear()
-    _GRID_NOSPEC.clear()
-    _WARMED.clear()
-    frame_graph.drop()
+    CUDA graphs: ``plans.clear_grid``."""
+    plans.clear_grid()
 
 
 def _grid_check_device(positions: torch.Tensor, grid: UniformGrid, grow: float, raw_nc):
@@ -287,14 +265,12 @@ def _reconstruct_surface(particle_positions, parameters: Parameters, device,
     planned_cold = False
     for attempt in range(2):
         with redo_span("grid", attempt):
-            cached = (
-                attempt == 0 and gkey is not None and gkey in _GRID_PLAN
-                and gkey not in _GRID_NOSPEC
-            )
+            plan = plans.grid_plan(gkey) if attempt == 0 else None
+            cached = plan is not None
             grid_check = None
             with profile("grid"):
                 if cached:
-                    grid, raw_nc = _GRID_PLAN[gkey]
+                    grid, raw_nc = plan
                     grow = parameters.particle_radius + kernel_extents(
                         parameters.compact_support_radius, parameters.cube_size
                     ).kernel_evaluation_radius
@@ -312,7 +288,7 @@ def _reconstruct_surface(particle_positions, parameters: Parameters, device,
             route = choose_route(parameters, grid, len(devices(positions.device.type)))
             if route != "dense" and cached:
                 # the slab and subdomain routes take no deferred check: go cold
-                _GRID_PLAN.pop(gkey, None)
+                plans.GRID_PLAN.pop(gkey, None)
                 continue
             if route == "subdomain":
                 return reconstruct_surface_subdomain_grid(
@@ -328,23 +304,19 @@ def _reconstruct_surface(particle_positions, parameters: Parameters, device,
                     grid_check=grid_check, defer_pull=_defer_pull,
                 )
             except GridPlanMiss:
-                _note_grid_miss(gkey)
+                plans.note_grid_miss(gkey)
                 continue
             if gkey is not None:
-                if _PENDING_NOSPEC.pop(gkey, None) == (grid, raw_nc):
-                    _GRID_NOSPEC.add(gkey)
-                else:
-                    planned_cold = not cached and gkey not in _WARMED
-                    _GRID_PLAN[gkey] = (grid, raw_nc)
+                planned_cold = plans.note_grid(gkey, (grid, raw_nc), cached)
             break
     assert rec is not None
     if (planned_cold and mono_frame_on(positions.dtype)
             and os.environ.get("SPLASHSURF_TPU_PREWARM", "1") == "1"):
-        _WARMED.add(gkey)
+        plans.WARMED.add(gkey)
         try:
             reconstruct_surface(particle_positions, parameters, device=device, _defer_pull=True)
         except Exception:
-            _WARMED.discard(gkey)
+            plans.WARMED.discard(gkey)
             raise
     if isinstance(rec._pending_mesh, DeferredMesh):
         rec._pending_mesh.redo = functools.partial(
@@ -353,19 +325,11 @@ def _reconstruct_surface(particle_positions, parameters: Parameters, device,
     return rec
 
 
-def _note_grid_miss(gkey) -> None:
-    """Drop the grid plan that missed and remember it: if the cold grid
-    equals it, the key stops speculating."""
-    missed = _GRID_PLAN.pop(gkey, None)
-    if missed is not None:
-        _PENDING_NOSPEC[gkey] = missed
-
-
 def _redo_frame(gkey, particle_positions, parameters, device, code: str):
     """A deferred frame whose plans missed, run again synchronously with its
     original input (reference reconstruction.py:465-490)."""
     if code == "redo_grid" and gkey is not None:
-        _note_grid_miss(gkey)
+        plans.note_grid_miss(gkey)
     return reconstruct_surface(particle_positions, parameters, device=device)
 
 

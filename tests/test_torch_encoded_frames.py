@@ -29,6 +29,7 @@ from splashsurf_tpu.ops import global_sweep as jgs
 
 import splashsurf_tpu_torch as pt
 from splashsurf_tpu_torch import global_pipeline as tgp
+from splashsurf_tpu_torch import plans
 from splashsurf_tpu_torch.ops import global_sweep as tgs
 from torch_gate import reset_port_geoslot_hysteresis  # noqa: F401 (autouse)
 
@@ -120,7 +121,7 @@ def test_frame_by_frame_matches_the_reference(dtype):
         assert {k2: v for k2, v in tdelta.items() if k2 != "frames"} == INTENT[k], label
         assert tgs.LAST_PULL["mode"] == "encoded", label
         key = (rec.grid.n_points, f"torch.{dtype}")
-        assert (key in tgs._PULL_PLAN_ENC) and (key not in tgs._PULL_PLAN), label
+        assert (key in plans.PULL_PLAN_ENC) and (key not in plans.PULL_PLAN), label
         _same_mesh(rec, ref, dtype, label)
 
 

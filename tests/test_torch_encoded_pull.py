@@ -31,7 +31,7 @@ from splashsurf_tpu import subdomains as jsub
 from splashsurf_tpu.ops import global_sweep as jgs
 from splashsurf_tpu.uniform_grid import UniformGrid as JGrid
 
-from splashsurf_tpu_torch import native, subdomains
+from splashsurf_tpu_torch import native, plans, subdomains
 from splashsurf_tpu_torch.ops import global_sweep as tgs
 from splashsurf_tpu_torch.uniform_grid import UniformGrid
 
@@ -375,9 +375,10 @@ def test_the_encoded_pull_names_are_ported():
     for mod, names in ((native, ("mc_decode", "mc_decode_sub", "unpack_compact")),
                        (subdomains, ("chunk_mc_counts_encoded", "chunk_mc_encode",
                                      "enable_profile_sync")),
-                       (tgs, ("mc_global_packed", "_PULL_PLAN_ENC", "_pack_cellwise",
+                       (tgs, ("mc_global_packed", "_pack_cellwise",
                               "_pack_encoded", "_decode_packed_mesh", "_decode_cellwise_mesh",
-                              "_unpack_compact", "_dequant_t"))):
+                              "_unpack_compact", "_dequant_t")),
+                       (plans, ("PULL_PLAN_ENC",))):
         for name in names:
             assert hasattr(mod, name), name
     assert native.load_decoder() is not None  # g++ builds it here

@@ -183,11 +183,10 @@ def test_numpy_frames_on_moved_origins_take_the_mono_frame(monkeypatch):
 
 
 def _plan_dicts():
-    from splashsurf_tpu_torch import neighbors, reconstruction
-    from splashsurf_tpu_torch.ops import global_sweep as gs
+    from splashsurf_tpu_torch import plans
 
-    return (neighbors._DENSITY_PLAN, reconstruction._GRID_PLAN, gs._OVER_PLAN, gs._MC_CAPS,
-            gs._PULL_PLAN, gs._PULL_PLAN_ENC)
+    return (plans.DENSITY_PLAN, plans.GRID_PLAN, plans.OVER_PLAN, plans.MC_CAPS,
+            plans.PULL_PLAN, plans.PULL_PLAN_ENC)
 
 
 def _plans():

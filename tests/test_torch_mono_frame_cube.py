@@ -25,6 +25,7 @@ from splashsurf_tpu import reconstruction as jr
 
 import splashsurf_tpu_torch as pt
 from splashsurf_tpu_torch import global_pipeline as tgp
+from splashsurf_tpu_torch import plans
 from splashsurf_tpu_torch import reconstruction as tr
 import torch_mono as tm
 from torch_gate import clear_port_plans, reset_port_geoslot_hysteresis  # noqa: F401 (autouse)
@@ -74,17 +75,17 @@ def test_prewarm_runs_one_discarded_frame_per_planned_key(monkeypatch):
             assert tm._delta(tgp.SPECULATION_STATS, tb) == tm._delta(jgp.SPECULATION_STATS, jb)
             assert tlog == jlog
         # planning: the frame's miss, then the discarded frame's hit; warm: a hit
-        assert tlog == [True] and len(jr._WARMED) == len(tr._WARMED) == 1
-        (gkey,) = tr._WARMED
+        assert tlog == [True] and len(jr._WARMED) == len(plans.WARMED) == 1
+        (gkey,) = plans.WARMED
         assert gkey[0] == len(f) and gkey[1] == "torch.float32"
         # plans cleared but the key warmed: the next planning frame runs none
         tb = dict(tgp.SPECULATION_STATS)
-        tr._GRID_PLAN.clear()
+        plans.GRID_PLAN.clear()
         pt.reconstruct_surface(torch.as_tensor(f), tp)
         assert tm._delta(tgp.SPECULATION_STATS, tb) == {"frames": 1}
         jr.clear_grid_plan()
         tr.clear_grid_plan()
-        assert not jr._WARMED and not tr._WARMED
+        assert not jr._WARMED and not plans.WARMED
     finally:
         tm.clear_jax_plans()
 
@@ -109,7 +110,7 @@ def test_prewarm_off_by_default_in_the_port(monkeypatch):
             tm.set_switches(mp, **env)
             pt.reconstruct_surface(f, tp)
         assert tgp.SPECULATION_STATS["frames"] == frames, env
-        assert len(tr._WARMED) == frames - 1, env
+        assert len(plans.WARMED) == frames - 1, env
 
 
 def test_an_error_in_the_discarded_frame_raises(monkeypatch):
@@ -133,4 +134,4 @@ def test_an_error_in_the_discarded_frame_raises(monkeypatch):
     monkeypatch.setattr(tgp, "reconstruct_surface_global", second_fails)
     with pytest.raises(RuntimeError, match="cannot be captured"):
         pt.reconstruct_surface(f, tp)
-    assert calls == [False, True] and not tr._WARMED
+    assert calls == [False, True] and not plans.WARMED

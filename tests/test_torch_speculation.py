@@ -41,6 +41,7 @@ from splashsurf_tpu.ops import global_sweep as jgs
 import splashsurf_tpu_torch as pt
 from splashsurf_tpu_torch import global_pipeline as tgp
 from splashsurf_tpu_torch import neighbors as tn
+from splashsurf_tpu_torch import plans
 from splashsurf_tpu_torch import reconstruction as tr
 from torch_gate import clear_port_plans, reset_port_geoslot_hysteresis  # noqa: F401 (autouse)
 
@@ -209,7 +210,7 @@ def test_cleared_plans_make_the_next_frame_cold(monkeypatch):
     tr.clear_grid_plan()
     jn.clear_density_plan()
     tn.clear_density_plan()
-    assert not tr._GRID_PLAN and not tn._DENSITY_PLAN
+    assert not plans.GRID_PLAN and not plans.DENSITY_PLAN
     st.reconstruct_surface(jnp.asarray(f), jp)
     pt.reconstruct_surface(torch.as_tensor(f), tp)
     assert calls == {"jax": 1, "port": 1}  # cold: no check

@@ -1,7 +1,7 @@
 """The port's process-global density state, as the reference's is: the
-geoslot hysteresis and the speculative frame plans (the density plan, the
-grid plan, the dense route's overflow, MC and pull plans, packed and
-encoded, the keys warmed by ``SPLASHSURF_TPU_PREWARM`` and the mono
+geoslot hysteresis and the speculative frame plans (``plans``: the density
+plan, the grid plan, the dense route's overflow, MC and pull plans, packed
+and encoded, the keys warmed by ``SPLASHSURF_TPU_PREWARM`` and the mono
 frame's graphs) with their ``SPECULATION_STATS``. Port test files share worker
 processes, so a port test module that reaches a density gate or the dense
 route imports this autouse fixture: each of its tests starts and ends with
@@ -10,21 +10,13 @@ before it in the same worker."""
 
 import pytest
 
-from splashsurf_tpu_torch import global_pipeline, neighbors, reconstruction
-from splashsurf_tpu_torch.ops import global_sweep
+from splashsurf_tpu_torch import neighbors, plans
 
 
 def clear_port_plans():
     """Forget every speculative plan of the port, the warmed keys and the
     warm frames' graphs, and zero its counts."""
-    neighbors.clear_density_plan()
-    reconstruction.clear_grid_plan()  # the warmed keys and the graphs too
-    reconstruction._PENDING_NOSPEC.clear()
-    for plan in (global_sweep._OVER_PLAN, global_sweep._MC_CAPS, global_sweep._PULL_PLAN,
-                 global_sweep._PULL_PLAN_ENC):
-        plan.clear()
-    for k in global_pipeline.SPECULATION_STATS:
-        global_pipeline.SPECULATION_STATS[k] = 0
+    plans.clear()
 
 
 @pytest.fixture(autouse=True)

@@ -41,7 +41,7 @@ from splashsurf_tpu.ops import global_sweep as jgs
 
 import splashsurf_tpu_torch as pt
 from splashsurf_tpu_torch import global_pipeline as tgp
-from splashsurf_tpu_torch.ops import global_sweep as tgs
+from splashsurf_tpu_torch import plans as tplans
 from test_torch_speculation import I, J, K, L, M, R, S, _scene, _spikes
 
 RHO_TOL = dict(rtol=2e-5, atol=1e-5)
@@ -124,12 +124,15 @@ def spy(mp, module, log: list, reasons: list = None) -> None:
     mp.setattr(module, "_try_warm_frame", wrapped)
 
 
-def plans(gs) -> dict:
-    """The dense route's plans, each key without its N (the JAX package
-    pads N) and with the dtype's bare name."""
+def plans(owner) -> dict:
+    """The dense route's plans of the JAX package (``jgs``) or the port
+    (``tplans``, whose names drop the leading underscore), under the JAX
+    names, each key without its N (the JAX package pads N) and with the
+    dtype's bare name."""
     norm = lambda k: tuple(str(x).removeprefix("torch.") if isinstance(x, (str, torch.dtype))
                            else x for x in k if not isinstance(x, int))
-    return {name: {norm(k): v for k, v in getattr(gs, name).items()} for name in PLANS}
+    table = lambda name: getattr(owner, name if owner is jgs else name.lstrip("_"))
+    return {name: {norm(k): v for k, v in table(name).items()} for name in PLANS}
 
 
 def _delta(stats, before) -> dict:
@@ -141,7 +144,7 @@ def run_frames(package: str, frames, dtype: str, mp, params) -> list:
     tensors, so that the grid plan applies): its mono-frame outcomes,
     ``SPECULATION_STATS`` delta, plans after it, mesh and densities."""
     jax_side = package == "jax"
-    mod, gs = (jgp, jgs) if jax_side else (tgp, tgs)
+    mod, owner = (jgp, jgs) if jax_side else (tgp, tplans)
     log: list = []
     reasons = None if jax_side else []
     spy(mp, mod, log, reasons)
@@ -158,7 +161,7 @@ def run_frames(package: str, frames, dtype: str, mp, params) -> list:
         rho = rec.particle_densities
         out.append(dict(
             hits=list(log), reasons=reasons and list(reasons),
-            delta=_delta(mod.SPECULATION_STATS, before), plans=plans(gs),
+            delta=_delta(mod.SPECULATION_STATS, before), plans=plans(owner),
             vertices=np.asarray(rec.mesh.vertices), triangles=np.asarray(rec.mesh.triangles),
             rho=np.asarray(rho) if jax_side else rho.numpy(),
         ))
