@@ -2970,8 +2970,8 @@ def plan_state():
     from splashsurf_tpu_torch import neighbors, plans
 
     return [(d, type(d)(d)) for d in (
-        plans.DENSITY_PLAN, plans.GRID_PLAN, plans.GRID_NOSPEC, plans.PENDING_NOSPEC,
-        plans.OVER_PLAN, plans.MC_CAPS, plans.PULL_PLAN,
+        plans.DENSITY_PLAN, plans.GRID_PLAN, plans.GRID_NOSPEC, plans.GRID_MOVED,
+        plans.PENDING_NOSPEC, plans.OVER_PLAN, plans.MC_CAPS, plans.PULL_PLAN,
         plans.PULL_PLAN_ENC)] + [(neighbors._GEOSLOT_MISSES, list(neighbors._GEOSLOT_MISSES))]
 
 

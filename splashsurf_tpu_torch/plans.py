@@ -15,6 +15,10 @@ process-global, as the reference's are:
   missed (its extent straddles an alignment boundary) would miss on every
   frame, and stops speculating (``GRID_NOSPEC``, through
   ``PENDING_NOSPEC``, the grid that missed);
+- ``GRID_MOVED``: per key whose grid moved within its last
+  ``GRID_STILL_FRAMES`` frames, the frames its grid has held since. Such a
+  key reads its grid before the frame instead of speculating on its plan
+  (``reads_grid``), and ``GRID_CHECK_STATS`` counts those frames;
 - ``WARMED``: the grid keys whose planning frame ran its discarded warm
   frame (``SPLASHSURF_TPU_PREWARM``): once per key, not again after a miss
   re-plans it;
@@ -50,8 +54,22 @@ SPECULATION_STATS = {
     "overflow_retry": 0,
 }
 
+# The tensor frames that held a grid plan but read their grid first
+# ("read"), and of those the frames whose grid had moved ("moved": a grid
+# miss avoided). Apart from SPECULATION_STATS, whose keys are the
+# reference's.
+GRID_CHECK_STATS = {"read": 0, "moved": 0}
+
+# A grid miss throws the whole frame away (~30-40 ms at 13.2M particles on
+# an H100), while reading the grid first costs an aminmax over the positions
+# and one sync (~1 ms): speculating pays only where grids move less often
+# than about once in 40 frames. A key speculates again once its grid held
+# on each of its last GRID_STILL_FRAMES frames.
+GRID_STILL_FRAMES = 8
+
 GRID_PLAN: dict = {}
 GRID_NOSPEC: set = set()
+GRID_MOVED: dict = {}
 PENDING_NOSPEC: dict = {}
 WARMED: set = set()
 DENSITY_PLAN: dict = {}
@@ -76,19 +94,21 @@ def bucket16(n: int, lo: int = 1024) -> int:
 def clear() -> None:
     """Forget every plan and every warmed key, drop every warm frame's
     graph and zero the counts."""
-    for table in (GRID_PLAN, GRID_NOSPEC, PENDING_NOSPEC, WARMED, DENSITY_PLAN, MC_CAPS,
-                  PULL_PLAN, PULL_PLAN_ENC, OVER_PLAN):
+    for table in (GRID_PLAN, GRID_NOSPEC, GRID_MOVED, PENDING_NOSPEC, WARMED, DENSITY_PLAN,
+                  MC_CAPS, PULL_PLAN, PULL_PLAN_ENC, OVER_PLAN):
         table.clear()
     frame_graph.drop()
-    for k in SPECULATION_STATS:
-        SPECULATION_STATS[k] = 0
+    for stats in (SPECULATION_STATS, GRID_CHECK_STATS):
+        for k in stats:
+            stats[k] = 0
 
 
 def clear_grid() -> None:
-    """Forget the grid plans and the warmed keys, and drop the warm frames'
-    graphs."""
+    """Forget the grid plans, the keys' moves and the warmed keys, and drop
+    the warm frames' graphs."""
     GRID_PLAN.clear()
     GRID_NOSPEC.clear()
+    GRID_MOVED.clear()
     WARMED.clear()
     frame_graph.drop()
 
@@ -119,25 +139,49 @@ def grid_plan(gkey):
     return GRID_PLAN.get(gkey)
 
 
+def reads_grid(gkey) -> bool:
+    """Whether a frame of ``gkey`` that holds a grid plan reads its grid
+    first instead of speculating on the plan: the key's grid moved within
+    its last ``GRID_STILL_FRAMES`` frames."""
+    return gkey in GRID_MOVED
+
+
+def _note_moved(gkey, moved: bool) -> None:
+    if moved:
+        GRID_MOVED[gkey] = 0
+    elif gkey in GRID_MOVED:
+        GRID_MOVED[gkey] += 1
+        if GRID_MOVED[gkey] >= GRID_STILL_FRAMES:
+            del GRID_MOVED[gkey]
+
+
 def note_grid_miss(gkey) -> None:
     """Drop the grid plan that missed and remember it: if the cold grid
-    equals it, the key stops speculating."""
+    equals it, the key stops speculating. The key's grid moved."""
+    _note_moved(gkey, True)
     missed = GRID_PLAN.pop(gkey, None)
     if missed is not None:
         PENDING_NOSPEC[gkey] = missed
 
 
-def note_grid(gkey, plan, speculated: bool) -> bool:
+def note_grid(gkey, plan, speculated: bool, read_over=None) -> bool:
     """Record the (grid, unbucketed cell counts) that a dense frame of
-    ``gkey`` ran on; ``speculated``: it ran on the key's plan. A cold grid
-    equal to the one that just missed stops the key speculating instead.
-    Returns whether the frame planned the key from a grid of its own for
-    the first time (a planning frame, which prewarms)."""
+    ``gkey`` ran on; ``speculated``: it ran on the key's plan;
+    ``read_over``: the key's plan, where the frame read its grid first
+    instead (``reads_grid``), which says whether the grid held or moved. A
+    cold grid equal to the one that just missed stops the key speculating
+    instead. Returns whether the frame planned the key from a grid of its
+    own for the first time (a planning frame, which prewarms)."""
+    if read_over is not None:
+        moved = plan != read_over
+        GRID_CHECK_STATS["read"] += 1
+        GRID_CHECK_STATS["moved"] += moved
+        _note_moved(gkey, moved)
     if PENDING_NOSPEC.pop(gkey, None) == plan:
         GRID_NOSPEC.add(gkey)
         return False
     GRID_PLAN[gkey] = plan
-    return not speculated and gkey not in WARMED
+    return not speculated and read_over is None and gkey not in WARMED
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,10 @@ frame before it with the same (N, dtype, radii, cube size), as the
 reference's device arrays do (the grid plan, reconstruction.py:53-76,
 240-275 of the reference): its AABB is not read back; a device check that
 the grid still holds comes back with the mesh, and a miss re-derives the
-grid and runs the frame again.
+grid and runs the frame again. Unlike the reference, a key whose grid
+moved within its last few frames (``plans.reads_grid``) reads its grid
+before the frame instead: the same grid and mesh as the miss's second
+attempt, without the first.
 """
 
 from __future__ import annotations
@@ -266,7 +269,10 @@ def _reconstruct_surface(particle_positions, parameters: Parameters, device,
     for attempt in range(2):
         with redo_span("grid", attempt):
             plan = plans.grid_plan(gkey) if attempt == 0 else None
-            cached = plan is not None
+            # a key whose grid keeps moving reads its grid, and meshes what
+            # a miss's redo would mesh, without the attempt it throws away
+            read_over = plan if plan is not None and plans.reads_grid(gkey) else None
+            cached = plan is not None and read_over is None
             grid_check = None
             with profile("grid"):
                 if cached:
@@ -307,7 +313,7 @@ def _reconstruct_surface(particle_positions, parameters: Parameters, device,
                 plans.note_grid_miss(gkey)
                 continue
             if gkey is not None:
-                planned_cold = plans.note_grid(gkey, (grid, raw_nc), cached)
+                planned_cold = plans.note_grid(gkey, (grid, raw_nc), cached, read_over)
             break
     assert rec is not None
     if (planned_cold and mono_frame_on(positions.dtype)
